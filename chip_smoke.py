@@ -6,21 +6,47 @@ CUDA card, builds the port's kernels from the sources in the checkout
 (into ``build/torch_kernels/``) and exits non-zero if any phase fails:
 
 1. device: a CUDA card is present; prints its name and power limit.
-2. kernels: each hand-written kernel against its plain PyTorch version at
-   the legacy predict shapes (RoIPool: feats [1, 512, 50, 84], rois
-   [1, 300, 4] plus edge rois; float32 and bfloat16; values and argmax
-   must be bit-exact), timed with CUDA events (median of 25 runs).
-3. main path: full-width legacy VGG16 predict (21 classes, seeded random
-   weights, the 800x1344 canvas, batch 1) through the port's
+2. kernels: each hand-written kernel against its plain PyTorch version,
+   timed with CUDA events (median of 25 runs):
+   * RoIPool forward at the legacy predict shapes (feats [1, 512, 50, 84],
+     rois [1, 300, 4] plus edge rois; float32 and bfloat16; values and
+     argmax bit-exact);
+   * RoIPool backward at the legacy train shapes (feats [2, 512, 50, 84],
+     128 rois per image plus edge rois inside the map, argmax from the
+     forward kernel): integer-valued gradients bit-exact in float32 and
+     bfloat16, normal ones within 1e-5 * max|ref| (atomics add in another
+     order).
+3. main path, predict: full-width legacy VGG16 predict (21 classes, seeded
+   random weights, the 800x1344 canvas, batch 1) through the port's
    ``engine.evaluate.evaluate`` on synthetic in-memory VOC batches, in
-   float32 (TF32 off) and bfloat16, with every kernel's launch count
-   reset just before and read just after.
-4. slice vs plain: the same float32 predict with RoIPool forced to the
+   float32 (TF32 off) and bfloat16, with the kernels' launch counts reset
+   just before and read just after.
+4. predict vs plain: the same float32 predict with RoIPool forced to the
    plain version must give identical detections.
-5. small-input reference: GPU float32 predict against the CPU plain path
-   on a 128x192 canvas, greedy-matched (label, IoU >= 0.99, 99% matched,
-   score and box |d| <= 1e-4).
-6. imports: jax and flax were never imported.
+5. small-input predict reference: GPU float32 predict against the CPU plain
+   path on a 128x192 canvas, greedy-matched (label, IoU >= 0.99, 99%
+   matched, score and box |d| <= 1e-4).
+6. main path, train: 20 steps of the legacy train step (800x1344, batch 2,
+   gt padded to 100 slots) on one repeated synthetic batch through
+   ``engine.train.train_one_epoch`` and ``parallel.train_step``, in
+   float32 and under bfloat16 autocast, counts reset just before and read
+   just after: the backward kernel runs once per step, every loss is
+   finite and the mean loss of steps 16-20 is below that of steps 1-5.
+7. train step vs plain: one float32 step from the same weights and noise
+   through the kernels and through plain RoIPool: identical losses;
+   parameter gradients within 1e-5 * max|g| per tensor for the RPN and the
+   head, 2e-4 for the backbone convs, whose gradients sum the reordered
+   atomics of the RoIPool backward over the whole map (the run-to-run
+   spread of two kernel runs is printed beside it).
+8. small-input train reference: one GPU float32 step against the CPU
+   plain path at 192x256 on the same weights, noise and targets: losses
+   within relative 1e-4, gradients within 1e-2 relative L2 per tensor
+   (max|d| / max|g| is printed). A max-pool window whose top two values
+   lie within float32 rounding, or a ReLU input within rounding of 0,
+   routes a gradient differently on the two devices, and one such flip
+   moves a whole row or window of a weight gradient: one pool-1 window
+   moves conv1's gradient by about 2e-3 relative L2 at this input.
+9. imports: jax and flax were never imported.
 
 Its last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -29,6 +55,8 @@ Its last two lines are the kernels' JSON record and
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -39,15 +67,29 @@ import numpy as np
 import torch
 
 from faster_rcnn_pytorch_tpu_torch.engine.evaluate import evaluate
+from faster_rcnn_pytorch_tpu_torch.engine.train import BATCH_KEYS, train_one_epoch
 from faster_rcnn_pytorch_tpu_torch.evaluation.diff import detections_agree
 from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import (
     LEGACY_CONFIG,
+    RoITargets,
+    RPNTargets,
     build_model,
+    draw_train_noise,
+    forward_train,
     init_weights,
     predict,
+    train_losses,
+    train_targets,
 )
 from faster_rcnn_pytorch_tpu_torch.ops import roi_pool as roi_pool_mod
 from faster_rcnn_pytorch_tpu_torch.ops.cuda import extension
+from faster_rcnn_pytorch_tpu_torch.parallel.train_step import (
+    init_train_state,
+    make_lr_schedule,
+    make_optimizer,
+    make_train_step,
+)
+from faster_rcnn_pytorch_tpu_torch.utils.logging import StepTimer
 from faster_rcnn_pytorch_tpu_torch.utils.runtime import prepare_for_inference, set_numerics
 
 CANVAS = (800, 1344)  # canvas_buckets(800, 1333)[0]
@@ -55,6 +97,11 @@ NUM_CLASSES = 21
 N_IMAGES = 8
 THRESHOLD = 0.05
 SEED = 0
+TRAIN_BATCH = 2
+TRAIN_STEPS = 20
+MAX_GT = 100  # the loader's gt slots (config.max_gt)
+TRAIN_LR = 1e-3
+LOG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_logs")
 
 
 class SyntheticVOC:
@@ -177,6 +224,276 @@ def check_roi_pool_kernel(device) -> dict:
     return record
 
 
+def check_roi_pool_backward_kernel(device) -> dict:
+    """The backward kernel against its plain version at the train shapes."""
+    h, w = CANVAS[0] // 16, CANVAS[1] // 16
+    g = torch.Generator().manual_seed(SEED + 1)
+    feats = torch.relu(torch.randn(TRAIN_BATCH, 512, h, w, generator=g))
+    n = LEGACY_CONFIG.roi_samples
+    xy = torch.rand(TRAIN_BATCH, n, 2, generator=g) * torch.tensor([w - 4.0, h - 4.0])
+    wh = torch.rand(TRAIN_BATCH, n, 2, generator=g) * torch.tensor([w / 2.0, h / 2.0])
+    rois = torch.cat([xy, torch.minimum(xy + wh, torch.tensor([w * 1.0, h * 1.0]))], -1)
+    edge = _edge_rois(h, w)
+    edge = edge[((edge >= 0) & (edge <= torch.tensor([w, h, w, h]))).all(1)]
+    rois[:, : len(edge)] = edge  # the backward's rois lie inside the map
+    rois = rois.to(device)
+    record = {
+        "name": "roi_pool_backward",
+        "route": "cuda",
+        "source": "faster_rcnn_pytorch_tpu_torch/ops/cuda/roi_pool.cu",
+        "replaces": "faster_rcnn_pytorch_tpu/ops/pallas/roi_pool_kernel.py:227",
+    }
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        f = feats.to(device, dtype)
+        _, arg = roi_pool_mod.roi_pool_cuda(f, rois, 1.0, 7, with_argmax=True)
+        shape = tuple(f.shape)
+        ints = torch.randint(-3, 4, arg.shape, generator=g).to(device, dtype)
+        got = roi_pool_mod.roi_pool_backward_cuda(ints, arg, shape, dtype)
+        torch.cuda.synchronize()
+        want = roi_pool_mod.roi_pool_backward_reference(ints, arg, shape, dtype)
+        _require(
+            got.dtype == dtype and torch.equal(got, want),
+            f"roi_pool backward != plain on integer gradients ({dtype}): "
+            f"max|d| {float((got.float() - want.float()).abs().max())}",
+        )
+        # Normal gradients, summed in float32 (the map before the cast).
+        normal = torch.randn(arg.shape, generator=g).to(device, dtype)
+        got = roi_pool_mod.roi_pool_backward_cuda(normal, arg, shape, torch.float32)
+        want = roi_pool_mod.roi_pool_backward_reference(normal, arg, shape, torch.float32)
+        diff = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        _require(diff <= 1e-5 * scale, f"roi_pool backward ({dtype}): max|d| {diff} > 1e-5 * {scale}")
+        err = max(err, diff)
+        ms = _median_ms(lambda: roi_pool_mod.roi_pool_backward_cuda(normal, arg, shape, dtype))
+        plain_ms = _median_ms(
+            lambda: roi_pool_mod.roi_pool_backward_reference(normal, arg, shape, dtype)
+        )
+        name = str(dtype).removeprefix("torch.")
+        print(
+            f"roi_pool_backward {name} grad {tuple(normal.shape)} -> feats {shape}: bit-exact on "
+            f"integer gradients, max|d| {diff:.3g} (max|ref| {scale:.3g}) on normal ones, "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 25)",
+            flush=True,
+        )
+        if dtype == torch.float32:
+            record.update(ms=ms, plain_ms=plain_ms)
+    record["max_abs_err"] = err
+    return record
+
+
+def synthetic_train_batch(canvas, seed: int, batch: int = TRAIN_BATCH) -> dict:
+    """The JAX loader's train batch layout: normalised images on the
+    padded canvas (zeros past each image's extent), ``extent``, and 1-3
+    gt boxes per image padded to ``MAX_GT`` slots."""
+    rs = np.random.RandomState(seed)
+    ch, cw = canvas
+    images = np.zeros((batch, ch, cw, 3), np.float32)
+    extents = np.zeros((batch, 2), np.float32)
+    gt_boxes = np.zeros((batch, MAX_GT, 4), np.float32)
+    gt_labels = np.zeros((batch, MAX_GT), np.int32)
+    gt_mask = np.zeros((batch, MAX_GT), bool)
+    for i in range(batch):
+        rh = ch if i % 2 == 0 else int(ch * 0.75)
+        rw = int(cw * (0.9 - 0.1 * (i % 3)))
+        images[i, :rh, :rw] = rs.standard_normal((rh, rw, 3)).astype(np.float32)
+        extents[i] = (rw / cw, rh / ch)
+        k = rs.randint(1, 4)
+        xy = rs.uniform(0.05, 0.5, size=(k, 2)) * extents[i]
+        wh = rs.uniform(0.15, 0.45, size=(k, 2)) * extents[i]
+        gt_boxes[i, :k] = np.concatenate([xy, np.minimum(xy + wh, extents[i])], 1)
+        gt_labels[i, :k] = rs.randint(0, NUM_CLASSES - 1, size=k)
+        gt_mask[i, :k] = True
+    return dict(zip(BATCH_KEYS, (images, extents, gt_boxes, gt_labels, gt_mask)))
+
+
+class RepeatedBatch:
+    """Loader-like stand-in: ``epoch(e)`` yields one batch ``steps`` times."""
+
+    def __init__(self, batch: dict, steps: int):
+        self.batch, self.steps = batch, steps
+
+    def __len__(self):
+        return self.steps
+
+    def epoch(self, epoch: int = 0):
+        for _ in range(self.steps):
+            yield self.batch
+
+
+class LossRecorder:
+    """Scalar sink for ``train_one_epoch`` that keeps the step losses."""
+
+    def __init__(self):
+        self.losses: list[float] = []
+
+    def scalar(self, tag: str, value: float, step: int) -> None:
+        if tag == "train/loss":
+            self.losses.append(value)
+
+
+def run_train(dtype_name: str, device) -> tuple[int, int]:
+    """20 full-width train steps through ``train_one_epoch``; returns the
+    forward and backward kernels' launch counts of the run."""
+    dtype = set_numerics(dtype_name)
+    model = _new_model().to(device)
+    state = init_train_state(model, make_optimizer(model))
+    schedule = make_lr_schedule("constant", TRAIN_LR, 1, TRAIN_STEPS)
+    step_fn = make_train_step(
+        LEGACY_CONFIG, schedule, autocast_dtype=dtype if dtype != torch.float32 else None
+    )
+    timer = StepTimer()
+
+    def timed_step(state, batch, generator):
+        timer.start()
+        metrics = step_fn(state, batch, generator)
+        torch.cuda.synchronize()
+        timer.stop()
+        return metrics
+
+    loader = RepeatedBatch(synthetic_train_batch(CANVAS, SEED + 4), TRAIN_STEPS)
+    recorder = LossRecorder()
+    opts = SimpleNamespace(
+        seed=SEED, vis_step=1, log_dir=LOG_DIR, name=f"train_{dtype_name}", keep_checkpoints=1
+    )
+    roi_pool_mod.roi_pool_cuda.launches = 0
+    roi_pool_mod.roi_pool_backward_cuda.launches = 0
+    train_one_epoch(state, timed_step, loader, 0, opts, schedule, recorder)
+    fwd = roi_pool_mod.roi_pool_cuda.launches
+    bwd = roi_pool_mod.roi_pool_backward_cuda.launches
+    shutil.rmtree(LOG_DIR)
+    losses = recorder.losses
+    _require(len(losses) == TRAIN_STEPS, f"{len(losses)} of {TRAIN_STEPS} losses logged")
+    _require(bool(np.isfinite(losses).all()), f"{dtype_name} train: non-finite loss {losses}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    _require(last < first, f"{dtype_name} train: loss did not fall ({first} -> {last})")
+    _require(bwd == TRAIN_STEPS, f"{dtype_name} train: {bwd} backward launches, want {TRAIN_STEPS}")
+    _require(fwd == TRAIN_STEPS, f"{dtype_name} train: {fwd} forward launches, want {TRAIN_STEPS}")
+    steady = timer.times[5:]
+    print(
+        f"train {dtype_name} {CANVAS[0]}x{CANVAS[1]} batch {TRAIN_BATCH}: "
+        f"{TRAIN_BATCH * len(steady) / sum(steady):.2f} img/s over steps 6-{TRAIN_STEPS} "
+        f"(step p50 {1000 * timer.p50():.1f} ms), mean loss steps 1-5 {first:.4f} -> "
+        f"16-20 {last:.4f}, launches fwd {fwd} bwd {bwd}",
+        flush=True,
+    )
+    return fwd, bwd
+
+
+def _to_device(batch: dict, device) -> dict:
+    return {k: torch.from_numpy(batch[k]).to(device) for k in BATCH_KEYS}
+
+
+def _grads(model) -> dict:
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def _loss_vector(out) -> torch.Tensor:
+    return torch.stack([t.detach() for t in out.losses])
+
+
+def _grad_rel_errors(got: dict, want: dict) -> dict:
+    return {n: float((got[n] - g).abs().max() / g.abs().max()) for n, g in want.items()}
+
+
+def check_train_step_kernel_vs_plain(device) -> None:
+    """One float32 step through the kernels, through plain RoIPool, and
+    through the kernels again (the run-to-run spread of the atomics)."""
+    set_numerics("float32")
+    model = _new_model().to(device)
+    batch = _to_device(synthetic_train_batch(CANVAS, SEED + 2), device)
+    n_anchors = model.canvas_anchors(*CANVAS).shape[0]
+    noise = draw_train_noise(
+        torch.Generator(device=device).manual_seed(SEED),
+        TRAIN_BATCH,
+        n_anchors,
+        LEGACY_CONFIG.post_nms_train + MAX_GT,
+        device,
+    )
+    runs = []
+    for plain in (False, True, False):
+        model.zero_grad(set_to_none=True)
+        before = (roi_pool_mod.roi_pool_cuda.launches, roi_pool_mod.roi_pool_backward_cuda.launches)
+        out = forward_train(
+            model, LEGACY_CONFIG, *(batch[k] for k in BATCH_KEYS), noise=noise, plain_roi_pool=plain
+        )
+        out.losses.total.backward()
+        torch.cuda.synchronize()
+        after = (roi_pool_mod.roi_pool_cuda.launches, roi_pool_mod.roi_pool_backward_cuda.launches)
+        want = before if plain else (before[0] + 1, before[1] + 1)
+        _require(after == want, f"launches {before} -> {after} (plain={plain})")
+        runs.append((_loss_vector(out), _grads(model)))
+    (k_loss, k_grads), (p_loss, p_grads), (_, k2_grads) = runs
+    _require(torch.equal(k_loss, p_loss), f"losses differ: {k_loss.tolist()} vs {p_loss.tolist()}")
+    vs_plain = _grad_rel_errors(k_grads, p_grads)
+    vs_kernel = _grad_rel_errors(k2_grads, k_grads)
+    # Only the backbone convs see the RoIPool features-gradient, whose
+    # float32 sums the atomics reorder; their weight gradients sum that
+    # over up to 2M positions of the map, and cancel, so the shallowest
+    # move most. The RPN and the head see none of it.
+    for name, rel in vs_plain.items():
+        tol = 2e-4 if name.startswith("extractor.") else 1e-5
+        _require(rel <= tol, f"{name}: max|d| / max|g| = {rel} > {tol} (kernel vs plain)")
+    print(
+        f"train step float32 {CANVAS[0]}x{CANVAS[1]}: losses identical with the kernels and "
+        f"with plain RoIPool ({', '.join(f'{v:.5f}' for v in k_loss.tolist())})",
+        flush=True,
+    )
+    for label, errs in (("kernel vs plain", vs_plain), ("kernel vs kernel", vs_kernel)):
+        print(
+            f"  max|d| / max|g| {label}: "
+            + " ".join(f"{n.removesuffix('.weight')}={e:.2g}" for n, e in errs.items() if n.endswith("weight")),
+            flush=True,
+        )
+
+
+def check_small_input_train_reference(device) -> None:
+    """One GPU float32 train step against the CPU plain path at 192x256,
+    on the same weights, noise and targets (targets from the CPU side's
+    RPN outputs: near-tied proposal scores could otherwise sort apart)."""
+    canvas = (192, 256)
+    cfg = LEGACY_CONFIG
+    set_numerics("float32")
+    batch = synthetic_train_batch(canvas, SEED + 3)
+    cpu_model, gpu_model = _new_model(), _new_model().to(device)
+    anchors = torch.from_numpy(cpu_model.canvas_anchors(*canvas))
+    noise = draw_train_noise(
+        torch.Generator().manual_seed(SEED), TRAIN_BATCH, anchors.shape[0],
+        cfg.post_nms_train + MAX_GT, "cpu",
+    )
+    results = []
+    targets = None
+    for model, dev in ((cpu_model, torch.device("cpu")), (gpu_model, device)):
+        b = _to_device(batch, dev)
+        feats = model.features(b["image"].permute(0, 3, 1, 2).contiguous())
+        rpn_cls, rpn_reg = model.rpn_out(feats)
+        if targets is None:
+            targets = train_targets(
+                cfg, anchors, rpn_cls, rpn_reg, *(b[k] for k in BATCH_KEYS[1:]), noise
+            )
+        rpn_tg = RPNTargets(*(t.to(dev) for t in targets[0]))
+        roi_tg = RoITargets(*(t.to(dev) for t in targets[1]))
+        out = train_losses(model, cfg, feats, rpn_cls, rpn_reg, rpn_tg, roi_tg)
+        out.losses.total.backward()
+        results.append((_loss_vector(out).cpu(), {n: g.cpu() for n, g in _grads(model).items()}))
+    (c_loss, c_grads), (g_loss, g_grads) = results
+    rel_loss = float(((g_loss - c_loss).abs() / c_loss.abs().clamp(min=1e-12)).max())
+    _require(rel_loss <= 1e-4, f"small-input train: losses {g_loss.tolist()} vs {c_loss.tolist()}")
+    worst_max, worst_l2 = 0.0, 0.0
+    for name, want in c_grads.items():
+        d = g_grads[name] - want
+        rel = float(d.norm() / want.norm())
+        _require(rel <= 1e-2, f"small-input train {name}: relative L2 {rel} > 1e-2")
+        worst_l2 = max(worst_l2, rel)
+        worst_max = max(worst_max, float(d.abs().max() / want.abs().max()))
+    print(
+        f"small input train {canvas}: GPU vs CPU plain path, losses within {rel_loss:.3g} "
+        f"relative, gradients within {worst_l2:.3g} relative L2 (max|d| / max|g| "
+        f"{worst_max:.3g})",
+        flush=True,
+    )
+
+
 def _detections_equal(a: dict, b: dict) -> bool:
     return a.keys() == b.keys() and all(
         np.array_equal(a[i][k], b[i][k]) for i in a for k in ("boxes", "labels", "scores")
@@ -273,11 +590,12 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
     device = torch.device("cuda", 0)
-    # Deterministic cuDNN algorithms: phase 4 compares two float32 runs bit for bit.
+    # Deterministic cuDNN algorithms: phases 4 and 7 compare two float32 runs bit for bit.
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.deterministic = True
 
     record = check_roi_pool_kernel(device)
+    bwd_record = check_roi_pool_backward_kernel(device)
 
     launches = 0
     detections = {}
@@ -293,7 +611,6 @@ def main() -> int:
             _require(n_det > 0, "float32 predict found no detections to compare")
             detections = result["detections"]
         launches += count
-    record["launches"] = launches
 
     roi_pool_mod.roi_pool_cuda.launches = 0
     plain, _ = run_predict(_new_model(), "float32", device, CANVAS, plain_roi_pool=True)
@@ -306,10 +623,21 @@ def main() -> int:
 
     check_small_input_reference(device)
 
+    bwd_launches = 0
+    for dtype_name in ("float32", "bfloat16"):
+        fwd, bwd = run_train(dtype_name, device)
+        launches += fwd
+        bwd_launches += bwd
+    record["launches"] = launches
+    bwd_record["launches"] = bwd_launches
+
+    check_train_step_kernel_vs_plain(device)
+    check_small_input_train_reference(device)
+
     leaked = [m for m in ("jax", "flax") if m in sys.modules]
     _require(not leaked, f"imported {leaked}")
 
-    print(json.dumps({"kernels": [record]}), flush=True)
+    print(json.dumps({"kernels": [record, bwd_record]}), flush=True)
     print(
         json.dumps(
             {

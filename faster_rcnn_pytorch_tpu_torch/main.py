@@ -1,0 +1,176 @@
+"""Train CLI of the port (counterpart of ``faster_rcnn_pytorch_tpu/main.py``).
+
+``python -m faster_rcnn_pytorch_tpu_torch.main --data_root ./data``
+
+One device (``utils.runtime.select_device``), legacy generation, VOC.
+Orchestration: options -> loaders -> model -> weights (seeded fresh init,
+or a reference-layout ``.pth``/``.pth.tar``) -> LR schedule -> optimizer
+-> resume (from epoch ``start_epoch - 1``, or ``--checkpoint x.pt``) ->
+epochs of train, evaluate and best-by-mAP checkpoint.
+
+``--dtype bfloat16`` runs forward and backward under
+``torch.autocast(bfloat16)`` over float32 master weights (the JAX
+package's ``dtype=bf16, param_dtype=float32``); the losses stay float32.
+``--dtype float32`` means TF32 off. Flags of slices not ported yet raise
+``NotImplementedError`` naming their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import sys
+
+import torch
+
+# What this slice refuses, and where each lands (ROADMAP.md Queue A).
+_NOT_PORTED = (
+    (lambda o: o.model_generation == "fpn", "--model_generation fpn", "items 11-12"),
+    (lambda o: o.data_type == "coco", "--data_type coco", "items 11-12"),
+    (lambda o: o.model_parallel > 1, "--model_parallel > 1", "item 14"),
+    (lambda o: o.num_hosts > 1, "--num_hosts > 1", "item 14"),
+    (lambda o: bool(o.coordinator), "--coordinator", "item 14"),
+    (lambda o: o.num_devices > 1, "--num_devices > 1", "item 14"),
+    (lambda o: o.remat_backbone, "--remat_backbone", "item 14"),
+    (lambda o: bool(o.pretrained_backbone), "--pretrained_backbone", "item 15"),
+    (lambda o: o.checkpoint == "pretrained", "--checkpoint pretrained", "item 15"),
+    (lambda o: o.ckpt_backend == "orbax", "--ckpt_backend orbax", "item 14"),
+    (lambda o: o.async_checkpoint, "--async_checkpoint", "item 14"),
+)
+
+
+def refuse_unported(opts) -> None:
+    for test, flag, item in _NOT_PORTED:
+        if test(opts):
+            raise NotImplementedError(
+                f"{flag} is not ported to PyTorch yet; see ROADMAP.md Queue A {item}"
+            )
+
+
+def _preflight(model, train_loader, opts) -> None:
+    """Warn when the legacy boundary filter leaves under 1% of the anchors
+    trainable (small canvases; the RPN then cannot learn)."""
+    from faster_rcnn_pytorch_tpu_torch.models.anchors import inside_fraction
+
+    for ch, cw in {train_loader.canvas_land, train_loader.canvas_port}:
+        ext = (min(opts.resize / cw, 1.0), min(opts.resize / ch, 1.0))
+        frac = inside_fraction(model.canvas_anchors(ch, cw), ext)
+        if frac < 0.01:
+            print(
+                f"WARNING: only {frac:.2%} of RPN anchors fit inside a square "
+                f"image's extent on the {ch}x{cw} canvas; the boundary filter "
+                "will leave the RPN nearly untrainable. The legacy anchors are "
+                "128-512px: raise --resize to >=320.",
+                flush=True,
+            )
+
+
+def main(argv=None) -> int:
+    # The JAX package's option parser and data loader are numpy/Pillow
+    # host code with no jax import; the port reuses them.
+    from faster_rcnn_pytorch_tpu.config import load_options
+    from faster_rcnn_pytorch_tpu.data.loader import build_dataloader
+
+    from faster_rcnn_pytorch_tpu_torch.engine.evaluate import evaluate
+    from faster_rcnn_pytorch_tpu_torch.engine.train import train_one_epoch
+    from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import build_model, init_weights
+    from faster_rcnn_pytorch_tpu_torch.parallel.train_step import (
+        init_train_state,
+        make_lr_schedule,
+        make_optimizer,
+        make_train_step,
+    )
+    from faster_rcnn_pytorch_tpu_torch.utils.checkpoint import (
+        checkpoint_path,
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from faster_rcnn_pytorch_tpu_torch.utils.convert import load_legacy_checkpoint
+    from faster_rcnn_pytorch_tpu_torch.utils.logging import ScalarWriter, trace_context
+    from faster_rcnn_pytorch_tpu_torch.utils.runtime import select_device, set_numerics
+
+    opts = load_options(argv)
+    refuse_unported(opts)
+    dtype = set_numerics(opts.dtype)
+    device = select_device()
+    autocast_dtype = dtype if dtype != torch.float32 else None
+
+    train_loader, test_loader = build_dataloader(opts)
+    model, cfg = build_model(opts.model_generation, opts.num_classes)
+    if cfg.rpn_boundary_filter:
+        _preflight(model, train_loader, opts)
+
+    if opts.checkpoint.endswith((".pth.tar", ".pth")):
+        model.load_state_dict(load_legacy_checkpoint(opts.checkpoint), strict=True)
+        print(f"imported torch checkpoint {opts.checkpoint}", flush=True)
+    elif opts.checkpoint and not opts.checkpoint.endswith(".pt"):
+        raise ValueError(
+            f"--checkpoint {opts.checkpoint!r}: the port reads .pth/.pth.tar "
+            "weights or its own .pt train checkpoints"
+        )
+    else:
+        init_weights(model, torch.Generator().manual_seed(opts.seed))
+    model = model.to(device)
+
+    steps_per_epoch = max(len(train_loader), 1)
+    schedule = make_lr_schedule(
+        opts.scheduler,
+        opts.lr,
+        opts.epoch,
+        steps_per_epoch,
+        milestones=tuple(opts.milestones),
+        eta_min=opts.eta_min,
+        warmup_epochs=opts.warmup_epoch,
+        cycle_mult=opts.cycle_mult,
+        restart_gamma=opts.cycle_gamma,
+        first_cycle_epochs=opts.first_cycle_epoch,
+    )
+    optimizer = make_optimizer(model, momentum=opts.momentum, weight_decay=opts.weight_decay)
+    state = init_train_state(model, optimizer)
+
+    if opts.start_epoch > 0:
+        path = checkpoint_path(opts.log_dir, opts.name, opts.start_epoch - 1)
+        state, meta = load_checkpoint(path, state)
+        print(f"resumed from {path} (epoch {meta.get('epoch')})", flush=True)
+    elif opts.checkpoint.endswith(".pt"):
+        state, _ = load_checkpoint(opts.checkpoint, state)
+        print(f"loaded checkpoint {opts.checkpoint}", flush=True)
+
+    accum = max(opts.grad_accum, 1)
+    if train_loader.batch_size % accum:
+        raise SystemExit(
+            f"--grad_accum {accum} must divide the batch size {train_loader.batch_size}"
+        )
+    step_fn = make_train_step(cfg, schedule, grad_accum=accum, autocast_dtype=autocast_dtype)
+    writer = ScalarWriter(opts.log_dir, opts.name, opts.log_backend)
+    eval_autocast = (
+        torch.autocast(device.type, dtype=autocast_dtype)
+        if autocast_dtype is not None
+        else contextlib.nullcontext()
+    )
+
+    best_map = -1.0
+    for epoch in range(opts.start_epoch, opts.epoch):
+        with trace_context(
+            f"{opts.log_dir}/{opts.name}/trace",
+            enabled=opts.profile and epoch == opts.start_epoch,
+        ):
+            state = train_one_epoch(
+                state, step_fn, train_loader, epoch, opts, schedule, writer
+            )
+        with eval_autocast:
+            result = evaluate(model, cfg, test_loader, score_threshold=opts.thres)
+        writer.scalar("eval/mAP", result["map"], epoch)
+        print(f"epoch {epoch}: mAP = {result['map']:.4f}", flush=True)
+        if result["map"] > best_map:
+            best_map = result["map"]
+            save_checkpoint(
+                checkpoint_path(opts.log_dir, opts.name, "best"),
+                state,
+                metadata={"epoch": epoch, "map": best_map},
+            )
+    writer.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,6 @@
 """Legacy (VGG16) anchors, in numpy.
 
-A copy of ``legacy_anchor_base`` / ``legacy_anchors`` from
+A copy of ``legacy_anchor_base`` / ``legacy_anchors`` / ``inside_fraction`` from
 ``faster_rcnn_pytorch_tpu/models/anchors.py``, so the port needs nothing
 of the JAX package: base size 16, scales {8, 16, 32}, ratios
 {0.5, 1, 2} (``w = 16*s*sqrt(r)``, ``h = 16*s*sqrt(1/r)``), centers at
@@ -56,3 +56,17 @@ def legacy_anchors(
     anchors = (base[None, :, :] + shift[:, None, :]).reshape(-1, 4)
     anchors /= np.array([width, height, width, height], dtype=np.float32)
     return anchors.astype(np.float32)
+
+
+def inside_fraction(anchors: np.ndarray, extent: tuple[float, float]) -> float:
+    """Fraction of ``anchors`` lying fully inside an ``(ex, ey)`` extent:
+    the eligibility test of the RPN boundary filter (``rpn_targets``).
+    The train CLI warns when small canvases leave almost none."""
+    ex, ey = float(extent[0]), float(extent[1])
+    inside = (
+        (anchors[:, 0] >= 0.0)
+        & (anchors[:, 1] >= 0.0)
+        & (anchors[:, 2] <= ex)
+        & (anchors[:, 3] <= ey)
+    )
+    return float(inside.mean()) if len(anchors) else 0.0

@@ -22,20 +22,25 @@ import torch
 from torch import nn
 
 from faster_rcnn_pytorch_tpu_torch.models.anchors import legacy_anchors
+from faster_rcnn_pytorch_tpu_torch.models.losses import LossBreakdown, frcnn_loss
 from faster_rcnn_pytorch_tpu_torch.models.rpn import RPNHead, propose, softmax
+from faster_rcnn_pytorch_tpu_torch.models.targets import (
+    REG_STD,
+    RoITargets,
+    RPNTargets,
+    frcnn_targets,
+    rpn_targets,
+)
 from faster_rcnn_pytorch_tpu_torch.models.vgg import VGG16Features
 from faster_rcnn_pytorch_tpu_torch.ops.boxes import cxcy_to_xy, decode, xy_to_cxcy
 from faster_rcnn_pytorch_tpu_torch.ops.nms import multiclass_nms
 from faster_rcnn_pytorch_tpu_torch.ops.roi_pool import roi_pool_batch
 
-# Box-regression target normalisation (models/targets.py REG_STD).
-REG_STD = (0.1, 0.1, 0.2, 0.2)
-
 
 @dataclasses.dataclass(frozen=True)
 class DetectorConfig:
     """Static hyper-parameters of one model generation (the JAX package's
-    ``DetectorConfig``; the train-only fields wait for the train slice)."""
+    ``DetectorConfig``)."""
 
     num_classes: int = 21
     pre_nms_train: int = 12000
@@ -134,6 +139,169 @@ def init_weights(model: LegacyFRCNN, generator: torch.Generator) -> LegacyFRCNN:
             m.weight.copy_(w)
             m.bias.zero_()
     return model
+
+
+class TrainStepOutput(NamedTuple):
+    losses: LossBreakdown
+    num_pos_roi: torch.Tensor
+    num_pos_rpn: torch.Tensor
+
+
+class TrainNoise(NamedTuple):
+    """Uniform noise of the four sampling quotas, per image. The JAX
+    package draws each from its own key: for image ``i`` of
+    ``split(rng, (B, 3))``, ``split(key[i, 0])`` gives the RPN pos/neg
+    noise and ``split(key[i, 1])`` the RoI pos/neg noise."""
+
+    rpn_pos: torch.Tensor  # [B, A]
+    rpn_neg: torch.Tensor  # [B, A]
+    roi_pos: torch.Tensor  # [B, post_nms_train + G]
+    roi_neg: torch.Tensor  # [B, post_nms_train + G]
+
+
+def draw_train_noise(
+    generator: torch.Generator, b: int, num_anchors: int, num_candidates: int, device
+) -> TrainNoise:
+    def uniform(n):
+        return torch.rand((b, n), generator=generator, device=device)
+
+    return TrainNoise(
+        uniform(num_anchors), uniform(num_anchors), uniform(num_candidates), uniform(num_candidates)
+    )
+
+
+def _stack(parts):
+    return type(parts[0])(*(torch.stack(t) for t in zip(*parts)))
+
+
+def train_targets(
+    cfg: DetectorConfig,
+    anchors: torch.Tensor,
+    rpn_cls: torch.Tensor,
+    rpn_reg: torch.Tensor,
+    extents: torch.Tensor,
+    gt_boxes: torch.Tensor,
+    gt_labels: torch.Tensor,
+    gt_mask: torch.Tensor,
+    noise: TrainNoise,
+) -> tuple[RPNTargets, RoITargets]:
+    """Per image (the JAX package's ``vmap``, written out): train-budget
+    proposals, then RPN and RoI targets. Returns both batched, ``[B, A]``
+    and ``[B, S]``. No gradient flows through them."""
+    rpn_tg, roi_tg = [], []
+    for i in range(rpn_cls.shape[0]):
+        props = propose(
+            rpn_cls[i],
+            rpn_reg[i],
+            anchors,
+            extents[i],
+            pre_k=cfg.pre_nms_train,
+            post_k=cfg.post_nms_train,
+            nms_iou=cfg.rpn_nms_iou,
+            min_size=cfg.proposal_min_size,
+            nms_tile=cfg.rpn_nms_tile_train or cfg.rpn_nms_tile,
+        )
+        rpn_tg.append(
+            rpn_targets(
+                anchors,
+                gt_boxes[i],
+                gt_mask[i],
+                extents[i],
+                noise.rpn_pos[i],
+                noise.rpn_neg[i],
+                pos_iou=cfg.rpn_pos_iou,
+                neg_iou=cfg.rpn_neg_iou,
+                pos_quota=cfg.rpn_pos_quota,
+                total_quota=cfg.rpn_total_quota,
+                allow_ties=cfg.rpn_allow_ties,
+                boundary_filter=cfg.rpn_boundary_filter,
+            )
+        )
+        roi_tg.append(
+            frcnn_targets(
+                props.rois,
+                props.valid,
+                gt_boxes[i],
+                gt_labels[i],
+                gt_mask[i],
+                noise.roi_pos[i],
+                noise.roi_neg[i],
+                num_samples=cfg.roi_samples,
+                pos_quota=cfg.roi_pos_quota,
+                pos_iou=cfg.roi_pos_iou,
+                label_offset=cfg.label_offset,
+            )
+        )
+    return _stack(rpn_tg), _stack(roi_tg)
+
+
+def train_losses(
+    model: LegacyFRCNN,
+    cfg: DetectorConfig,
+    feats: torch.Tensor,
+    rpn_cls: torch.Tensor,
+    rpn_reg: torch.Tensor,
+    rpn_tg: RPNTargets,
+    roi_tg: RoITargets,
+    plain_roi_pool: bool = False,
+) -> TrainStepOutput:
+    """The head on the sampled rois, the regression row of each target
+    class, and the four-part loss."""
+    head_cls, head_reg = model.head(feats, roi_tg.rois, plain_roi_pool=plain_roi_pool)
+    b, s = roi_tg.labels.shape
+    head_reg = head_reg.reshape(b, s, cfg.num_classes, 4)
+    safe_cls = roi_tg.labels.clamp(0, cfg.num_classes - 1).long()
+    head_reg = head_reg.gather(2, safe_cls[:, :, None, None].expand(b, s, 1, 4))[:, :, 0, :]
+    losses = frcnn_loss(
+        (rpn_cls, rpn_reg, head_cls, head_reg),
+        (rpn_tg.labels, rpn_tg.reg_targets, roi_tg.labels, roi_tg.reg_targets),
+    )
+    return TrainStepOutput(
+        losses=losses,
+        num_pos_roi=roi_tg.is_pos.sum(),
+        num_pos_rpn=(rpn_tg.labels == 1).sum(),
+    )
+
+
+def forward_train(
+    model: LegacyFRCNN,
+    cfg: DetectorConfig,
+    images: torch.Tensor,
+    extents: torch.Tensor,
+    gt_boxes: torch.Tensor,
+    gt_labels: torch.Tensor,
+    gt_mask: torch.Tensor,
+    generator: torch.Generator | None = None,
+    noise: TrainNoise | None = None,
+    plain_roi_pool: bool = False,
+) -> TrainStepOutput:
+    """One training forward pass: the losses of a padded batch.
+
+    Args:
+      images: ``[B, H, W, 3]`` normalised canvas batch (NHWC, as the
+        loader gives it; the network runs NCHW).
+      extents: ``[B, 2]`` (w_frac, h_frac) valid extent per image.
+      gt_boxes: ``[B, G, 4]`` xyxy in [0, 1] canvas coords; gt_labels
+        ``[B, G]``; gt_mask ``[B, G]``.
+      generator: draws the sampling noise (on the images' device) unless
+        ``noise`` is given; a test hands the JAX package's noise over.
+      plain_roi_pool: tests only (see :meth:`LegacyFRCNN.head`).
+
+    The JAX package's slab-batched VGG stem (``train=True``) is a TPU
+    layout with the same numbers; this is the plain stack.
+    """
+    b, canvas_h, canvas_w = images.shape[:3]
+    dev = images.device
+    anchors = torch.from_numpy(model.canvas_anchors(canvas_h, canvas_w)).to(dev)
+    feats = model.features(images.permute(0, 3, 1, 2).contiguous())
+    rpn_cls, rpn_reg = model.rpn_out(feats)
+    if noise is None:
+        n_cand = cfg.post_nms_train + gt_boxes.shape[1]
+        noise = draw_train_noise(generator, b, anchors.shape[0], n_cand, dev)
+    rpn_tg, roi_tg = train_targets(
+        cfg, anchors, rpn_cls, rpn_reg, extents, gt_boxes, gt_labels, gt_mask, noise
+    )
+    return train_losses(model, cfg, feats, rpn_cls, rpn_reg, rpn_tg, roi_tg, plain_roi_pool)
 
 
 class Detections(NamedTuple):

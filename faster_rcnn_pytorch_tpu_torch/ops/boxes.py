@@ -76,5 +76,31 @@ def box_iou(set_1: torch.Tensor, set_2: torch.Tensor):
     return iou, union
 
 
+def masked_iou(boxes: torch.Tensor, gt: torch.Tensor, gt_mask: torch.Tensor, eps: float = 1e-5):
+    """IoU of ``boxes [..., n, 4]`` vs padded ``gt [..., g, 4]``; padded gt
+    slots (``gt_mask`` False) get -1, so no argmax or threshold picks them.
+
+    The JAX package sends 2-D problems with ``n*g >= 2**20`` to its Pallas
+    IoU kernel on a TPU; the legacy train step stays below that gate
+    (``frcnn_targets`` is 2100 x 100), so the port has the plain path only.
+    """
+    iou = jaccard_iou(boxes, gt, eps=eps)
+    return torch.where(gt_mask[..., None, :], iou, -1.0)
+
+
+def masked_iou_gt_major(
+    gt: torch.Tensor, gt_mask: torch.Tensor, boxes: torch.Tensor, eps: float = 1e-5
+):
+    """:func:`masked_iou` transposed, ``[G, N]``, computed per box
+    component with the JAX package's formula order."""
+    gx1, gy1, gx2, gy2 = (gt[:, i][:, None] for i in range(4))
+    bx1, by1, bx2, by2 = (boxes[:, i][None, :] for i in range(4))
+    iw = (torch.minimum(gx2, bx2) - torch.maximum(gx1, bx1)).clamp(min=0.0)
+    ih = (torch.minimum(gy2, by2) - torch.maximum(gy1, by1)).clamp(min=0.0)
+    inter = iw * ih
+    union = (gx2 - gx1) * (gy2 - gy1) + (bx2 - bx1) * (by2 - by1) - inter + eps
+    return torch.where(gt_mask[:, None], inter / union, -1.0)
+
+
 def clip_boxes(xy: torch.Tensor, lo: float = 0.0, hi: float = 1.0):
     return xy.clamp(lo, hi)

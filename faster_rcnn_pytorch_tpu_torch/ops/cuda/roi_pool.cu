@@ -1,4 +1,5 @@
-// RoIPool forward (7x7 max pooling with integer bins) for Hopper, sm_90a.
+// RoIPool forward (7x7 max pooling with integer bins) and its backward
+// (further down) for Hopper, sm_90a.
 //
 // Replaces the TPU kernel faster_rcnn_pytorch_tpu/ops/pallas/roi_pool_kernel.py
 // (_roi_pool_kernel, launched by _roi_pool_pallas_impl and
@@ -118,11 +119,86 @@ cudaError_t launch(const void* feat, const float* rois, int num_rois,
   return cudaGetLastError();
 }
 
+// RoIPool backward: the features-gradient.
+//
+// Replaces the TPU kernel faster_rcnn_pytorch_tpu/ops/pallas/roi_pool_kernel.py
+// (_roi_pool_bwd_kernel, launched by _roi_pool_bwd_pallas from the custom VJPs
+// _roi_pool_bwd and _roi_pool_batch_bwd). The Pallas kernel walks one roi per
+// sequential grid step and adds a one-hot window of the upstream gradient into
+// an [h, w_pad, c] map resident in VMEM, which works because TPU grid steps run
+// in order. Here blocks run in parallel in no order, so every upstream element
+// (roi, c, ph, pw) is one thread that reads its argmax cell and atomicAdds its
+// gradient into a zeroed float32 [B, C, h, w] map:
+//
+//   dfeat[b, c, y, x] = sum over (r in image b, ph, pw) with
+//                       argmax[r, c, ph, pw] == y * w + x of g[r, c, ph, pw]
+//
+// Empty bins (argmax -1) add nothing. The argmax is the forward kernel's
+// row * w + col, not the TPU's row * w_pad + col. The sum is float32 whatever
+// the gradient's dtype (bf16 is widened with __bfloat162float); the wrapper
+// casts the map to the features' dtype afterwards, as the JAX VJP does.
+//
+// What bounds it on an H100: bytes. At the legacy train shape (B 2, 128 rois
+// per image, C 512, 7x7) the upstream gradient is 6.4 M elements (25.7 MB in
+// f32) and the argmax another 25.7 MB, both read once and coalesced (threads
+// walk the contiguous [B*n, C, P, P] layout). The 17 MB float32 map sits in
+// the 50 MB L2, where the atomics resolve; 128 rois share few cells of one
+// channel, so contention is low. Atomics add in an order that changes from
+// run to run: the result is bit-exact against the plain version only where
+// every order gives the same float32 sum (e.g. integer-valued gradients).
+template <typename G>
+__global__ void roi_pool_bwd_kernel(const G* __restrict__ grad,
+                                    const int32_t* __restrict__ argmax,
+                                    int rois_per_image, int channels, int plane,
+                                    int pooled_area, int64_t total,
+                                    float* __restrict__ dfeat) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       idx < total; idx += stride) {
+    const int pos = argmax[idx];
+    if (pos < 0) continue;
+    const int c = static_cast<int>((idx / pooled_area) % channels);
+    const int64_t r = idx / (static_cast<int64_t>(pooled_area) * channels);
+    const int64_t b = r / rois_per_image;
+    atomicAdd(dfeat + (b * channels + c) * plane + pos, to_f32(grad[idx]));
+  }
+}
+
+template <typename G>
+cudaError_t launch_bwd(const void* grad, const int32_t* argmax, int num_rois,
+                       int rois_per_image, int channels, int height, int width,
+                       int pooled, float* dfeat, cudaStream_t stream) {
+  const int pooled_area = pooled * pooled;
+  const int64_t total = static_cast<int64_t>(num_rois) * channels * pooled_area;
+  if (total == 0) return cudaSuccess;
+  constexpr int kThreads = 256;
+  const int64_t blocks = (total + kThreads - 1) / kThreads;
+  const int grid = static_cast<int>(blocks < (1 << 20) ? blocks : (1 << 20));
+  roi_pool_bwd_kernel<G><<<grid, kThreads, 0, stream>>>(
+      static_cast<const G*>(grad), argmax, rois_per_image, channels, height * width,
+      pooled_area, total, dfeat);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Plain C++ entry point (no PyTorch headers here, so nvcc stays fast); the
-// binding in roi_pool_binding.cpp checks the tensors and calls it on
-// PyTorch's current stream. Returns the launch's cudaError_t.
+// Plain C++ entry points (no PyTorch headers here, so nvcc stays fast); the
+// binding in roi_pool_binding.cpp checks the tensors and calls them on
+// PyTorch's current stream. Each returns the launch's cudaError_t.
+int roi_pool_backward_launch(const void* grad, bool grad_is_bf16, const int32_t* argmax,
+                             int num_rois, int rois_per_image, int channels,
+                             int height, int width, int pooled, float* dfeat,
+                             void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      grad_is_bf16
+          ? launch_bwd<__nv_bfloat16>(grad, argmax, num_rois, rois_per_image, channels,
+                                      height, width, pooled, dfeat, s)
+          : launch_bwd<float>(grad, argmax, num_rois, rois_per_image, channels, height,
+                              width, pooled, dfeat, s);
+  return static_cast<int>(err);
+}
+
 int roi_pool_forward_launch(const void* feat, bool feat_is_bf16, const float* rois,
                             int num_rois, int rois_per_image, int channels,
                             int height, int width, int pooled, float spatial_scale,

@@ -1,6 +1,6 @@
-// PyTorch binding of the RoIPool kernel in roi_pool.cu. The only source
+// PyTorch binding of the RoIPool kernels in roi_pool.cu. The only source
 // that includes PyTorch's headers; it checks the tensors the Python
-// wrapper allocated and launches on the current CUDA stream.
+// wrappers allocated and launches on the current CUDA stream.
 
 #include <torch/extension.h>
 
@@ -13,6 +13,10 @@ int roi_pool_forward_launch(const void* feat, bool feat_is_bf16, const float* ro
                             int num_rois, int rois_per_image, int channels,
                             int height, int width, int pooled, float spatial_scale,
                             void* out, int32_t* argmax, void* stream);
+int roi_pool_backward_launch(const void* grad, bool grad_is_bf16, const int32_t* argmax,
+                             int num_rois, int rois_per_image, int channels,
+                             int height, int width, int pooled, float* dfeat,
+                             void* stream);
 const char* roi_pool_error_string(int err);
 
 // features [B, C, H, W] f32/bf16, rois [B, n, 4] f32 (all contiguous, one
@@ -60,7 +64,40 @@ void roi_pool_forward(const at::Tensor& features, const at::Tensor& rois,
   TORCH_CHECK(err == 0, "roi_pool_forward launch failed: ", roi_pool_error_string(err));
 }
 
+// grad [B, n, C, P, P] f32/bf16 and argmax [B, n, C, P, P] int32 (contiguous)
+// -> atomically adds into dfeat [B, C, H, W] float32, which the caller zeroed.
+void roi_pool_backward(const at::Tensor& grad, const at::Tensor& argmax,
+                       at::Tensor& dfeat) {
+  TORCH_CHECK(grad.is_cuda() && argmax.is_cuda() && dfeat.is_cuda(),
+              "roi_pool_backward: tensors must be on a CUDA device");
+  TORCH_CHECK(grad.dim() == 5 && grad.size(3) == grad.size(4),
+              "grad must be [B, n, C, P, P]");
+  TORCH_CHECK(grad.scalar_type() == at::kFloat || grad.scalar_type() == at::kBFloat16,
+              "grad must be float32 or bfloat16");
+  TORCH_CHECK(argmax.scalar_type() == at::kInt && argmax.sizes() == grad.sizes(),
+              "argmax must be int32 shaped like grad");
+  TORCH_CHECK(dfeat.scalar_type() == at::kFloat && dfeat.dim() == 4 &&
+                  dfeat.size(0) == grad.size(0) && dfeat.size(1) == grad.size(2),
+              "dfeat must be float32 [B, C, H, W] matching grad");
+  TORCH_CHECK(grad.is_contiguous() && argmax.is_contiguous() && dfeat.is_contiguous(),
+              "roi_pool_backward: tensors must be contiguous");
+  TORCH_CHECK(argmax.get_device() == grad.get_device() &&
+                  dfeat.get_device() == grad.get_device(),
+              "roi_pool_backward: tensors must share one device");
+  const int64_t b = grad.size(0), n = grad.size(1), c = grad.size(2);
+  const c10::cuda::CUDAGuard guard(grad.device());
+  const cudaStream_t stream = at::cuda::getCurrentCUDAStream();
+  const int err = roi_pool_backward_launch(
+      grad.data_ptr(), grad.scalar_type() == at::kBFloat16, argmax.data_ptr<int32_t>(),
+      static_cast<int>(b * n), static_cast<int>(n), static_cast<int>(c),
+      static_cast<int>(dfeat.size(2)), static_cast<int>(dfeat.size(3)),
+      static_cast<int>(grad.size(3)), dfeat.data_ptr<float>(), static_cast<void*>(stream));
+  TORCH_CHECK(err == 0, "roi_pool_backward launch failed: ", roi_pool_error_string(err));
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("roi_pool_forward", &roi_pool_forward,
         "RoIPool forward into preallocated outputs (CUDA)");
+  m.def("roi_pool_backward", &roi_pool_backward,
+        "RoIPool features-gradient, atomically added into a zeroed float32 map (CUDA)");
 }

@@ -31,15 +31,20 @@ _NEG_INF = float("-inf")
 
 def _tile_fixpoint(active0: torch.Tensor, over: torch.Tensor) -> torch.Tensor:
     """Greedy self-suppression inside one tile; ``over`` is the strictly
-    upper-triangular ``[T, T]`` overlap matrix (row suppresses column)."""
+    upper-triangular ``[T, T]`` overlap matrix (row suppresses column).
+    Counts its sweeps, each one host sync, in ``_tile_fixpoint.sweeps``."""
     active = active0
     for _ in range(active0.shape[0] + 1):
+        _tile_fixpoint.sweeps += 1
         suppressed = (active[:, None] & over).any(dim=0)
         new = active0 & ~suppressed
         if torch.equal(new, active):
             break
         active = new
     return active
+
+
+_tile_fixpoint.sweeps = 0
 
 
 def _greedy_keep(boxes, valid, iou_threshold, post_k, tile):

@@ -16,9 +16,12 @@ the JAX package's, bit for bit:
   the port does not carry.)
 
 :func:`roi_pool_batch` dispatches: a CUDA tensor goes to the hand-written
-kernel (``ops/cuda/roi_pool.cu``) and a CPU tensor to
-:func:`roi_pool_reference`. There is no fallback: a build or launch
-failure on a CUDA tensor raises.
+kernels (``ops/cuda/roi_pool.cu``) and a CPU tensor to the plain versions,
+:func:`roi_pool_reference` and :func:`roi_pool_backward_reference`. The
+gradient w.r.t. the features adds each pooled cell's upstream gradient at
+its argmax cell (ties went to the first max in the forward, as in the
+TPU kernel; ``jax.grad`` of a plain max would split them). There is no
+fallback: a build or launch failure on a CUDA tensor raises.
 """
 
 from __future__ import annotations
@@ -169,6 +172,105 @@ def roi_pool_cuda(
 roi_pool_cuda.launches = 0
 
 
+def roi_pool_backward_reference(
+    grad: torch.Tensor, argmax: torch.Tensor, features_shape, dtype: torch.dtype
+) -> torch.Tensor:
+    """Plain-PyTorch features-gradient of RoIPool, the twin of the CUDA
+    backward kernel: each pooled cell's upstream gradient is added at its
+    argmax cell, summed over rois, in float32, then cast to ``dtype``.
+
+    Args:
+      grad: ``[B, n, C, P, P]`` float32 or bfloat16 upstream gradient.
+      argmax: ``[B, n, C, P, P]`` int32 from the forward (``row * w +
+        col``, -1 for an empty bin, which contributes nothing).
+      features_shape: ``(B, C, h, w)``.
+    """
+    b, c, h, w = features_shape
+    flat_g = grad.float().transpose(1, 2).reshape(b, c, -1)
+    flat_a = argmax.transpose(1, 2).reshape(b, c, -1).long()
+    # Empty bins go to a dump cell past the map, dropped below.
+    flat_a = torch.where(flat_a >= 0, flat_a, h * w)
+    dfeat = torch.zeros((b, c, h * w + 1), dtype=torch.float32, device=grad.device)
+    dfeat.scatter_add_(2, flat_a, flat_g)
+    return dfeat[:, :, : h * w].reshape(b, c, h, w).to(dtype)
+
+
+def roi_pool_backward_cuda(
+    grad: torch.Tensor, argmax: torch.Tensor, features_shape, dtype: torch.dtype
+) -> torch.Tensor:
+    """The hand-written Hopper backward (``ops/cuda/roi_pool.cu``), same
+    arguments and result as :func:`roi_pool_backward_reference`: atomic
+    float32 adds into a zeroed ``[B, C, h, w]`` scratch, cast to
+    ``dtype``. Counts its launches in ``roi_pool_backward_cuda.launches``."""
+    if not (grad.is_cuda and argmax.is_cuda):
+        raise ValueError("roi_pool_backward_cuda needs CUDA tensors")
+    if grad.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"grad must be float32 or bfloat16, not {grad.dtype}")
+    if argmax.dtype != torch.int32 or argmax.shape != grad.shape or grad.dim() != 5:
+        raise ValueError(
+            f"want grad [B,n,C,P,P] and an int32 argmax of its shape, got "
+            f"{tuple(grad.shape)} and {tuple(argmax.shape)} {argmax.dtype}"
+        )
+    b, c, h, w = features_shape
+    if grad.shape[0] != b or grad.shape[2] != c:
+        raise ValueError(f"grad {tuple(grad.shape)} does not match features {features_shape}")
+    from faster_rcnn_pytorch_tpu_torch.ops.cuda import extension
+
+    ext = extension()
+    dfeat = torch.zeros((b, c, h, w), dtype=torch.float32, device=grad.device)
+    ext.roi_pool_backward(grad.contiguous(), argmax.contiguous(), dfeat)
+    roi_pool_backward_cuda.launches += 1
+    return dfeat.to(dtype)
+
+
+roi_pool_backward_cuda.launches = 0
+
+
+def roi_pool_backward(grad, argmax, features_shape, dtype, plain: bool = False):
+    """Features-gradient dispatch: a CUDA tensor runs the hand kernel, a
+    CPU tensor (or the test-only ``plain``) the plain version."""
+    if grad.is_cuda and not plain:
+        return roi_pool_backward_cuda(grad, argmax, features_shape, dtype)
+    if grad.device.type != "cpu" and not plain:
+        raise NotImplementedError(f"no RoIPool backward kernel for {grad.device}")
+    return roi_pool_backward_reference(grad, argmax, features_shape, dtype)
+
+
+def _roi_pool_forward(features, rois, spatial_scale, output_size, with_argmax, plain):
+    if features.is_cuda and not plain:
+        return roi_pool_cuda(features, rois, spatial_scale, output_size, with_argmax)
+    if features.device.type != "cpu" and not plain:
+        raise NotImplementedError(f"no RoIPool kernel for {features.device}")
+    return roi_pool_reference(
+        features, rois, spatial_scale, output_size, with_argmax=with_argmax
+    )
+
+
+class _RoIPool(torch.autograd.Function):
+    """RoIPool with the argmax backward (the JAX package's custom VJP).
+    The forward keeps only the int32 argmax for the backward; rois get no
+    gradient (proposals are constants of the train step)."""
+
+    @staticmethod
+    def forward(ctx, features, rois, spatial_scale, output_size, plain):
+        out, argmax = _roi_pool_forward(
+            features, rois, spatial_scale, output_size, True, plain
+        )
+        ctx.save_for_backward(argmax)
+        ctx.features_shape = tuple(features.shape)
+        ctx.features_dtype = features.dtype
+        ctx.plain = plain
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        (argmax,) = ctx.saved_tensors
+        dfeat = roi_pool_backward(
+            grad, argmax, ctx.features_shape, ctx.features_dtype, plain=ctx.plain
+        )
+        return dfeat, None, None, None, None
+
+
 def roi_pool_batch(
     features: torch.Tensor,
     rois: torch.Tensor,
@@ -179,14 +281,14 @@ def roi_pool_batch(
 ):
     """``features [B, C, h, w]``, ``rois [B, n, 4]`` -> ``[B, n, C, P, P]``.
 
-    A CUDA tensor runs the hand kernel, a CPU tensor the plain version.
-    ``plain=True`` is for tests only: it runs the plain version on any
-    device, so a caller can hold the kernel's path against it.
+    A CUDA tensor runs the hand kernels, a CPU tensor the plain versions.
+    When ``features`` needs a gradient the call goes through an autograd
+    function whose forward also writes the argmax and whose backward is
+    :func:`roi_pool_backward`; otherwise (predict, ``no_grad``) it is the
+    forward alone. ``plain=True`` is for tests only: it runs the plain
+    versions on any device, so a caller can hold the kernels' path
+    against them.
     """
-    if features.is_cuda and not plain:
-        return roi_pool_cuda(features, rois, spatial_scale, output_size, with_argmax)
-    if features.device.type != "cpu" and not plain:
-        raise NotImplementedError(f"no RoIPool kernel for {features.device}")
-    return roi_pool_reference(
-        features, rois, spatial_scale, output_size, with_argmax=with_argmax
-    )
+    if torch.is_grad_enabled() and features.requires_grad and not with_argmax:
+        return _RoIPool.apply(features, rois, spatial_scale, output_size, plain)
+    return _roi_pool_forward(features, rois, spatial_scale, output_size, with_argmax, plain)

@@ -1,6 +1,7 @@
 """Evaluation CLI of the port (counterpart of ``faster_rcnn_pytorch_tpu/test.py``).
 
-Same flags (``load_options``), one device: CUDA when present, else CPU.
+Same flags (``load_options``), one device: the CUDA card, or the CPU
+when ``FRT_TORCH_DEVICE=cpu`` asks for it (``utils.runtime.select_device``).
 ``--checkpoint x.pth.tar`` loads reference-layout weights; without one
 the detector gets a fresh init seeded by ``--seed``. Legacy generation
 and VOC only, for now.

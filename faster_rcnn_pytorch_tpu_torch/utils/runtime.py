@@ -2,14 +2,30 @@
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
+# The port's counterpart of JAX_PLATFORMS=cpu: the CPU is an explicit choice.
+DEVICE_ENV = "FRT_TORCH_DEVICE"
+
 
 def select_device() -> torch.device:
-    """The first CUDA device when there is one, else the CPU (tests)."""
-    return torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+    """The CLIs' device: the first CUDA card, or the CPU when
+    ``FRT_TORCH_DEVICE=cpu`` asks for it. Without a card and without that
+    choice it raises rather than carry on on the CPU unseen."""
+    choice = os.environ.get(DEVICE_ENV, "cuda")
+    if choice == "cpu":
+        return torch.device("cpu")
+    if choice != "cuda":
+        raise ValueError(f"{DEVICE_ENV} must be 'cuda' or 'cpu', not {choice!r}")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"no CUDA device is visible; set {DEVICE_ENV}=cpu to run on the CPU"
+        )
+    return torch.device("cuda", 0)
 
 
 def set_numerics(dtype: str) -> torch.dtype:

@@ -92,6 +92,18 @@ def test_nms_sorted_with_boxes_and_inf_padding(ties):
     np.testing.assert_allclose(p[3].numpy(), np.asarray(j[3]), rtol=0, atol=ATOL)
 
 
+def test_tile_fixpoint_counts_its_sweeps():
+    # A chain: each box overlaps only the next (IoU 0.67; two apart 0.43).
+    # Greedy keeps 0 and 2; the fixpoint needs four sweeps to settle.
+    boxes = torch.tensor([[2.0 * i, 0.0, 2.0 * i + 10.0, 10.0] for i in range(4)])
+    scores = torch.tensor([0.9, 0.8, 0.7, 0.6])
+    pnms._tile_fixpoint.sweeps = 0
+    keep_idx, keep_valid = pnms.nms(boxes, scores, 0.5, post_k=4)
+    assert keep_idx.tolist() == [0, 2, -1, -1]
+    assert keep_valid.tolist() == [True, True, False, False]
+    assert pnms._tile_fixpoint.sweeps == 4
+
+
 def test_batched_nms_matches_jax():
     rs = np.random.RandomState(3)
     n = 350

@@ -78,6 +78,7 @@ def test_port_cli_matches_jax_cli(voc_and_checkpoint, tmp_path, capsys, monkeypa
 
     # keep the test session's jax compile-cache settings
     monkeypatch.setattr(jax_runtime, "setup_runtime", lambda: None)
+    monkeypatch.setenv("FRT_TORCH_DEVICE", "cpu")
     root, ckpt = voc_and_checkpoint
     jax_dump, port_dump = str(tmp_path / "jax.pkl"), str(tmp_path / "port.pkl")
 
