@@ -7,7 +7,9 @@ CUDA card, builds the port's kernels from the sources in the checkout
 
 1. device: a CUDA card is present; prints its name and power limit.
 2. kernels: each hand-written kernel against its plain PyTorch version,
-   timed with CUDA events (median of 25 runs):
+   timed with CUDA events (median of 25 runs), with its bound (the least
+   time for the bytes this run's data needs at 3.35 TB/s, or its
+   operations at 67 TFLOP/s float32, whichever is larger):
    * RoIPool forward at the legacy predict shapes (feats [1, 512, 50, 84],
      rois [1, 300, 4] plus edge rois; float32 and bfloat16; values and
      argmax bit-exact);
@@ -15,7 +17,11 @@ CUDA card, builds the port's kernels from the sources in the checkout
      128 rois per image plus edge rois inside the map, argmax from the
      forward kernel): integer-valued gradients bit-exact in float32 and
      bfloat16, normal ones within 1e-5 * max|ref| (atomics add in another
-     order).
+     order); ``scatter_add_`` on the prepared index is timed beside it;
+   * MultiScaleRoIAlign forward at the FPN predict shapes (P2..P5
+     [2, 256, 200, 336] .. [2, 256, 25, 42], 1000 rois per image plus
+     extremes: banners, poles, degenerate, giant, partly outside),
+     float32 and bfloat16, bit-exact.
 3. main path, predict: full-width legacy VGG16 predict (21 classes, seeded
    random weights, the 800x1344 canvas, batch 1) through the port's
    ``engine.evaluate.evaluate`` on synthetic in-memory VOC batches, in
@@ -46,7 +52,18 @@ CUDA card, builds the port's kernels from the sources in the checkout
    routes a gradient differently on the two devices, and one such flip
    moves a whole row or window of a weight gradient: one pool-1 window
    moves conv1's gradient by about 2e-3 relative L2 at this input.
-9. imports: jax and flax were never imported.
+9. main path, FPN predict: full-width ResNet50-FPN predict (91 classes,
+   seeded random weights, the 800x1344 canvas, batch 2, 8 images) through
+   ``engine.evaluate.evaluate`` with ``data_type="coco"`` and a synthetic
+   ``CocoIndex`` written under ``build/``, in float32 (TF32 off) and
+   bfloat16, counts reset just before and read just after: the align
+   kernel runs once per predict call and RoIPool never; every image has a
+   detection; the std of P2..P6 is printed.
+10. FPN predict vs plain: the same float32 predict with the plain align
+   must give identical detections.
+11. small-input FPN reference: GPU float32 FPN predict against the CPU
+   plain path at 208x240, greedy-matched as in phase 5.
+12. imports: jax and flax were never imported.
 
 Its last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -66,10 +83,12 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from faster_rcnn_pytorch_tpu_torch.data.coco import CocoIndex
 from faster_rcnn_pytorch_tpu_torch.engine.evaluate import evaluate
 from faster_rcnn_pytorch_tpu_torch.engine.train import BATCH_KEYS, train_one_epoch
 from faster_rcnn_pytorch_tpu_torch.evaluation.diff import detections_agree
 from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import (
+    FPN_CONFIG,
     LEGACY_CONFIG,
     RoITargets,
     RPNTargets,
@@ -81,6 +100,7 @@ from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import (
     train_losses,
     train_targets,
 )
+from faster_rcnn_pytorch_tpu_torch.ops import roi_align as roi_align_mod
 from faster_rcnn_pytorch_tpu_torch.ops import roi_pool as roi_pool_mod
 from faster_rcnn_pytorch_tpu_torch.ops.cuda import extension
 from faster_rcnn_pytorch_tpu_torch.parallel.train_step import (
@@ -101,25 +121,33 @@ TRAIN_BATCH = 2
 TRAIN_STEPS = 20
 MAX_GT = 100  # the loader's gt slots (config.max_gt)
 TRAIN_LR = 1e-3
-LOG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_logs")
+BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+LOG_DIR = os.path.join(BUILD, "chip_smoke_logs")
+FPN_CLASSES = 91
+FPN_BATCH = 2
+FPN_IMAGES = 8
+FPN_SMALL_CANVAS = (208, 240)  # H/16 odd: the top-down upsample is not 2x
+# H100 SXM peaks (NVIDIA's data sheet) for the kernels' bounds.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
-class SyntheticVOC:
-    """Loader-like stand-in: ``epoch(0)`` yields the JAX loader's batch
-    dicts (batch 1) of seeded normalised images on the padded canvas. The
-    images are made up front, so a timed pass measures predict, not the
-    random number generator."""
+class SyntheticImages:
+    """Loader-like stand-in: ``epoch(0)`` yields the loader's batch dicts
+    (``batch_size`` images each) of seeded normalised images on the padded
+    canvas, with 1-3 gt boxes per image in ``records_by_id`` (labels
+    ``0 .. num_classes - 2``). The images are made up front, so a timed
+    pass measures predict, not the random number generator."""
 
-    batch_size = 1
-
-    def __init__(self, n: int, canvas: tuple[int, int], seed: int):
-        self.n, self.canvas = n, canvas
+    def __init__(self, n: int, canvas: tuple[int, int], seed: int, batch_size: int = 1,
+                 num_classes: int = NUM_CLASSES):
+        self.n, self.canvas, self.batch_size = n, canvas, batch_size
         rs = np.random.RandomState(seed)
         pixels = np.random.default_rng(seed)
         ch, cw = canvas
         self.items = []
-        self.batches = []
         self.records_by_id = {}
+        rows = []
         for i in range(n):
             rh = ch if i % 2 == 0 else int(ch * 0.75)
             rw = int(cw * (0.9 - 0.1 * (i % 3)))
@@ -130,24 +158,61 @@ class SyntheticVOC:
             boxes = np.concatenate([xy, np.minimum(xy + wh, orig[::-1])], 1)
             self.records_by_id[i] = SimpleNamespace(
                 boxes=boxes.astype(np.float32),
-                labels=rs.randint(0, NUM_CLASSES - 1, size=k).astype(np.int32),
+                labels=rs.randint(0, num_classes - 1, size=k).astype(np.int32),
                 difficult=np.zeros(k, bool),
             )
             self.items.append((i, (rh, rw), orig))
-            image = np.zeros((1, ch, cw, 3), np.float32)
-            image[0, :rh, :rw] = pixels.standard_normal((rh, rw, 3), dtype=np.float32)
+            image = np.zeros((ch, cw, 3), np.float32)
+            image[:rh, :rw] = pixels.standard_normal((rh, rw, 3), dtype=np.float32)
+            rows.append((image, (rw / cw, rh / ch), i, orig, (rh, rw)))
+        self.batches = []
+        for s in range(0, n, batch_size):
+            image, extent, image_id, orig, resized = zip(*rows[s : s + batch_size])
             self.batches.append(
                 {
-                    "image": image,
-                    "extent": np.array([[rw / cw, rh / ch]], np.float32),
-                    "image_id": np.array([i], np.int64),
-                    "orig_hw": np.array([orig], np.int32),
-                    "resized_hw": np.array([[rh, rw]], np.int32),
+                    "image": np.stack(image),
+                    "extent": np.array(extent, np.float32),
+                    "image_id": np.array(image_id, np.int64),
+                    "orig_hw": np.array(orig, np.int32),
+                    "resized_hw": np.array(resized, np.int32),
                 }
             )
 
     def epoch(self, epoch: int = 0):
         yield from self.batches
+
+
+def write_coco_index(loader: SyntheticImages, path: str) -> CocoIndex:
+    """The loader's gts as a COCO annotation file (category id = label + 1,
+    the FPN generation's raw ids 1..90), read back as a ``CocoIndex``."""
+    images, anns = [], []
+    for img_id, _, (oh, ow) in loader.items:
+        images.append({"id": img_id, "file_name": f"{img_id:012d}.jpg", "width": ow, "height": oh})
+        rec = loader.records_by_id[img_id]
+        for (x1, y1, x2, y2), label in zip(rec.boxes.tolist(), rec.labels.tolist()):
+            anns.append(
+                {
+                    "id": len(anns) + 1,
+                    "image_id": img_id,
+                    "category_id": label + 1,
+                    "bbox": [x1, y1, x2 - x1, y2 - y1],
+                    "area": (x2 - x1) * (y2 - y1),
+                    "iscrowd": 0,
+                }
+            )
+    cats = [{"id": c, "name": str(c)} for c in range(1, FPN_CLASSES)]
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump({"images": images, "annotations": anns, "categories": cats}, f)
+    return CocoIndex(path)
+
+
+def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """The least time (ms) on an H100 for ``n_bytes`` of device memory
+    traffic and ``n_ops`` float32 operations, and which of the two bounds."""
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * n_ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def _median_ms(fn, runs: int = 25, warmup: int = 3) -> float:
@@ -219,9 +284,26 @@ def check_roi_pool_kernel(device) -> dict:
             flush=True,
         )
         if dtype == torch.float32:
-            record.update(ms=ms, plain_ms=plain_ms)
-    record["max_abs_err"] = err
+            cells, bin_cells = _roi_pool_footprint(rois, h, w)
+            c = f.shape[1]
+            n_bytes = cells * c * 4 + rois.numel() * 4 + ref.numel() * 4
+            bound_ms, bound_by = _bound(n_bytes, bin_cells * c)  # one max per bin cell
+            record.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    # PyTorch has no RoIPool call (torchvision is not a dependency).
+    record.update(max_abs_err=err, library_ms=None)
     return record
+
+
+def _roi_pool_footprint(rois, h: int, w: int) -> tuple[int, int]:
+    """Map cells (per image) that the rois' bins cover, and the sum of the
+    bins' cell counts: the reads and the comparisons this run needs."""
+    b, n = rois.shape[:2]
+    h_lo, h_hi, w_lo, w_hi = (t.cpu() for t in roi_pool_mod.roi_bin_bounds(rois.reshape(-1, 4), 1.0, 7, h, w))
+    bin_cells = int(((h_hi - h_lo)[:, :, None] * (w_hi - w_lo)[:, None, :]).sum())
+    mask = torch.zeros((b, h, w), dtype=torch.bool)
+    for r in range(b * n):  # the bins of one roi tile [lo_0, hi_6) on each axis
+        mask[r // n, h_lo[r].min() : h_hi[r].max(), w_lo[r].min() : w_hi[r].max()] = True
+    return int(mask.sum()), bin_cells
 
 
 def check_roi_pool_backward_kernel(device) -> dict:
@@ -277,7 +359,128 @@ def check_roi_pool_backward_kernel(device) -> dict:
             flush=True,
         )
         if dtype == torch.float32:
-            record.update(ms=ms, plain_ms=plain_ms)
+            n_bytes = normal.numel() * 4 + arg.numel() * 4 + want.numel() * 4
+            bound_ms, bound_by = _bound(n_bytes, int((arg >= 0).sum()))  # one add each
+            # One PyTorch call computes the same sums: scatter_add_ on the
+            # plain version's prepared [B, C, h*w + 1] index.
+            b, c, h2, w2 = shape
+            flat_g = normal.float().transpose(1, 2).reshape(b, c, -1)
+            flat_a = arg.transpose(1, 2).reshape(b, c, -1).long()
+            flat_a = torch.where(flat_a >= 0, flat_a, h2 * w2)
+            acc = torch.zeros((b, c, h2 * w2 + 1), device=device)
+            library_ms = _median_ms(lambda: acc.scatter_add_(2, flat_a, flat_g))
+            record.update(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms,
+            )
+            print(f"  scatter_add_ on the prepared index: {library_ms:.4f} ms", flush=True)
+    record["max_abs_err"] = err
+    return record
+
+
+def _align_rois(generator, n: int, canvas=CANVAS) -> torch.Tensor:
+    """``[FPN_BATCH, n, 4]`` canvas-pixel rois: log-uniform sizes 2..800 px
+    anywhere on the canvas, the first eight of each image the extremes
+    (banner, pole, degenerate, clamped-level giant, whole canvas, partly
+    and wholly outside)."""
+    h, w = canvas
+    xy = torch.rand(FPN_BATCH, n, 2, generator=generator) * torch.tensor([w - 20.0, h - 20.0]) - 10
+    wh = torch.exp(torch.empty(FPN_BATCH, n, 2).uniform_(np.log(2), np.log(800), generator=generator))
+    rois = torch.cat([xy, xy + wh], -1)
+    rois[:, :8] = torch.tensor(
+        [
+            [0, 0, w, 10],
+            [0, 0, 10, h],
+            [5, 5, 5.2, 5.2],
+            [200, 200, 3000, 3000],
+            [0, 0, w, h],
+            [-30, -20, 40, 50],
+            [w - 50, h - 40, w + 60, h + 30],
+            [-80, 100, -10, 160],
+        ],
+        dtype=torch.float32,
+    )
+    return rois
+
+
+def _align_footprint_cells(feats, rois, level) -> int:
+    """Level-map cells (per image) that some sample of some roi weighs with
+    a nonzero weight: the reads this run's data needs."""
+    b, n = rois.shape[:2]
+    flat, lv = rois.reshape(-1, 4), level.reshape(-1)
+    image = torch.arange(b, device=rois.device).repeat_interleave(n)
+    cells = 0
+    for li, (f, stride) in enumerate(zip(feats, roi_align_mod.STRIDES)):
+        h, w = f.shape[-2:]
+        sel = torch.nonzero(lv == li).flatten()
+        r = flat[sel]
+        ylo, yhi, wylo, wyhi = roi_align_mod._axis_samples(r[:, 1], r[:, 3], 1.0 / stride, h)
+        xlo, xhi, wxlo, wxhi = roi_align_mod._axis_samples(r[:, 0], r[:, 2], 1.0 / stride, w)
+        k = len(sel)
+        ys, wy = torch.cat([ylo.reshape(k, -1), yhi.reshape(k, -1)], 1), torch.cat([wylo.reshape(k, -1), wyhi.reshape(k, -1)], 1)
+        xs, wx = torch.cat([xlo.reshape(k, -1), xhi.reshape(k, -1)], 1), torch.cat([wxlo.reshape(k, -1), wxhi.reshape(k, -1)], 1)
+        need = (wy[:, :, None] > 0) & (wx[:, None, :] > 0)
+        mask = torch.zeros((b, h, w), dtype=torch.bool, device=rois.device)
+        mask[
+            image[sel][:, None, None].expand_as(need)[need],
+            ys[:, :, None].expand_as(need)[need],
+            xs[:, None, :].expand_as(need)[need],
+        ] = True
+        cells += int(mask.sum())
+    return cells
+
+
+def check_roi_align_kernel(device) -> dict:
+    """The MultiScaleRoIAlign kernel against its plain version at the FPN
+    predict shapes, bit for bit in float32 and bfloat16."""
+    h, w = CANVAS
+    g = torch.Generator().manual_seed(SEED + 7)
+    feats = [
+        torch.randn(FPN_BATCH, 256, -(-h // s), -(-w // s), generator=g)
+        for s in roi_align_mod.STRIDES
+    ]
+    rois = _align_rois(g, FPN_CONFIG.post_nms_test).to(device)
+    level = roi_align_mod.fpn_level_assignment(rois)
+    print(
+        f"align rois per level: {torch.bincount(level.flatten(), minlength=4).tolist()}",
+        flush=True,
+    )
+    record = {
+        "name": "multiscale_roi_align_forward",
+        "route": "cuda",
+        "source": "faster_rcnn_pytorch_tpu_torch/ops/cuda/roi_align.cu",
+        "replaces": "faster_rcnn_pytorch_tpu/ops/pallas/roi_window_kernel.py:137",
+        "library_ms": None,  # PyTorch has no RoIAlign call
+    }
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        f = [x.to(device, dtype) for x in feats]
+        out = roi_align_mod.multiscale_roi_align_cuda(f, rois, level)
+        torch.cuda.synchronize()
+        ref = roi_align_mod.multiscale_roi_align_reference(f, rois, level)
+        diff = float((out.float() - ref.float()).abs().max())
+        _require(torch.equal(out, ref), f"roi_align kernel != plain ({dtype}): max|d| {diff}")
+        err = max(err, diff)
+        ms = _median_ms(lambda: roi_align_mod.multiscale_roi_align_cuda(f, rois, level))
+        plain_ms = _median_ms(lambda: roi_align_mod.multiscale_roi_align_reference(f, rois, level))
+        name = str(dtype).removeprefix("torch.")
+        print(
+            f"roi_align {name} levels {[tuple(x.shape) for x in f]} rois {tuple(rois.shape)}: "
+            f"bit-exact, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 25)",
+            flush=True,
+        )
+        if dtype == torch.float32:
+            cells = _align_footprint_cells(f, rois, level)
+            n_bytes = cells * 256 * 4 + rois.numel() * 4 + level.numel() * 4 + out.numel() * 4
+            # per output: 4 samples x (4 weight products, 4 products, 3 adds),
+            # 3 sample adds, 1 scale
+            bound_ms, bound_by = _bound(n_bytes, 48 * out.numel())
+            print(
+                f"  footprint {cells} cells of {sum(x[0, 0].numel() for x in f) * FPN_BATCH} "
+                f"({n_bytes / 1e6:.1f} MB moved): bound {bound_ms:.4f} ms",
+                flush=True,
+            )
+            record.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
     record["max_abs_err"] = err
     return record
 
@@ -415,7 +618,7 @@ def check_train_step_kernel_vs_plain(device) -> None:
         model.zero_grad(set_to_none=True)
         before = (roi_pool_mod.roi_pool_cuda.launches, roi_pool_mod.roi_pool_backward_cuda.launches)
         out = forward_train(
-            model, LEGACY_CONFIG, *(batch[k] for k in BATCH_KEYS), noise=noise, plain_roi_pool=plain
+            model, LEGACY_CONFIG, *(batch[k] for k in BATCH_KEYS), noise=noise, plain=plain
         )
         out.losses.total.backward()
         torch.cuda.synchronize()
@@ -505,12 +708,14 @@ def _require(ok, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def _check_outputs(result: dict, loader: SyntheticVOC) -> int:
-    n_det = 0
+def _check_outputs(result: dict, loader: SyntheticImages, labels: tuple[int, int]) -> list[int]:
+    """Shapes, ranges and finiteness of an eval pass's detections; returns
+    the detection count of each image. ``labels`` is the dataset's id range."""
+    counts = []
     for img_id, det in result["detections"].items():
         _, (rh, rw), (oh, ow) = loader.items[img_id]
         ch, cw = loader.canvas
-        boxes, labels, scores = det["boxes"], det["labels"], det["scores"]
+        boxes, lab, scores = det["boxes"], det["labels"], det["scores"]
         _require(boxes.ndim == 2 and boxes.shape[1] == 4, f"boxes {boxes.shape}")
         _require(np.isfinite(boxes).all() and np.isfinite(scores).all(), "non-finite output")
         # boxes are clamped to the canvas, in original-image pixels
@@ -520,64 +725,113 @@ def _check_outputs(result: dict, loader: SyntheticVOC) -> int:
             and (boxes[:, [1, 3]] <= ch * oh / rh * 1.0001).all(),
             "boxes outside the canvas",
         )
-        _require(((labels >= 0) & (labels < NUM_CLASSES - 1)).all(), "label out of range")
+        _require(((lab >= labels[0]) & (lab <= labels[1])).all(), "label out of range")
         _require(((scores > THRESHOLD) & (scores <= 1.0)).all(), "score out of range")
-        n_det += len(scores)
+        counts.append(len(scores))
     _require(result["n_images"] == loader.n, f"{result['n_images']} of {loader.n} images")
-    return n_det
+    return counts
 
 
-def run_predict(model, dtype_name: str, device, canvas, plain_roi_pool=False, n_images=N_IMAGES):
+def run_predict(model, dtype_name: str, device, loader, generation="legacy", plain=False):
+    """One eval pass through ``evaluate``: legacy on VOC, fpn on the
+    loader's synthetic COCO index. Returns the result and the per-image
+    detection counts."""
     dtype = set_numerics(dtype_name)
     model = prepare_for_inference(model, device, dtype)
-    loader = SyntheticVOC(n_images, canvas, SEED)
+    if generation == "legacy":
+        cfg, kw, labels = LEGACY_CONFIG, {}, (0, NUM_CLASSES - 2)
+    else:
+        cfg, labels = FPN_CONFIG, (1, FPN_CLASSES - 1)
+        kw = dict(data_type="coco", coco_index=loader.coco_index, label_map=lambda l: l + 1)
     result = evaluate(
-        model,
-        LEGACY_CONFIG,
-        loader,
-        score_threshold=THRESHOLD,
-        plain_roi_pool=plain_roi_pool,
-        verbose=False,
+        model, cfg, loader, score_threshold=THRESHOLD, plain=plain, verbose=False, **kw
     )
-    n_det = _check_outputs(result, loader)
+    counts = _check_outputs(result, loader, labels)
     print(
-        f"predict {dtype_name}{' plain-roipool' if plain_roi_pool else ''} "
-        f"{canvas[0]}x{canvas[1]}: {result['n_images'] / result['seconds']:.2f} img/s, "
-        f"{n_det} detections, mAP = {result['map']:.4f}",
+        f"predict {generation} {dtype_name}{' plain' if plain else ''} "
+        f"{loader.canvas[0]}x{loader.canvas[1]} batch {loader.batch_size}: "
+        f"{result['n_images'] / result['seconds']:.2f} img/s, {sum(counts)} detections "
+        f"({min(counts)}-{max(counts)} per image), mAP = {result['map']:.4f}",
         flush=True,
     )
-    return result, n_det
+    return result, counts
 
 
-def _new_model():
-    model, _ = build_model("legacy", NUM_CLASSES)
+def _new_model(generation: str = "legacy"):
+    model, _ = build_model(generation, FPN_CLASSES if generation == "fpn" else NUM_CLASSES)
     return init_weights(model, torch.Generator().manual_seed(SEED))
 
 
-def check_small_input_reference(device):
+def check_small_input_reference(device, generation="legacy", canvas=(128, 192)):
     """GPU float32 predict vs the CPU plain path on a small canvas."""
-    canvas = (128, 192)
-    cfg = LEGACY_CONFIG
+    cfg = LEGACY_CONFIG if generation == "legacy" else FPN_CONFIG
     set_numerics("float32")
-    loader = SyntheticVOC(2, canvas, SEED + 1)
-    cpu_model = prepare_for_inference(_new_model(), torch.device("cpu"), torch.float32)
-    gpu_model = prepare_for_inference(_new_model(), device, torch.float32)
+    loader = SyntheticImages(2, canvas, SEED + 1, batch_size=1 if generation == "legacy" else 2)
+    cpu_model = prepare_for_inference(_new_model(generation), torch.device("cpu"), torch.float32)
+    gpu_model = prepare_for_inference(_new_model(generation), device, torch.float32)
     for batch in loader.epoch(0):
         images = torch.from_numpy(batch["image"])
         extents = torch.from_numpy(batch["extent"])
         want = predict(cpu_model, cfg, images, extents, THRESHOLD)
         got = predict(gpu_model, cfg, images.to(device), extents.to(device), THRESHOLD)
-        ok, summary = detections_agree(_valid(got), _valid(want), score_tol=1e-4, box_tol=1e-4)
-        _require(ok, f"GPU vs CPU on {canvas}: {summary}")
-        print(f"small input {canvas}: GPU vs CPU plain path, {summary}", flush=True)
+        for i in range(images.shape[0]):
+            ok, summary = detections_agree(
+                _valid(got, i), _valid(want, i), score_tol=1e-4, box_tol=1e-4
+            )
+            _require(ok, f"{generation} GPU vs CPU on {canvas}: {summary}")
+            print(f"small input {generation} {canvas}: GPU vs CPU plain path, {summary}", flush=True)
 
 
-def _valid(det) -> dict:
-    ok = det.valid[0].cpu().numpy()
-    return {k: getattr(det, k)[0].cpu().numpy()[ok] for k in ("boxes", "labels", "scores")}
+def _valid(det, i: int = 0) -> dict:
+    ok = det.valid[i].cpu().numpy()
+    return {k: getattr(det, k)[i].cpu().numpy()[ok] for k in ("boxes", "labels", "scores")}
+
+
+def _fpn_loader(seed: int, n: int = FPN_IMAGES) -> SyntheticImages:
+    loader = SyntheticImages(n, CANVAS, seed, batch_size=FPN_BATCH, num_classes=FPN_CLASSES)
+    path = os.path.join(BUILD, "chip_smoke_coco", f"instances_{seed}_{n}.json")
+    loader.coco_index = write_coco_index(loader, path)
+    return loader
+
+
+def run_fpn_predict(device) -> tuple[int, dict]:
+    """Full-width FPN predict in float32 and bfloat16, counts reset just
+    before and read just after each: one align launch per predict call,
+    no RoIPool launch, at least one detection per image. Returns the align
+    launches of both runs and the float32 detections."""
+    launches = 0
+    detections = {}
+    for dtype_name in ("float32", "bfloat16"):
+        model = _new_model("fpn")
+        # Warm-up (cuDNN and cuBLAS handles, first launches), outside the counts.
+        run_predict(model, dtype_name, device, _fpn_loader(SEED + 4, FPN_BATCH), "fpn")
+        loader = _fpn_loader(SEED + 5)
+        roi_align_mod.multiscale_roi_align_cuda.launches = 0
+        roi_pool_mod.roi_pool_cuda.launches = 0
+        result, counts = run_predict(model, dtype_name, device, loader, "fpn")
+        align = roi_align_mod.multiscale_roi_align_cuda.launches
+        pool = roi_pool_mod.roi_pool_cuda.launches
+        calls = len(loader.batches)
+        _require(align == calls, f"{dtype_name} FPN predict: {align} align launches for {calls} calls")
+        _require(pool == 0, f"{dtype_name} FPN predict launched RoIPool {pool} times")
+        _require(min(counts) > 0, f"{dtype_name} FPN predict: an image without detections {counts}")
+        launches += align
+        with torch.no_grad():
+            images = torch.from_numpy(loader.batches[0]["image"]).to(device)
+            feats = model.features(images.permute(0, 3, 1, 2).to(next(model.parameters()).dtype))
+        print(
+            f"  P2..P6 std ({dtype_name}): "
+            + " ".join(f"{float(f.float().std()):.3f}" for f in feats)
+            + f"; align launches {align} for {calls} predict calls, RoIPool {pool}",
+            flush=True,
+        )
+        if dtype_name == "float32":
+            detections = result["detections"]
+    return launches, detections
 
 
 def main() -> int:
+    t_start = time.time()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -590,30 +844,34 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
     device = torch.device("cuda", 0)
-    # Deterministic cuDNN algorithms: phases 4 and 7 compare two float32 runs bit for bit.
+    # Deterministic cuDNN algorithms: phases 4, 7 and 10 compare two float32 runs bit for bit.
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.deterministic = True
 
     record = check_roi_pool_kernel(device)
     bwd_record = check_roi_pool_backward_kernel(device)
+    align_record = check_roi_align_kernel(device)
 
     launches = 0
     detections = {}
     for dtype_name in ("float32", "bfloat16"):
         model = _new_model()
         # Warm-up (cuDNN and cuBLAS handles, first launches), outside the counts.
-        run_predict(model, dtype_name, device, CANVAS, n_images=1)
+        run_predict(model, dtype_name, device, SyntheticImages(1, CANVAS, SEED))
+        loader = SyntheticImages(N_IMAGES, CANVAS, SEED)
         roi_pool_mod.roi_pool_cuda.launches = 0
-        result, n_det = run_predict(model, dtype_name, device, CANVAS)
+        result, counts = run_predict(model, dtype_name, device, loader)
         count = roi_pool_mod.roi_pool_cuda.launches
         _require(count > 0, f"{dtype_name} predict never launched the RoIPool kernel")
         if dtype_name == "float32":
-            _require(n_det > 0, "float32 predict found no detections to compare")
+            _require(sum(counts) > 0, "float32 predict found no detections to compare")
             detections = result["detections"]
         launches += count
 
     roi_pool_mod.roi_pool_cuda.launches = 0
-    plain, _ = run_predict(_new_model(), "float32", device, CANVAS, plain_roi_pool=True)
+    plain, _ = run_predict(
+        _new_model(), "float32", device, SyntheticImages(N_IMAGES, CANVAS, SEED), plain=True
+    )
     _require(roi_pool_mod.roi_pool_cuda.launches == 0, "the plain-RoIPool run launched the kernel")
     _require(
         _detections_equal(plain["detections"], detections),
@@ -634,10 +892,25 @@ def main() -> int:
     check_train_step_kernel_vs_plain(device)
     check_small_input_train_reference(device)
 
+    align_record["launches"], fpn_detections = run_fpn_predict(device)
+    fpn_loader = _fpn_loader(SEED + 5)
+    roi_align_mod.multiscale_roi_align_cuda.launches = 0
+    plain, _ = run_predict(_new_model("fpn"), "float32", device, fpn_loader, "fpn", plain=True)
+    _require(
+        roi_align_mod.multiscale_roi_align_cuda.launches == 0, "the plain-align run launched the kernel"
+    )
+    _require(
+        _detections_equal(plain["detections"], fpn_detections),
+        "float32 FPN detections differ between the align kernel and the plain align",
+    )
+    print("float32 FPN detections identical with the kernel and with the plain align", flush=True)
+    check_small_input_reference(device, "fpn", FPN_SMALL_CANVAS)
+
     leaked = [m for m in ("jax", "flax") if m in sys.modules]
     _require(not leaked, f"imported {leaked}")
 
-    print(json.dumps({"kernels": [record, bwd_record]}), flush=True)
+    print(f"chip_smoke: {time.time() - t_start:.1f}s end to end", flush=True)
+    print(json.dumps({"kernels": [record, bwd_record, align_record]}), flush=True)
     print(
         json.dumps(
             {

@@ -2,8 +2,8 @@
 
 Per batch: ``predict`` on the padded canvas -> fixed ``[B, D, 7]`` packed
 detections, copied to the host once -> rescaled from canvas-normalised
-to original pixel coords -> the VOC evaluator. COCO evaluation is not
-ported yet (ROADMAP.md Queue A).
+to original pixel coords -> labels mapped to the dataset's ids -> the VOC
+or the COCO evaluator.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import time
 import numpy as np
 import torch
 
+from faster_rcnn_pytorch_tpu_torch.evaluation.coco_eval import CocoEvaluator
 from faster_rcnn_pytorch_tpu_torch.evaluation.voc_eval import VOC_CLASSES, voc_eval
 from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import predict
 from faster_rcnn_pytorch_tpu_torch.serving import pack_detections
@@ -39,26 +40,37 @@ def evaluate(
     model,
     cfg,
     loader,
+    data_type: str = "voc",
+    coco_index=None,
+    label_map=None,
     score_threshold: float | None = None,
     dump_path: str | None = None,
-    plain_roi_pool: bool = False,
+    plain: bool = False,
     verbose: bool = True,
 ) -> dict:
-    """Run the VOC eval pass over ``loader`` (any object with ``.epoch(0)``
-    yielding the JAX loader's batch dicts, ``.batch_size`` and
+    """Run the eval pass over ``loader`` (any object with ``.epoch(0)``
+    yielding the loader's batch dicts, ``.batch_size`` and, for VOC,
     ``.records_by_id``) on the model's device.
 
     VOC keeps every per-class NMS survivor, like the reference's
     ``_suppress``: the budget is ``post_nms_test * (num_classes - 1)``.
-    ``plain_roi_pool`` is for tests only (see :func:`predict`).
+    COCO keeps the protocol's ``cfg.max_detections`` (100) and scores
+    against ``coco_index`` (a ``data.coco.CocoIndex``). ``label_map`` maps
+    a 0-based foreground label to the dataset's id (identity when None).
+    ``plain`` is for tests only (see :func:`predict`).
 
     Returns ``{"map", "stats", "detections", "n_images", "seconds"}``;
-    ``detections`` maps image id to its original-pixel boxes, labels and
-    scores.
+    ``detections`` maps image id to its original-pixel boxes, labels (in
+    the dataset's ids) and scores.
     """
-    cfg = dataclasses.replace(
-        cfg, max_detections=cfg.post_nms_test * (cfg.num_classes - 1)
-    )
+    if data_type == "voc":
+        cfg = dataclasses.replace(
+            cfg, max_detections=cfg.post_nms_test * (cfg.num_classes - 1)
+        )
+    elif data_type != "coco":
+        raise ValueError(f"unknown data_type {data_type!r}")
+    label_map = label_map or (lambda x: x)
+    label_table = np.asarray([label_map(i) for i in range(cfg.num_classes - 1)], np.int64)
     device = next(model.parameters()).device
 
     predictions: dict[int, dict] = {}
@@ -68,20 +80,23 @@ def evaluate(
     for batch in loader.epoch(0):
         images = torch.from_numpy(np.ascontiguousarray(batch["image"])).to(device)
         extents = torch.from_numpy(batch["extent"].astype(np.float32)).to(device)
-        det = predict(
-            model, cfg, images, extents, score_threshold, plain_roi_pool=plain_roi_pool
-        )
+        det = predict(model, cfg, images, extents, score_threshold, plain=plain)
         packed = pack_detections(det).cpu().numpy()
         for i in range(packed.shape[0]):
             boxes, labels, scores = detections_to_original_coords(packed, batch, i)
             img_id = int(batch["image_id"][i])
-            predictions[img_id] = {"boxes": boxes, "labels": labels, "scores": scores}
-            rec = loader.records_by_id[img_id]
-            gts[img_id] = {
-                "boxes": rec.boxes,
-                "labels": rec.labels,
-                "difficult": rec.difficult,
+            predictions[img_id] = {
+                "boxes": boxes,
+                "labels": label_table[labels],
+                "scores": scores,
             }
+            if data_type == "voc":
+                rec = loader.records_by_id[img_id]
+                gts[img_id] = {
+                    "boxes": rec.boxes,
+                    "labels": rec.labels,
+                    "difficult": rec.difficult,
+                }
             n_img += 1
     infer_time = time.time() - t0
     n_det = sum(len(p["scores"]) for p in predictions.values())
@@ -96,16 +111,26 @@ def evaluate(
             pickle.dump({"predictions": predictions, "gts": gts}, f)
         print(f"dumped {len(predictions)} images' detections to {dump_path}", flush=True)
 
-    out = voc_eval(
-        predictions,
-        gts,
-        num_classes=len(VOC_CLASSES),
-        class_names=VOC_CLASSES,
-        verbose=verbose,
-    )
+    if data_type == "voc":
+        stats = voc_eval(
+            predictions,
+            gts,
+            num_classes=len(VOC_CLASSES),
+            class_names=VOC_CLASSES,
+            verbose=verbose,
+        )
+        mean_ap = stats["map"]
+    else:
+        evaluator = CocoEvaluator(coco_index)
+        evaluator.update(predictions)
+        evaluator.accumulate()
+        stats = evaluator.summarize()
+        if verbose:
+            evaluator.print_summary()
+        mean_ap = float(stats[0])
     return {
-        "map": out["map"],
-        "stats": out,
+        "map": mean_ap,
+        "stats": stats,
         "detections": predictions,
         "n_images": n_img,
         "seconds": infer_time,

@@ -24,8 +24,8 @@ import torch
 
 # What this slice refuses, and where each lands (ROADMAP.md Queue A).
 _NOT_PORTED = (
-    (lambda o: o.model_generation == "fpn", "--model_generation fpn", "items 11-12"),
-    (lambda o: o.data_type == "coco", "--data_type coco", "items 11-12"),
+    (lambda o: o.model_generation == "fpn", "--model_generation fpn", "item 12"),
+    (lambda o: o.data_type == "coco", "--data_type coco", "item 12"),
     (lambda o: o.model_parallel > 1, "--model_parallel > 1", "item 14"),
     (lambda o: o.num_hosts > 1, "--num_hosts > 1", "item 14"),
     (lambda o: bool(o.coordinator), "--coordinator", "item 14"),
@@ -65,11 +65,8 @@ def _preflight(model, train_loader, opts) -> None:
 
 
 def main(argv=None) -> int:
-    # The JAX package's option parser and data loader are numpy/Pillow
-    # host code with no jax import; the port reuses them.
-    from faster_rcnn_pytorch_tpu.config import load_options
-    from faster_rcnn_pytorch_tpu.data.loader import build_dataloader
-
+    from faster_rcnn_pytorch_tpu_torch.config import load_options
+    from faster_rcnn_pytorch_tpu_torch.data.loader import build_dataloader
     from faster_rcnn_pytorch_tpu_torch.engine.evaluate import evaluate
     from faster_rcnn_pytorch_tpu_torch.engine.train import train_one_epoch
     from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import build_model, init_weights
@@ -84,7 +81,7 @@ def main(argv=None) -> int:
         load_checkpoint,
         save_checkpoint,
     )
-    from faster_rcnn_pytorch_tpu_torch.utils.convert import load_legacy_checkpoint
+    from faster_rcnn_pytorch_tpu_torch.utils.convert import load_reference_checkpoint
     from faster_rcnn_pytorch_tpu_torch.utils.logging import ScalarWriter, trace_context
     from faster_rcnn_pytorch_tpu_torch.utils.runtime import select_device, set_numerics
 
@@ -100,7 +97,7 @@ def main(argv=None) -> int:
         _preflight(model, train_loader, opts)
 
     if opts.checkpoint.endswith((".pth.tar", ".pth")):
-        model.load_state_dict(load_legacy_checkpoint(opts.checkpoint), strict=True)
+        model.load_state_dict(load_reference_checkpoint(opts.checkpoint), strict=True)
         print(f"imported torch checkpoint {opts.checkpoint}", flush=True)
     elif opts.checkpoint and not opts.checkpoint.endswith(".pt"):
         raise ValueError(

@@ -1,27 +1,34 @@
-"""The legacy (VGG16 + RoIPool) Faster R-CNN detector and its predict.
+"""Both Faster R-CNN generations and their predict.
 
-Counterpart of ``faster_rcnn_pytorch_tpu/models/faster_rcnn.py`` for the
-legacy generation. Images live on a padded canvas; box coordinates are
-normalised to [0, 1] of the canvas, and each image's valid extent
-(w_frac, h_frac) flows through proposal selection.
+Counterpart of ``faster_rcnn_pytorch_tpu/models/faster_rcnn.py``:
 
-The module's parameter names are the reference legacy layout, so the
-state dict from ``export_legacy_torch_state_dict`` (or a reference
-``.pth.tar``) loads with ``strict=True``. That layout holds the shared
-classifier twice, as ``classifier.*`` and ``fast_rcnn_head.classifier.*``:
-one ``nn.Sequential`` is registered under both names.
+* :class:`LegacyFRCNN`: VGG16, conv5_3 features at stride 16, 9-anchor
+  RPN, 7x7 RoIPool head with the shared 4096-wide FC trunk.
+* :class:`FPNFRCNN`: ResNet50-FPN, a 3-anchor RPN shared over P2..P6,
+  7x7 MultiScaleRoIAlign over P2..P5, 1024-wide FC trunk.
+
+Images live on a padded canvas; box coordinates are normalised to
+[0, 1] of the canvas, and each image's valid extent (w_frac, h_frac)
+flows through proposal selection.
+
+The modules' parameter names are the reference layouts, so the state
+dicts from ``export_legacy_torch_state_dict`` / ``export_fpn_torch_state_dict``
+(or a reference ``.pth.tar``) load with ``strict=True``. Both layouts hold
+the shared classifier twice (``classifier.*`` and
+``fast_rcnn_head.classifier.*`` / ``frcnn_head.classifier.*``): one
+``nn.Sequential`` is registered under both names.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 from torch import nn
 
-from faster_rcnn_pytorch_tpu_torch.models.anchors import legacy_anchors
+from faster_rcnn_pytorch_tpu_torch.models.anchors import fpn_anchors, legacy_anchors
 from faster_rcnn_pytorch_tpu_torch.models.losses import LossBreakdown, frcnn_loss
 from faster_rcnn_pytorch_tpu_torch.models.rpn import RPNHead, propose, softmax
 from faster_rcnn_pytorch_tpu_torch.models.targets import (
@@ -31,9 +38,11 @@ from faster_rcnn_pytorch_tpu_torch.models.targets import (
     frcnn_targets,
     rpn_targets,
 )
+from faster_rcnn_pytorch_tpu_torch.models.resnet import Bottleneck, ResNet50FPN
 from faster_rcnn_pytorch_tpu_torch.models.vgg import VGG16Features
 from faster_rcnn_pytorch_tpu_torch.ops.boxes import cxcy_to_xy, decode, xy_to_cxcy
 from faster_rcnn_pytorch_tpu_torch.ops.nms import multiclass_nms
+from faster_rcnn_pytorch_tpu_torch.ops.roi_align import multiscale_roi_align_batch
 from faster_rcnn_pytorch_tpu_torch.ops.roi_pool import roi_pool_batch
 
 
@@ -68,15 +77,47 @@ class DetectorConfig:
 
 LEGACY_CONFIG = DetectorConfig(rpn_nms_tile_train=1024)
 
+FPN_CONFIG = DetectorConfig(
+    num_classes=91,
+    pre_nms_train=4000,
+    post_nms_train=1000,
+    pre_nms_test=2000,
+    post_nms_test=1000,
+    proposal_min_size=10.0 / 1000.0,
+    roi_samples=512,
+    roi_pos_quota=128,
+    label_offset=0,
+    rpn_allow_ties=True,
+    rpn_boundary_filter=False,
+)
+
+
+def _trunk(in_features: int, width: int) -> nn.Sequential:
+    return nn.Sequential(
+        nn.Linear(in_features, width),
+        nn.ReLU(inplace=True),
+        nn.Linear(width, width),
+        nn.ReLU(inplace=True),
+    )
+
 
 class FastRCNNHead(nn.Module):
     """RoI head: the shared classifier, then class scores and boxes."""
 
     def __init__(self, classifier: nn.Sequential, num_classes: int):
         super().__init__()
+        width = classifier[2].out_features
         self.classifier = classifier
-        self.cls_head = nn.Linear(4096, num_classes)
-        self.reg_head = nn.Linear(4096, num_classes * 4)
+        self.cls_head = nn.Linear(width, num_classes)
+        self.reg_head = nn.Linear(width, num_classes * 4)
+
+    def forward(self, pooled: torch.Tensor):
+        """``[B, S, C, 7, 7]`` pooled rois -> float32 ``([B, S, classes],
+        [B, S, 4 * classes])``; the ``(C, 7, 7)`` flatten meets fc6 in the
+        reference layout."""
+        b, s = pooled.shape[:2]
+        x = self.classifier(pooled.reshape(b, s, -1))
+        return self.cls_head(x).float(), self.reg_head(x).float()
 
 
 class LegacyFRCNN(nn.Module):
@@ -88,12 +129,7 @@ class LegacyFRCNN(nn.Module):
         self.num_classes = num_classes
         self.extractor = VGG16Features()
         self.rpn = RPNHead(num_anchors=9, channels=512)
-        self.classifier = nn.Sequential(
-            nn.Linear(512 * 7 * 7, 4096),
-            nn.ReLU(inplace=True),
-            nn.Linear(4096, 4096),
-            nn.ReLU(inplace=True),
-        )
+        self.classifier = _trunk(512 * 7 * 7, 4096)
         self.fast_rcnn_head = FastRCNNHead(self.classifier, num_classes)
 
     def features(self, images: torch.Tensor) -> torch.Tensor:
@@ -103,41 +139,120 @@ class LegacyFRCNN(nn.Module):
     def rpn_out(self, feats: torch.Tensor):
         return self.rpn(feats)
 
-    def head(self, feats: torch.Tensor, rois: torch.Tensor, plain_roi_pool: bool = False):
+    def head(self, feats: torch.Tensor, rois: torch.Tensor, plain: bool = False):
         """feats ``[B, 512, h, w]``, rois ``[B, S, 4]`` in [0, 1] ->
         float32 ``([B, S, C], [B, S, 4C])``. Rois are scaled to feature
-        cells before RoIPool; the ``[C, 7, 7]`` flatten meets fc6 in the
-        reference layout. ``plain_roi_pool`` is for tests only."""
-        b, _, fh, fw = feats.shape
+        cells before RoIPool. ``plain`` is for tests only: the plain
+        RoIPool in place of the kernel."""
+        _, _, fh, fw = feats.shape
         scale = torch.tensor([fw, fh, fw, fh], dtype=torch.float32, device=feats.device)
-        pooled = roi_pool_batch(feats, rois * scale, 1.0, output_size=7, plain=plain_roi_pool)
-        x = self.classifier(pooled.reshape(b, rois.shape[1], -1))
-        head = self.fast_rcnn_head
-        return head.cls_head(x).float(), head.reg_head(x).float()
+        pooled = roi_pool_batch(feats, rois * scale, 1.0, output_size=7, plain=plain)
+        return self.fast_rcnn_head(pooled)
 
     def canvas_anchors(self, height: int, width: int):
         return legacy_anchors(height, width)
 
+    def init_stds(self) -> dict:
+        """The reference's head inits; every other conv and linear layer is
+        He-normal (keeps activations O(1) through the 15 ReLU layers)."""
+        return {
+            self.rpn.inter_layer: 0.01,
+            self.rpn.cls_layer: 0.01,
+            self.rpn.reg_layer: 0.01,
+            self.fast_rcnn_head.cls_head: 0.01,
+            self.fast_rcnn_head.reg_head: 0.001,
+        }
 
-def init_weights(model: LegacyFRCNN, generator: torch.Generator) -> LegacyFRCNN:
-    """Seeded random init: He-normal backbone and trunk (keeps activations
-    O(1) through the 15 ReLU layers), N(0, 0.01) RPN and class head,
-    N(0, 0.001) box head, zero biases (the reference's head inits)."""
-    small = {
-        model.rpn.inter_layer: 0.01,
-        model.rpn.cls_layer: 0.01,
-        model.rpn.reg_layer: 0.01,
-        model.fast_rcnn_head.cls_head: 0.01,
-        model.fast_rcnn_head.reg_head: 0.001,
-    }
+
+class FPNFRCNN(nn.Module):
+    """ResNet50-FPN Faster R-CNN: P2..P6 at strides 4..64, one 3-anchor
+    RPN head shared over the levels, 7x7 MultiScaleRoIAlign over P2..P5
+    and the shared 1024-wide FC trunk."""
+
+    strides = (4, 8, 16, 32, 64)
+
+    def __init__(self, num_classes: int = 91):
+        super().__init__()
+        self.num_classes = num_classes
+        self.backbone = ResNet50FPN()
+        self.rpn = nn.ModuleDict({"rpn_head": RPNHead(num_anchors=3, channels=256)})
+        self.classifier = _trunk(256 * 7 * 7, 1024)
+        self.frcnn_head = FastRCNNHead(self.classifier, num_classes)
+
+    def features(self, images: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """``[B, 3, H, W]`` -> (P2, P3, P4, P5, P6)."""
+        return self.backbone(images)
+
+    def rpn_out(self, feats):
+        """The shared head per level, concatenated level-major like the
+        anchors: ``([B, A, 2], [B, A, 4])`` float32."""
+        outs = [self.rpn["rpn_head"](f) for f in feats]
+        return torch.cat([o[0] for o in outs], 1), torch.cat([o[1] for o in outs], 1)
+
+    def head(self, feats, rois: torch.Tensor, canvas_hw, plain: bool = False):
+        """RoI head over P2..P5: rois ``[B, S, 4]`` in [0, 1] are scaled by
+        the canvas (w, h, w, h) to pixels for MultiScaleRoIAlign. ``plain``
+        is for tests only: the plain align in place of the kernel."""
+        h, w = canvas_hw
+        scale = torch.tensor([w, h, w, h], dtype=torch.float32, device=rois.device)
+        pooled = multiscale_roi_align_batch(feats[:4], rois * scale, plain=plain)
+        return self.frcnn_head(pooled)
+
+    def canvas_anchors(self, height: int, width: int):
+        return fpn_anchors(height, width, strides=self.strides)
+
+    def init_stds(self) -> dict:
+        """Seeded-init scales that keep P2..P6 O(1) with identity FrozenBN
+        (std about 1-3 at 800x1344): each bottleneck's last conv at 0.25
+        and its downsample at 0.7 of He, so the residual sums do not
+        double the variance block after block; the FPN convs, whose inputs
+        are not rectified, at ``1 / sqrt(fan_in)``. The heads as the
+        reference inits them, but N(0, 0.02) for the class head: with the
+        reference's 0.01 the top class probabilities of random images sit
+        at about 0.05-0.11 of 91 classes, on the 0.05 threshold, so whether
+        there are detections at all would hinge on rounding; 0.02 lifts
+        them to about 0.16-0.44, still far from 1.0, where saturated ties
+        would make the order device-dependent."""
+        stds = {}
+        for blk in self.backbone.body.modules():
+            if isinstance(blk, Bottleneck):
+                stds[blk.conv3] = 0.25 * _he_std(blk.conv3)
+                if blk.downsample is not None:
+                    stds[blk.downsample[0]] = 0.7 * _he_std(blk.downsample[0])
+        for conv in self.backbone.fpn.modules():
+            if isinstance(conv, nn.Conv2d):
+                stds[conv] = 1.0 / math.sqrt(conv.weight[0].numel())
+        head = self.rpn["rpn_head"]
+        stds.update(
+            {
+                head.inter_layer: 0.01,
+                head.cls_layer: 0.01,
+                head.reg_layer: 0.01,
+                self.frcnn_head.cls_head: 0.02,
+                self.frcnn_head.reg_head: 0.001,
+            }
+        )
+        return stds
+
+
+def _he_std(m: nn.Module) -> float:
+    return math.sqrt(2.0 / m.weight[0].numel())
+
+
+def init_weights(model, generator: torch.Generator):
+    """Seeded random init: N(0, std) weights with the model's
+    ``init_stds`` and He-normal elsewhere, zero biases. FrozenBN keeps its
+    identity statistics (scale 1, bias 0, mean 0, var 1)."""
+    small = model.init_stds()
     with torch.no_grad():
         for m in model.modules():
             if not isinstance(m, (nn.Conv2d, nn.Linear)):
                 continue
-            std = small.get(m, math.sqrt(2.0 / (m.weight[0].numel())))
+            std = small.get(m, _he_std(m))
             w = torch.randn(m.weight.shape, generator=generator) * std
             m.weight.copy_(w)
-            m.bias.zero_()
+            if m.bias is not None:
+                m.bias.zero_()
     return model
 
 
@@ -243,11 +358,11 @@ def train_losses(
     rpn_reg: torch.Tensor,
     rpn_tg: RPNTargets,
     roi_tg: RoITargets,
-    plain_roi_pool: bool = False,
+    plain: bool = False,
 ) -> TrainStepOutput:
     """The head on the sampled rois, the regression row of each target
-    class, and the four-part loss."""
-    head_cls, head_reg = model.head(feats, roi_tg.rois, plain_roi_pool=plain_roi_pool)
+    class, and the four-part loss. Legacy only for now."""
+    head_cls, head_reg = model.head(feats, roi_tg.rois, plain=plain)
     b, s = roi_tg.labels.shape
     head_reg = head_reg.reshape(b, s, cfg.num_classes, 4)
     safe_cls = roi_tg.labels.clamp(0, cfg.num_classes - 1).long()
@@ -273,7 +388,7 @@ def forward_train(
     gt_mask: torch.Tensor,
     generator: torch.Generator | None = None,
     noise: TrainNoise | None = None,
-    plain_roi_pool: bool = False,
+    plain: bool = False,
 ) -> TrainStepOutput:
     """One training forward pass: the losses of a padded batch.
 
@@ -285,7 +400,7 @@ def forward_train(
         ``[B, G]``; gt_mask ``[B, G]``.
       generator: draws the sampling noise (on the images' device) unless
         ``noise`` is given; a test hands the JAX package's noise over.
-      plain_roi_pool: tests only (see :meth:`LegacyFRCNN.head`).
+      plain: tests only (see :meth:`LegacyFRCNN.head`).
 
     The JAX package's slab-batched VGG stem (``train=True``) is a TPU
     layout with the same numbers; this is the plain stack.
@@ -301,7 +416,7 @@ def forward_train(
     rpn_tg, roi_tg = train_targets(
         cfg, anchors, rpn_cls, rpn_reg, extents, gt_boxes, gt_labels, gt_mask, noise
     )
-    return train_losses(model, cfg, feats, rpn_cls, rpn_reg, rpn_tg, roi_tg, plain_roi_pool)
+    return train_losses(model, cfg, feats, rpn_cls, rpn_reg, rpn_tg, roi_tg, plain)
 
 
 class Detections(NamedTuple):
@@ -311,34 +426,54 @@ class Detections(NamedTuple):
     valid: torch.Tensor  # [B, D]
 
 
+PREDICT_STAGES = ("h2d", "backbone", "rpn_head", "propose", "roi_head", "decode", "class_nms")
+
+
+def _head_apply(model, feats, rois, canvas_hw, plain):
+    """The RoI head of either generation: FPN aligns in canvas pixels and
+    needs the canvas, legacy pools in feature cells and does not."""
+    if isinstance(model, FPNFRCNN):
+        return model.head(feats, rois, canvas_hw, plain=plain)
+    return model.head(feats, rois, plain=plain)
+
+
 @torch.no_grad()
 def predict(
-    model: LegacyFRCNN,
+    model: LegacyFRCNN | FPNFRCNN,
     cfg: DetectorConfig,
     images: torch.Tensor,
     extents: torch.Tensor,
     score_threshold: float | None = None,
-    plain_roi_pool: bool = False,
+    plain: bool = False,
+    on_stage: Callable[[str, object], None] | None = None,
 ) -> Detections:
-    """Test-time forward: proposals, head on all rois, softmax, deltas
-    un-normalised by REG_STD and decoded against the rois, clamp,
-    per-class threshold + NMS, labels 0-based.
+    """Test-time forward of either generation: proposals, head on all
+    rois, softmax, deltas un-normalised by REG_STD and decoded against the
+    rois, clamp, per-class threshold + NMS, labels 0-based.
 
     Args:
       images: ``[B, H, W, 3]`` normalised canvas batch (the JAX package's
         layout; the network runs NCHW).
       extents: ``[B, 2]`` (w_frac, h_frac).
-      plain_roi_pool: tests only; hold the kernel's path against the
-        plain RoIPool.
+      plain: tests only; hold the kernel's path against the plain RoIPool
+        or MultiScaleRoIAlign.
+      on_stage: called as ``on_stage(name, result)`` as each of
+        :data:`PREDICT_STAGES` ends (``h2d`` is the anchors' copy;
+        ``decode`` hands over the class probabilities), so a timer can
+        sync the device between stages.
     """
+    mark = on_stage or (lambda name, result: None)
     b, canvas_h, canvas_w = images.shape[:3]
     dev = images.device
     dtype = next(model.parameters()).dtype
     anchors = torch.from_numpy(model.canvas_anchors(canvas_h, canvas_w)).to(dev)
     thres = cfg.score_threshold if score_threshold is None else score_threshold
+    mark("h2d", anchors)
 
     feats = model.features(images.permute(0, 3, 1, 2).to(dtype).contiguous())
+    mark("backbone", feats)
     rpn_cls, rpn_reg = model.rpn_out(feats)
+    mark("rpn_head", rpn_cls)
     props = [
         propose(
             rpn_cls[i],
@@ -355,8 +490,10 @@ def predict(
     ]
     rois = torch.stack([p.rois for p in props])
     valid = torch.stack([p.valid for p in props])
+    mark("propose", rois)
 
-    head_cls, head_reg = model.head(feats, rois, plain_roi_pool=plain_roi_pool)
+    head_cls, head_reg = _head_apply(model, feats, rois, (canvas_h, canvas_w), plain)
+    mark("roi_head", head_cls)
     s = cfg.post_nms_test
     probs = softmax(head_cls)
     probs = torch.where(valid[:, :, None], probs, 0.0)
@@ -364,6 +501,7 @@ def predict(
     reg = head_reg.reshape(b, s, cfg.num_classes, 4) * reg_std
     rois_c = xy_to_cxcy(rois)[:, :, None, :]
     boxes = cxcy_to_xy(decode(reg, rois_c)).clamp(0.0, 1.0)
+    mark("decode", probs)
 
     outs = [
         multiclass_nms(
@@ -377,19 +515,33 @@ def predict(
         )
         for i in range(b)
     ]
-    return Detections(*(torch.stack(t) for t in zip(*outs)))
+    dets = Detections(*(torch.stack(t) for t in zip(*outs)))
+    mark("class_nms", dets)
+    return dets
 
 
-def build_model(generation: str, num_classes: int | None = None):
+def label_offset_for(generation: str, data_type: str) -> int:
+    """Dataset label -> head class index offset: the FPN generation on
+    COCO consumes raw category ids (1..90, background 0), so it needs
+    none; every 0-based labelling (VOC, COCO remapped to 0..79 for the
+    legacy generation) shifts by 1 past the background slot."""
+    return 0 if (generation == "fpn" and data_type == "coco") else 1
+
+
+def build_model(
+    generation: str, num_classes: int | None = None, label_offset: int | None = None
+):
     """Model + config factory (float32 parameters, uninitialised beyond
-    PyTorch's defaults: load a state dict or call :func:`init_weights`)."""
-    if generation == "fpn":
-        raise NotImplementedError(
-            "the FPN generation is not ported yet; see ROADMAP.md Queue A"
-        )
-    if generation != "legacy":
+    PyTorch's defaults: load a state dict or call :func:`init_weights`).
+    ``label_offset`` overrides the config's (see :func:`label_offset_for`)."""
+    models = {"legacy": (LEGACY_CONFIG, LegacyFRCNN), "fpn": (FPN_CONFIG, FPNFRCNN)}
+    if generation not in models:
         raise ValueError(f"unknown generation: {generation!r}")
-    cfg = LEGACY_CONFIG
+    cfg, model_cls = models[generation]
+    overrides = {}
     if num_classes is not None:
-        cfg = dataclasses.replace(cfg, num_classes=num_classes)
-    return LegacyFRCNN(num_classes=cfg.num_classes), cfg
+        overrides["num_classes"] = num_classes
+    if label_offset is not None:
+        overrides["label_offset"] = label_offset
+    cfg = dataclasses.replace(cfg, **overrides)
+    return model_cls(num_classes=cfg.num_classes), cfg

@@ -12,7 +12,7 @@ from __future__ import annotations
 import os
 import threading
 
-_SOURCES = ("roi_pool.cu", "roi_pool_binding.cpp")
+_SOURCES = ("roi_pool.cu", "roi_align.cu", "binding.cpp")
 _BUILD_DIR = os.path.join(
     os.path.dirname(
         os.path.dirname(

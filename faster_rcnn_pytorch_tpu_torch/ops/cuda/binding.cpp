@@ -1,5 +1,5 @@
-// PyTorch binding of the RoIPool kernels in roi_pool.cu. The only source
-// that includes PyTorch's headers; it checks the tensors the Python
+// PyTorch binding of the kernels in roi_pool.cu and roi_align.cu. The only
+// source that includes PyTorch's headers; it checks the tensors the Python
 // wrappers allocated and launches on the current CUDA stream.
 
 #include <torch/extension.h>
@@ -8,6 +8,7 @@
 #include <c10/cuda/CUDAGuard.h>
 
 #include <cstdint>
+#include <vector>
 
 int roi_pool_forward_launch(const void* feat, bool feat_is_bf16, const float* rois,
                             int num_rois, int rois_per_image, int channels,
@@ -18,6 +19,10 @@ int roi_pool_backward_launch(const void* grad, bool grad_is_bf16, const int32_t*
                              int height, int width, int pooled, float* dfeat,
                              void* stream);
 const char* roi_pool_error_string(int err);
+int roi_align_forward_launch(const void* const* feats, const int* heights, const int* widths,
+                             const float* scales, bool is_bf16, const float* rois,
+                             const int32_t* level, int num_rois, int rois_per_image,
+                             int channels, void* out, void* stream);
 
 // features [B, C, H, W] f32/bf16, rois [B, n, 4] f32 (all contiguous, one
 // device) -> fills out [B*n, C, P, P] (features' dtype) and, unless it is
@@ -95,9 +100,58 @@ void roi_pool_backward(const at::Tensor& grad, const at::Tensor& argmax,
   TORCH_CHECK(err == 0, "roi_pool_backward launch failed: ", roi_pool_error_string(err));
 }
 
+// features: the four levels P2..P5, each [B, C, h, w] f32/bf16 (one dtype);
+// rois [B, n, 4] f32 canvas pixels; level [B, n] int32 in [0, 4) (all
+// contiguous, one device) -> fills out [B, n, C, 7, 7] (features' dtype).
+void roi_align_forward(const std::vector<at::Tensor>& features, const at::Tensor& rois,
+                       const at::Tensor& level, at::Tensor& out) {
+  static constexpr float kScales[4] = {1.0f / 4, 1.0f / 8, 1.0f / 16, 1.0f / 32};
+  TORCH_CHECK(features.size() == 4, "roi_align_forward: want the four levels P2..P5");
+  const at::Tensor& f0 = features[0];
+  TORCH_CHECK(f0.scalar_type() == at::kFloat || f0.scalar_type() == at::kBFloat16,
+              "features must be float32 or bfloat16");
+  const int64_t b = f0.size(0), c = f0.size(1);
+  const void* ptrs[4];
+  int heights[4], widths[4];
+  for (int i = 0; i < 4; ++i) {
+    const at::Tensor& f = features[i];
+    TORCH_CHECK(f.is_cuda() && f.get_device() == f0.get_device() && f.dim() == 4 &&
+                    f.size(0) == b && f.size(1) == c && f.scalar_type() == f0.scalar_type() &&
+                    f.is_contiguous(),
+                "levels must be contiguous [B, C, h, w] tensors of one dtype on one device");
+    ptrs[i] = f.data_ptr();
+    heights[i] = static_cast<int>(f.size(2));
+    widths[i] = static_cast<int>(f.size(3));
+  }
+  TORCH_CHECK(rois.is_cuda() && level.is_cuda() && out.is_cuda(),
+              "roi_align_forward: tensors must be on a CUDA device");
+  TORCH_CHECK(rois.get_device() == f0.get_device() && level.get_device() == f0.get_device() &&
+                  out.get_device() == f0.get_device(),
+              "roi_align_forward: tensors must share one device");
+  TORCH_CHECK(rois.scalar_type() == at::kFloat && rois.dim() == 3 && rois.size(0) == b &&
+                  rois.size(2) == 4 && rois.is_contiguous(),
+              "rois must be contiguous float32 [B, n, 4]");
+  const int64_t n = rois.size(1);
+  TORCH_CHECK(level.scalar_type() == at::kInt && level.dim() == 2 && level.size(0) == b &&
+                  level.size(1) == n && level.is_contiguous(),
+              "level must be contiguous int32 [B, n]");
+  TORCH_CHECK(out.scalar_type() == f0.scalar_type() && out.is_contiguous() &&
+                  out.sizes() == at::IntArrayRef({b, n, c, 7, 7}),
+              "out must be [B, n, C, 7, 7] in the features' dtype");
+  const c10::cuda::CUDAGuard guard(f0.device());
+  const cudaStream_t stream = at::cuda::getCurrentCUDAStream();
+  const int err = roi_align_forward_launch(
+      ptrs, heights, widths, kScales, f0.scalar_type() == at::kBFloat16,
+      rois.data_ptr<float>(), level.data_ptr<int32_t>(), static_cast<int>(b * n),
+      static_cast<int>(n), static_cast<int>(c), out.data_ptr(), static_cast<void*>(stream));
+  TORCH_CHECK(err == 0, "roi_align_forward launch failed: ", roi_pool_error_string(err));
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("roi_pool_forward", &roi_pool_forward,
         "RoIPool forward into preallocated outputs (CUDA)");
   m.def("roi_pool_backward", &roi_pool_backward,
         "RoIPool features-gradient, atomically added into a zeroed float32 map (CUDA)");
+  m.def("roi_align_forward", &roi_align_forward,
+        "MultiScaleRoIAlign forward over P2..P5 into a preallocated output (CUDA)");
 }

@@ -183,7 +183,7 @@ cudaError_t launch_bwd(const void* grad, const int32_t* argmax, int num_rois,
 }  // namespace
 
 // Plain C++ entry points (no PyTorch headers here, so nvcc stays fast); the
-// binding in roi_pool_binding.cpp checks the tensors and calls them on
+// binding in binding.cpp checks the tensors and calls them on
 // PyTorch's current stream. Each returns the launch's cudaError_t.
 int roi_pool_backward_launch(const void* grad, bool grad_is_bf16, const int32_t* argmax,
                              int num_rois, int rois_per_image, int channels,

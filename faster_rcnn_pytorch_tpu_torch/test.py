@@ -3,28 +3,46 @@
 Same flags (``load_options``), one device: the CUDA card, or the CPU
 when ``FRT_TORCH_DEVICE=cpu`` asks for it (``utils.runtime.select_device``).
 ``--checkpoint x.pth.tar`` loads reference-layout weights; without one
-the detector gets a fresh init seeded by ``--seed``. Legacy generation
-and VOC only, for now.
+the detector gets a fresh init seeded by ``--seed``. Both generations
+(``--model_generation legacy|fpn``) on VOC or COCO (``--data_type``);
+COCO scores against ``annotations/instances_val2017.json`` under the
+data root.
 
-``python -m faster_rcnn_pytorch_tpu_torch.test --data_root ./data --dtype float32``
+``python -m faster_rcnn_pytorch_tpu_torch.test --model_generation fpn --data_type coco --num_classes 91``
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
 import torch
 
 
-def main(argv=None) -> int:
-    # The JAX package's option parser and data loader are numpy/Pillow
-    # host code with no jax import; the port reuses them on the CPU side.
-    from faster_rcnn_pytorch_tpu.config import load_options
-    from faster_rcnn_pytorch_tpu.data.loader import build_dataloader
+def label_map_for(opts, coco_index):
+    """Model 0-based foreground label -> dataset label: identity for VOC,
+    COCO's contiguous-to-category table for the legacy generation, and
+    ``l + 1`` for the FPN generation, whose softmax index is the raw COCO
+    category id."""
+    if opts.data_type == "voc":
+        return lambda l: l
+    if opts.model_generation == "legacy":
+        # .get(-1): a COCO-format dataset may carry fewer categories than
+        # the model's slots; those map to an id no gt has.
+        return lambda l: coco_index.contiguous_to_cat.get(l, -1)
+    return lambda l: l + 1
 
+
+def main(argv=None) -> int:
+    from faster_rcnn_pytorch_tpu_torch.config import load_options
+    from faster_rcnn_pytorch_tpu_torch.data.loader import build_dataloader
     from faster_rcnn_pytorch_tpu_torch.engine.evaluate import evaluate
-    from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import build_model, init_weights
-    from faster_rcnn_pytorch_tpu_torch.utils.convert import load_legacy_checkpoint
+    from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import (
+        build_model,
+        init_weights,
+        label_offset_for,
+    )
+    from faster_rcnn_pytorch_tpu_torch.utils.convert import load_reference_checkpoint
     from faster_rcnn_pytorch_tpu_torch.utils.runtime import (
         prepare_for_inference,
         select_device,
@@ -32,15 +50,17 @@ def main(argv=None) -> int:
     )
 
     opts = load_options(argv)
-    if opts.data_type != "voc":
-        raise NotImplementedError("only VOC evaluation is ported so far")
     dtype = set_numerics(opts.dtype)
     device = select_device()
     _, test_loader = build_dataloader(opts)
-    model, cfg = build_model(opts.model_generation, opts.num_classes)
+    model, cfg = build_model(
+        opts.model_generation,
+        opts.num_classes,
+        label_offset=label_offset_for(opts.model_generation, opts.data_type),
+    )
 
     if opts.checkpoint.endswith((".pth.tar", ".pth")):
-        model.load_state_dict(load_legacy_checkpoint(opts.checkpoint), strict=True)
+        model.load_state_dict(load_reference_checkpoint(opts.checkpoint), strict=True)
         print(f"imported torch checkpoint {opts.checkpoint}", flush=True)
     elif opts.checkpoint:
         raise ValueError(
@@ -51,10 +71,20 @@ def main(argv=None) -> int:
         print(f"no checkpoint; fresh init with seed {opts.seed}", flush=True)
     model = prepare_for_inference(model, device, dtype)
 
+    coco_index = None
+    if opts.data_type == "coco":
+        from faster_rcnn_pytorch_tpu_torch.data.coco import CocoIndex
+
+        coco_index = CocoIndex(
+            os.path.join(opts.data_root, "annotations", "instances_val2017.json")
+        )
     result = evaluate(
         model,
         cfg,
         test_loader,
+        data_type=opts.data_type,
+        coco_index=coco_index,
+        label_map=label_map_for(opts, coco_index),
         score_threshold=opts.thres,
         dump_path=opts.dump_detections or None,
     )

@@ -7,7 +7,7 @@ written atomically (tmp file, then ``os.replace``), at
 ``{log_dir}/{name}/saves/{name}.{epoch}.pt`` plus a ``best`` copy. The
 suffix is ``.pt``, not the JAX package's ``.ckpt``, so a flax checkpoint
 is never read as a torch one. Reference-layout ``.pth``/``.pth.tar``
-weights are read by ``utils/convert.load_legacy_checkpoint``.
+weights are read by ``utils/convert.load_reference_checkpoint``.
 """
 
 from __future__ import annotations

@@ -44,7 +44,23 @@ def set_numerics(dtype: str) -> torch.dtype:
 
 
 def prepare_for_inference(model: torch.nn.Module, device, dtype: torch.dtype):
-    """Move and cast every parameter once (the JAX package's
-    ``cast_inference_params``: a bfloat16 model holds bfloat16 weights;
-    its heads return float32) and switch to eval mode."""
-    return model.to(device=device, dtype=dtype).eval()
+    """Move the model to ``device``, cast its weights once to ``dtype``
+    and switch to eval mode (the JAX package's ``cast_inference_params``:
+    a bfloat16 model holds bfloat16 weights; its heads return float32).
+
+    FrozenBN buffers stay float32, as ``cast_inference_params`` leaves
+    them: the module folds ``rsqrt(var + eps) * scale`` in float32 before
+    casting to the activations' dtype, and a bfloat16 ``var`` would change
+    that fold."""
+    from faster_rcnn_pytorch_tpu_torch.models.resnet import FrozenBatchNorm2d
+
+    model = model.to(device=device)
+    for m in model.modules():
+        if isinstance(m, FrozenBatchNorm2d):
+            continue
+        for p in m.parameters(recurse=False):
+            p.data = p.data.to(dtype)
+        for name, buf in m.named_buffers(recurse=False):
+            if buf.is_floating_point():
+                setattr(m, name, buf.to(dtype))
+    return model.eval()

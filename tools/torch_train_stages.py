@@ -21,8 +21,9 @@ The phases run in that order, every rate before the first profiler
 session. Run from the root of a checkout on a GPU host:
 ``python tools/torch_train_stages.py [--repeats 3]
 [--phases rate,stages,profile]``.
-It also runs on the CPU at a small canvas (``--canvas 192 256``), without
-the profiler, to check the script itself.
+Without a card it raises; with ``FRT_TORCH_DEVICE=cpu`` it runs on the
+CPU at a small canvas (``--canvas 192 256``), without the profiler, to
+check the script itself.
 """
 
 from __future__ import annotations
@@ -55,7 +56,7 @@ from faster_rcnn_pytorch_tpu_torch.parallel.train_step import (  # noqa: E402
     make_optimizer,
     make_train_step,
 )
-from faster_rcnn_pytorch_tpu_torch.utils.runtime import set_numerics  # noqa: E402
+from faster_rcnn_pytorch_tpu_torch.utils.runtime import select_device, set_numerics  # noqa: E402
 
 
 def host_line() -> str:
@@ -206,7 +207,7 @@ def main(argv=None) -> int:
     if not phases <= {"rate", "stages", "profile"}:
         p.error(f"unknown phase in --phases {args.phases!r}")
 
-    device = torch.device("cuda", 0) if torch.cuda.is_available() else torch.device("cpu")
+    device = select_device()
     if device.type == "cuda":
         card = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
