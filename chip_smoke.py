@@ -21,7 +21,14 @@ CUDA card, builds the port's kernels from the sources in the checkout
    * MultiScaleRoIAlign forward at the FPN predict shapes (P2..P5
      [2, 256, 200, 336] .. [2, 256, 25, 42], 1000 rois per image plus
      extremes: banners, poles, degenerate, giant, partly outside),
-     float32 and bfloat16, bit-exact.
+     float32 and bfloat16, bit-exact;
+   * MultiScaleRoIAlign backward at the FPN train shapes (the same
+     levels, 512 rois per image plus the extremes): on rois whose extent
+     at their level is a whole multiple of 7 cells from a cell edge (every
+     weight a multiple of 1/16) integer gradients are bit-exact in float32
+     and bfloat16, normal ones within 1e-5 * max|ref| of the float32 maps
+     (atomics add in another order); ``index_put_`` with ``accumulate`` on
+     the plain version's prepared terms is timed beside it.
 3. main path, predict: full-width legacy VGG16 predict (21 classes, seeded
    random weights, the 800x1344 canvas, batch 1) through the port's
    ``engine.evaluate.evaluate`` on synthetic in-memory VOC batches, in
@@ -63,7 +70,25 @@ CUDA card, builds the port's kernels from the sources in the checkout
    must give identical detections.
 11. small-input FPN reference: GPU float32 FPN predict against the CPU
    plain path at 208x240, greedy-matched as in phase 5.
-12. imports: jax and flax were never imported.
+12. main path, FPN train: 20 steps of the ResNet50-FPN train step (91
+   classes, 800x1344, batch 2, gt padded to 100 slots with 1-3 boxes per
+   image under raw COCO ids, FPN_CONFIG budgets) through
+   ``train_one_epoch`` and ``parallel.train_step``, in float32 and under
+   bfloat16 autocast, counts reset just before and read just after: the
+   align forward and backward kernels run once per step each and RoIPool
+   never; every loss is finite and the mean of steps 16-20 is below that
+   of steps 1-5.
+13. FPN train step vs plain: one float32 step from the same weights and
+   noise through the align kernels and through the plain align (forward
+   and backward): identical losses; gradients within 1e-5 * max|g| per
+   tensor (the backbone and FPN convs sum the reordered atomics of the
+   align backward; two kernel runs' spread is printed beside it);
+   ``conv1`` and ``layer1`` get no gradient,
+   and after one SGD step their weights are ``p - lr * (wd * p)`` bit for
+   bit as ``torch.optim.SGD`` rounds it on zero gradients.
+14. small-input FPN train reference: one GPU float32 step against the CPU
+   plain path at 208x240, as phase 8.
+15. imports: jax and flax were never imported.
 
 Its last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -104,6 +129,7 @@ from faster_rcnn_pytorch_tpu_torch.ops import roi_align as roi_align_mod
 from faster_rcnn_pytorch_tpu_torch.ops import roi_pool as roi_pool_mod
 from faster_rcnn_pytorch_tpu_torch.ops.cuda import extension
 from faster_rcnn_pytorch_tpu_torch.parallel.train_step import (
+    apply_gradients,
     init_train_state,
     make_lr_schedule,
     make_optimizer,
@@ -127,6 +153,8 @@ FPN_CLASSES = 91
 FPN_BATCH = 2
 FPN_IMAGES = 8
 FPN_SMALL_CANVAS = (208, 240)  # H/16 odd: the top-down upsample is not 2x
+FROZEN = ("backbone.body.conv1.", "backbone.body.layer1.")  # FPN's frozen stages
+WEIGHT_DECAY = 5e-4  # make_optimizer's default
 # H100 SXM peaks (NVIDIA's data sheet) for the kernels' bounds.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -485,10 +513,133 @@ def check_roi_align_kernel(device) -> dict:
     return record
 
 
-def synthetic_train_batch(canvas, seed: int, batch: int = TRAIN_BATCH) -> dict:
+def exact_align_rois(generator, n: int, canvas=CANVAS) -> torch.Tensor:
+    """``[FPN_BATCH, n, 4]`` canvas-pixel rois on which the align's
+    adjoint is exact in any order of addition: each starts on a cell edge
+    of its level and spans a whole multiple of 7 cells there (1-8 cells a
+    bin), so every sample sits on a quarter cell and every corner weight
+    is a multiple of 1/16. Some start up to 4 cells outside the canvas or
+    end beyond it."""
+    h, w = canvas
+    m = 64 * n * FPN_BATCH
+    lvl = torch.randint(0, len(roi_align_mod.STRIDES), (m,), generator=generator)
+    stride = (4 * 2**lvl).float()[:, None]
+    cells = torch.tensor([w, h]) / stride + 8
+    start = ((torch.rand(m, 2, generator=generator) * cells).floor() - 4) * stride
+    extent = 7 * torch.randint(1, 9, (m, 2), generator=generator).float() * stride
+    rois = torch.cat([start, start + extent], 1)
+    rois = rois[roi_align_mod.fpn_level_assignment(rois) == lvl][: FPN_BATCH * n]
+    _require(len(rois) == FPN_BATCH * n, f"only {len(rois)} exact rois")
+    return rois.reshape(FPN_BATCH, n, 4)
+
+
+def _align_level_shapes(canvas=CANVAS) -> list[tuple[int, int]]:
+    return [(-(-canvas[0] // s), -(-canvas[1] // s)) for s in roi_align_mod.STRIDES]
+
+
+def check_roi_align_backward_kernel(device) -> dict:
+    """The MultiScaleRoIAlign backward kernel against its plain version at
+    the FPN train shapes."""
+    g = torch.Generator().manual_seed(SEED + 8)
+    shapes = _align_level_shapes()
+    n = FPN_CONFIG.roi_samples + 8  # 512 rois plus the extremes
+    rois = _align_rois(g, n).to(device)
+    exact = exact_align_rois(g, n).to(device)
+    level = roi_align_mod.fpn_level_assignment(rois)
+    exact_level = roi_align_mod.fpn_level_assignment(exact)
+    print(
+        f"align backward rois per level: {torch.bincount(level.flatten(), minlength=4).tolist()}, "
+        f"exact set {torch.bincount(exact_level.flatten(), minlength=4).tolist()}",
+        flush=True,
+    )
+    record = {
+        "name": "multiscale_roi_align_backward",
+        "route": "cuda",
+        "source": "faster_rcnn_pytorch_tpu_torch/ops/cuda/roi_align.cu",
+        "replaces": "faster_rcnn_pytorch_tpu/ops/pallas/roi_window_kernel.py:231",
+    }
+    grad_shape = (FPN_BATCH, n, 256, roi_align_mod.OUTPUT_SIZE, roi_align_mod.OUTPUT_SIZE)
+    bwd_cuda = roi_align_mod.multiscale_roi_align_backward_cuda
+    bwd_plain = roi_align_mod.multiscale_roi_align_backward_reference
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        ints = torch.randint(-3, 4, grad_shape, generator=g).to(device, dtype)
+        got = bwd_cuda(ints, exact, exact_level, shapes, dtype)
+        torch.cuda.synchronize()
+        want = bwd_plain(ints, exact, exact_level, shapes, dtype)
+        _require(
+            all(a.dtype == dtype and torch.equal(a, b) for a, b in zip(got, want)),
+            f"align backward != plain on the exact set ({dtype}): max|d| "
+            f"{max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))}",
+        )
+        # Normal gradients, summed in float32 (the maps before the cast).
+        normal = torch.randn(grad_shape, generator=g).to(device, dtype)
+        got = bwd_cuda(normal, rois, level, shapes, torch.float32)
+        want = bwd_plain(normal, rois, level, shapes, torch.float32)
+        diff = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        scale = max(float(b.abs().max()) for b in want)
+        _require(diff <= 1e-5 * scale, f"align backward ({dtype}): max|d| {diff} > 1e-5 * {scale}")
+        err = max(err, diff)
+        ms = _median_ms(lambda: bwd_cuda(normal, rois, level, shapes, dtype))
+        plain_ms = _median_ms(lambda: bwd_plain(normal, rois, level, shapes, dtype))
+        name = str(dtype).removeprefix("torch.")
+        print(
+            f"roi_align_backward {name} grad {tuple(normal.shape)} -> levels {shapes}: bit-exact on "
+            f"the exact set, max|d| {diff:.3g} (max|ref| {scale:.3g}) on normal gradients, "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 25)",
+            flush=True,
+        )
+        if dtype == torch.float32:
+            maps_bytes = sum(FPN_BATCH * 256 * h * w * 4 for h, w in shapes)
+            n_bytes = normal.numel() * 4 + rois.numel() * 4 + level.numel() * 4 + maps_bytes
+            # per upstream element: the 0.25 scale, then 16 corners of a
+            # weight product, a value product and an add
+            bound_ms, bound_by = _bound(n_bytes, 49 * normal.numel())
+            library_ms = _align_backward_library_ms(normal, rois, level, shapes)
+            print(
+                f"  {n_bytes / 1e6:.1f} MB moved: bound {bound_ms:.4f} ms; index_put_(accumulate) "
+                f"on the prepared terms: {library_ms:.4f} ms",
+                flush=True,
+            )
+            record.update(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms
+            )
+    record["max_abs_err"] = err
+    return record
+
+
+def _align_backward_library_ms(grad, rois, level, shapes) -> float:
+    """One ``index_put_(accumulate=True)`` of every term of the plain
+    version (all rois, all levels, rows offset into one NHWC buffer of the
+    four maps): the same sums in one PyTorch call."""
+    b, n, c = grad.shape[:3]
+    flat_g = grad.reshape(b * n, c, 7, 7).float()
+    flat_rois, flat_level = rois.reshape(b * n, 4), level.reshape(b * n)
+    image = torch.arange(b, device=rois.device).repeat_interleave(n)
+    rows, vals, base = [], [], 0
+    for li, ((h, w), stride) in enumerate(zip(shapes, roi_align_mod.STRIDES)):
+        sel = torch.nonzero(flat_level == li).flatten()
+        r, v = roi_align_mod.backward_scatter_terms(
+            flat_g[sel], flat_rois[sel], image[sel], stride, h, w
+        )
+        rows.append(r + base)
+        vals.append(v)
+        base += b * h * w
+    rows, vals = torch.cat(rows), torch.cat(vals)
+    acc = torch.zeros((base, c), device=rois.device)
+    ms = _median_ms(lambda: acc.index_put_((rows,), vals, accumulate=True))
+    del rows, vals, acc
+    return ms
+
+
+def synthetic_train_batch(
+    canvas, seed: int, batch: int = TRAIN_BATCH, labels: tuple[int, int] = (0, NUM_CLASSES - 1)
+) -> dict:
     """The JAX loader's train batch layout: normalised images on the
     padded canvas (zeros past each image's extent), ``extent``, and 1-3
-    gt boxes per image padded to ``MAX_GT`` slots."""
+    gt boxes per image padded to ``MAX_GT`` slots, labels drawn from
+    ``[labels[0], labels[1])`` (VOC's 0-based, or raw COCO ids 1..90 for
+    the FPN generation)."""
     rs = np.random.RandomState(seed)
     ch, cw = canvas
     images = np.zeros((batch, ch, cw, 3), np.float32)
@@ -505,7 +656,7 @@ def synthetic_train_batch(canvas, seed: int, batch: int = TRAIN_BATCH) -> dict:
         xy = rs.uniform(0.05, 0.5, size=(k, 2)) * extents[i]
         wh = rs.uniform(0.15, 0.45, size=(k, 2)) * extents[i]
         gt_boxes[i, :k] = np.concatenate([xy, np.minimum(xy + wh, extents[i])], 1)
-        gt_labels[i, :k] = rs.randint(0, NUM_CLASSES - 1, size=k)
+        gt_labels[i, :k] = rs.randint(*labels, size=k)
         gt_mask[i, :k] = True
     return dict(zip(BATCH_KEYS, (images, extents, gt_boxes, gt_labels, gt_mask)))
 
@@ -535,16 +686,31 @@ class LossRecorder:
             self.losses.append(value)
 
 
-def run_train(dtype_name: str, device) -> tuple[int, int]:
+def _head_kernels(generation: str):
+    """The forward and backward kernel wrappers of a generation's RoI head."""
+    if generation == "legacy":
+        return roi_pool_mod.roi_pool_cuda, roi_pool_mod.roi_pool_backward_cuda
+    return roi_align_mod.multiscale_roi_align_cuda, roi_align_mod.multiscale_roi_align_backward_cuda
+
+
+def _train_setup(generation: str):
+    """The generation's config and its gt label range (VOC's 0-based
+    labels for legacy, raw COCO ids 1..90 for FPN)."""
+    if generation == "legacy":
+        return LEGACY_CONFIG, (0, NUM_CLASSES - 1)
+    return FPN_CONFIG, (1, FPN_CLASSES)
+
+
+def run_train(dtype_name: str, device, generation: str = "legacy") -> tuple[int, int]:
     """20 full-width train steps through ``train_one_epoch``; returns the
-    forward and backward kernels' launch counts of the run."""
+    launch counts of the generation's head kernels (forward, backward) in
+    the run, and requires the other generation's kernels to stay idle."""
     dtype = set_numerics(dtype_name)
-    model = _new_model().to(device)
+    cfg, labels = _train_setup(generation)
+    model = _new_model(generation).to(device)
     state = init_train_state(model, make_optimizer(model))
     schedule = make_lr_schedule("constant", TRAIN_LR, 1, TRAIN_STEPS)
-    step_fn = make_train_step(
-        LEGACY_CONFIG, schedule, autocast_dtype=dtype if dtype != torch.float32 else None
-    )
+    step_fn = make_train_step(cfg, schedule, autocast_dtype=dtype if dtype != torch.float32 else None)
     timer = StepTimer()
 
     def timed_step(state, batch, generator):
@@ -554,30 +720,35 @@ def run_train(dtype_name: str, device) -> tuple[int, int]:
         timer.stop()
         return metrics
 
-    loader = RepeatedBatch(synthetic_train_batch(CANVAS, SEED + 4), TRAIN_STEPS)
+    seed = SEED + (4 if generation == "legacy" else 6)
+    loader = RepeatedBatch(synthetic_train_batch(CANVAS, seed, labels=labels), TRAIN_STEPS)
     recorder = LossRecorder()
     opts = SimpleNamespace(
-        seed=SEED, vis_step=1, log_dir=LOG_DIR, name=f"train_{dtype_name}", keep_checkpoints=1
+        seed=SEED, vis_step=1, log_dir=LOG_DIR, name=f"train_{generation}_{dtype_name}",
+        keep_checkpoints=1,
     )
-    roi_pool_mod.roi_pool_cuda.launches = 0
-    roi_pool_mod.roi_pool_backward_cuda.launches = 0
+    kernels = (*_head_kernels("legacy"), *_head_kernels("fpn"))
+    for k in kernels:
+        k.launches = 0
     train_one_epoch(state, timed_step, loader, 0, opts, schedule, recorder)
-    fwd = roi_pool_mod.roi_pool_cuda.launches
-    bwd = roi_pool_mod.roi_pool_backward_cuda.launches
+    counts = {k.__name__: k.launches for k in kernels}
     shutil.rmtree(LOG_DIR)
+    fwd, bwd = (counts.pop(k.__name__) for k in _head_kernels(generation))
+    name = f"{generation} {dtype_name}"
     losses = recorder.losses
     _require(len(losses) == TRAIN_STEPS, f"{len(losses)} of {TRAIN_STEPS} losses logged")
-    _require(bool(np.isfinite(losses).all()), f"{dtype_name} train: non-finite loss {losses}")
+    _require(bool(np.isfinite(losses).all()), f"{name} train: non-finite loss {losses}")
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-    _require(last < first, f"{dtype_name} train: loss did not fall ({first} -> {last})")
-    _require(bwd == TRAIN_STEPS, f"{dtype_name} train: {bwd} backward launches, want {TRAIN_STEPS}")
-    _require(fwd == TRAIN_STEPS, f"{dtype_name} train: {fwd} forward launches, want {TRAIN_STEPS}")
+    _require(last < first, f"{name} train: loss did not fall ({first} -> {last})")
+    _require(bwd == TRAIN_STEPS, f"{name} train: {bwd} backward launches, want {TRAIN_STEPS}")
+    _require(fwd == TRAIN_STEPS, f"{name} train: {fwd} forward launches, want {TRAIN_STEPS}")
+    _require(not any(counts.values()), f"{name} train launched another head's kernels: {counts}")
     steady = timer.times[5:]
     print(
-        f"train {dtype_name} {CANVAS[0]}x{CANVAS[1]} batch {TRAIN_BATCH}: "
+        f"train {name} {CANVAS[0]}x{CANVAS[1]} batch {TRAIN_BATCH}: "
         f"{TRAIN_BATCH * len(steady) / sum(steady):.2f} img/s over steps 6-{TRAIN_STEPS} "
         f"(step p50 {1000 * timer.p50():.1f} ms), mean loss steps 1-5 {first:.4f} -> "
-        f"16-20 {last:.4f}, launches fwd {fwd} bwd {bwd}",
+        f"16-20 {last:.4f}, launches fwd {fwd} bwd {bwd}, other kernels {counts}",
         flush=True,
     )
     return fwd, bwd
@@ -588,7 +759,10 @@ def _to_device(batch: dict, device) -> dict:
 
 
 def _grads(model) -> dict:
-    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    """Each parameter's gradient, or None where the loss does not reach it."""
+    return {
+        n: None if p.grad is None else p.grad.detach().clone() for n, p in model.named_parameters()
+    }
 
 
 def _loss_vector(out) -> torch.Tensor:
@@ -596,33 +770,41 @@ def _loss_vector(out) -> torch.Tensor:
 
 
 def _grad_rel_errors(got: dict, want: dict) -> dict:
-    return {n: float((got[n] - g).abs().max() / g.abs().max()) for n, g in want.items()}
+    """max|d| / max|g| per tensor; a parameter without a gradient must
+    have none on both sides."""
+    for n, g in want.items():
+        _require((g is None) == (got[n] is None), f"{n}: a gradient on one side only")
+    return {
+        n: float((got[n] - g).abs().max() / g.abs().max()) for n, g in want.items() if g is not None
+    }
 
 
-def check_train_step_kernel_vs_plain(device) -> None:
-    """One float32 step through the kernels, through plain RoIPool, and
-    through the kernels again (the run-to-run spread of the atomics)."""
+def check_train_step_kernel_vs_plain(device, generation: str = "legacy") -> None:
+    """One float32 step through the kernels, through the plain head ops
+    (forward and backward), and through the kernels again (the run-to-run
+    spread of the atomics). For FPN, the frozen stages then take one SGD
+    step of weight decay alone."""
     set_numerics("float32")
-    model = _new_model().to(device)
-    batch = _to_device(synthetic_train_batch(CANVAS, SEED + 2), device)
+    cfg, labels = _train_setup(generation)
+    model = _new_model(generation).to(device)
+    batch = _to_device(synthetic_train_batch(CANVAS, SEED + 2, labels=labels), device)
     n_anchors = model.canvas_anchors(*CANVAS).shape[0]
     noise = draw_train_noise(
         torch.Generator(device=device).manual_seed(SEED),
         TRAIN_BATCH,
         n_anchors,
-        LEGACY_CONFIG.post_nms_train + MAX_GT,
+        cfg.post_nms_train + MAX_GT,
         device,
     )
+    fwd_k, bwd_k = _head_kernels(generation)
     runs = []
     for plain in (False, True, False):
         model.zero_grad(set_to_none=True)
-        before = (roi_pool_mod.roi_pool_cuda.launches, roi_pool_mod.roi_pool_backward_cuda.launches)
-        out = forward_train(
-            model, LEGACY_CONFIG, *(batch[k] for k in BATCH_KEYS), noise=noise, plain=plain
-        )
+        before = (fwd_k.launches, bwd_k.launches)
+        out = forward_train(model, cfg, *(batch[k] for k in BATCH_KEYS), noise=noise, plain=plain)
         out.losses.total.backward()
         torch.cuda.synchronize()
-        after = (roi_pool_mod.roi_pool_cuda.launches, roi_pool_mod.roi_pool_backward_cuda.launches)
+        after = (fwd_k.launches, bwd_k.launches)
         want = before if plain else (before[0] + 1, before[1] + 1)
         _require(after == want, f"launches {before} -> {after} (plain={plain})")
         runs.append((_loss_vector(out), _grads(model)))
@@ -630,16 +812,18 @@ def check_train_step_kernel_vs_plain(device) -> None:
     _require(torch.equal(k_loss, p_loss), f"losses differ: {k_loss.tolist()} vs {p_loss.tolist()}")
     vs_plain = _grad_rel_errors(k_grads, p_grads)
     vs_kernel = _grad_rel_errors(k2_grads, k_grads)
-    # Only the backbone convs see the RoIPool features-gradient, whose
-    # float32 sums the atomics reorder; their weight gradients sum that
-    # over up to 2M positions of the map, and cancel, so the shallowest
-    # move most. The RPN and the head see none of it.
+    # Only the backbone convs (and FPN's pyramid convs) see the head's
+    # features-gradient, whose float32 sums the atomics reorder; their
+    # weight gradients sum that over every position of the maps. VGG's
+    # conv1 sums 1M positions of a full-resolution map and moves most; FPN
+    # freezes its stem and layer1, and its trainable convs stay near 1e-6.
+    # The RPN and the head see none of it.
     for name, rel in vs_plain.items():
         tol = 2e-4 if name.startswith("extractor.") else 1e-5
         _require(rel <= tol, f"{name}: max|d| / max|g| = {rel} > {tol} (kernel vs plain)")
     print(
-        f"train step float32 {CANVAS[0]}x{CANVAS[1]}: losses identical with the kernels and "
-        f"with plain RoIPool ({', '.join(f'{v:.5f}' for v in k_loss.tolist())})",
+        f"train step {generation} float32 {CANVAS[0]}x{CANVAS[1]}: losses identical with the "
+        f"kernels and with the plain head ops ({', '.join(f'{v:.5f}' for v in k_loss.tolist())})",
         flush=True,
     )
     for label, errs in (("kernel vs plain", vs_plain), ("kernel vs kernel", vs_kernel)):
@@ -648,17 +832,49 @@ def check_train_step_kernel_vs_plain(device) -> None:
             + " ".join(f"{n.removesuffix('.weight')}={e:.2g}" for n, e in errs.items() if n.endswith("weight")),
             flush=True,
         )
+    if generation == "fpn":
+        check_frozen_stages_decay(model, k2_grads)
 
 
-def check_small_input_train_reference(device) -> None:
-    """One GPU float32 train step against the CPU plain path at 192x256,
-    on the same weights, noise and targets (targets from the CPU side's
-    RPN outputs: near-tied proposal scores could otherwise sort apart)."""
-    canvas = (192, 256)
-    cfg = LEGACY_CONFIG
+def check_frozen_stages_decay(model, grads: dict) -> None:
+    """``conv1`` and ``layer1`` get no gradient from the loss; one
+    ``apply_gradients`` step (lr ``TRAIN_LR``, momentum 0.9, weight decay
+    ``WEIGHT_DECAY``) must move them exactly as ``torch.optim.SGD`` moves
+    the same weights on zero gradients, ``p - lr * (wd * p)``."""
+    frozen = [n for n in grads if n.startswith(FROZEN)]
+    _require(len(frozen) == 11 and all(grads[n] is None for n in frozen), f"frozen grads {frozen}")
+    _require(all(g is not None for n, g in grads.items() if n not in frozen), "a trainable grad is None")
+    params = dict(model.named_parameters())
+    before = {n: params[n].detach().clone() for n in frozen}
+    state = init_train_state(model, make_optimizer(model, weight_decay=WEIGHT_DECAY))
+    apply_gradients(state, make_lr_schedule("constant", TRAIN_LR, 1, 1))
+    twins = [before[n].clone() for n in frozen]
+    for t in twins:
+        t.grad = torch.zeros_like(t)
+    torch.optim.SGD(twins, lr=TRAIN_LR, momentum=0.9, weight_decay=WEIGHT_DECAY).step()
+    worst = 0.0
+    for n, twin in zip(frozen, twins):
+        p, p0 = params[n].detach(), before[n]
+        _require(torch.equal(p, twin), f"{n}: the step differs from SGD's on a zero gradient")
+        formula = p0 - TRAIN_LR * (WEIGHT_DECAY * p0)
+        worst = max(worst, float(((p - formula).abs() / p0.abs().clamp(min=1e-30)).max()))
+    _require(worst <= 2.0**-22, f"frozen stages: relative {worst} from p - lr * (wd * p)")
+    print(
+        f"  frozen stages ({len(frozen)} tensors): no gradient; one SGD step equals SGD on zero "
+        f"gradients bit for bit, within {worst:.3g} relative of p - lr * (wd * p)",
+        flush=True,
+    )
+
+
+def check_small_input_train_reference(device, generation: str = "legacy", canvas=(192, 256)) -> None:
+    """One GPU float32 train step against the CPU plain path on a small
+    canvas, on the same weights, noise and targets (targets from the CPU
+    side's RPN outputs: near-tied proposal scores could otherwise sort
+    apart)."""
+    cfg, labels = _train_setup(generation)
     set_numerics("float32")
-    batch = synthetic_train_batch(canvas, SEED + 3)
-    cpu_model, gpu_model = _new_model(), _new_model().to(device)
+    batch = synthetic_train_batch(canvas, SEED + 3, labels=labels)
+    cpu_model, gpu_model = _new_model(generation), _new_model(generation).to(device)
     anchors = torch.from_numpy(cpu_model.canvas_anchors(*canvas))
     noise = draw_train_noise(
         torch.Generator().manual_seed(SEED), TRAIN_BATCH, anchors.shape[0],
@@ -676,22 +892,26 @@ def check_small_input_train_reference(device) -> None:
             )
         rpn_tg = RPNTargets(*(t.to(dev) for t in targets[0]))
         roi_tg = RoITargets(*(t.to(dev) for t in targets[1]))
-        out = train_losses(model, cfg, feats, rpn_cls, rpn_reg, rpn_tg, roi_tg)
+        out = train_losses(model, cfg, feats, rpn_cls, rpn_reg, rpn_tg, roi_tg, canvas)
         out.losses.total.backward()
-        results.append((_loss_vector(out).cpu(), {n: g.cpu() for n, g in _grads(model).items()}))
+        grads = {n: None if g is None else g.cpu() for n, g in _grads(model).items()}
+        results.append((_loss_vector(out).cpu(), grads))
     (c_loss, c_grads), (g_loss, g_grads) = results
     rel_loss = float(((g_loss - c_loss).abs() / c_loss.abs().clamp(min=1e-12)).max())
     _require(rel_loss <= 1e-4, f"small-input train: losses {g_loss.tolist()} vs {c_loss.tolist()}")
+    _grad_rel_errors(g_grads, c_grads)  # the same parameters without a gradient
     worst_max, worst_l2 = 0.0, 0.0
     for name, want in c_grads.items():
+        if want is None:
+            continue
         d = g_grads[name] - want
         rel = float(d.norm() / want.norm())
         _require(rel <= 1e-2, f"small-input train {name}: relative L2 {rel} > 1e-2")
         worst_l2 = max(worst_l2, rel)
         worst_max = max(worst_max, float(d.abs().max() / want.abs().max()))
     print(
-        f"small input train {canvas}: GPU vs CPU plain path, losses within {rel_loss:.3g} "
-        f"relative, gradients within {worst_l2:.3g} relative L2 (max|d| / max|g| "
+        f"small input train {generation} {canvas}: GPU vs CPU plain path, losses within "
+        f"{rel_loss:.3g} relative, gradients within {worst_l2:.3g} relative L2 (max|d| / max|g| "
         f"{worst_max:.3g})",
         flush=True,
     )
@@ -844,13 +1064,14 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
     device = torch.device("cuda", 0)
-    # Deterministic cuDNN algorithms: phases 4, 7 and 10 compare two float32 runs bit for bit.
+    # Deterministic cuDNN algorithms: phases 4, 7, 10 and 13 compare two float32 runs bit for bit.
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.deterministic = True
 
     record = check_roi_pool_kernel(device)
     bwd_record = check_roi_pool_backward_kernel(device)
     align_record = check_roi_align_kernel(device)
+    align_bwd_record = check_roi_align_backward_kernel(device)
 
     launches = 0
     detections = {}
@@ -906,11 +1127,21 @@ def main() -> int:
     print("float32 FPN detections identical with the kernel and with the plain align", flush=True)
     check_small_input_reference(device, "fpn", FPN_SMALL_CANVAS)
 
+    align_bwd_record["launches"] = 0
+    for dtype_name in ("float32", "bfloat16"):
+        fwd, bwd = run_train(dtype_name, device, "fpn")
+        align_record["launches"] += fwd
+        align_bwd_record["launches"] += bwd
+    check_train_step_kernel_vs_plain(device, "fpn")
+    check_small_input_train_reference(device, "fpn", FPN_SMALL_CANVAS)
+
     leaked = [m for m in ("jax", "flax") if m in sys.modules]
     _require(not leaked, f"imported {leaked}")
 
     print(f"chip_smoke: {time.time() - t_start:.1f}s end to end", flush=True)
-    print(json.dumps({"kernels": [record, bwd_record, align_record]}), flush=True)
+    print(
+        json.dumps({"kernels": [record, bwd_record, align_record, align_bwd_record]}), flush=True
+    )
     print(
         json.dumps(
             {

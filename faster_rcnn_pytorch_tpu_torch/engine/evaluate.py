@@ -36,6 +36,20 @@ def detections_to_original_coords(packed, batch, i):
     return boxes * scale, labels, scores
 
 
+def label_map_for(opts, coco_index):
+    """Model 0-based foreground label -> dataset label: identity for VOC,
+    COCO's contiguous-to-category table for the legacy generation, and
+    ``l + 1`` for the FPN generation, whose softmax index is the raw COCO
+    category id. Both CLIs use it."""
+    if opts.data_type == "voc":
+        return lambda l: l
+    if opts.model_generation == "legacy":
+        # .get(-1): a COCO-format dataset may carry fewer categories than
+        # the model's slots; those map to an id no gt has.
+        return lambda l: coco_index.contiguous_to_cat.get(l, -1)
+    return lambda l: l + 1
+
+
 def evaluate(
     model,
     cfg,

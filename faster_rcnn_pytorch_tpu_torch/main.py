@@ -2,11 +2,15 @@
 
 ``python -m faster_rcnn_pytorch_tpu_torch.main --data_root ./data``
 
-One device (``utils.runtime.select_device``), legacy generation, VOC.
-Orchestration: options -> loaders -> model -> weights (seeded fresh init,
-or a reference-layout ``.pth``/``.pth.tar``) -> LR schedule -> optimizer
--> resume (from epoch ``start_epoch - 1``, or ``--checkpoint x.pt``) ->
-epochs of train, evaluate and best-by-mAP checkpoint.
+One device (``utils.runtime.select_device``), either generation
+(``--model_generation legacy|fpn``) on VOC or COCO (``--data_type``).
+Orchestration: options -> loaders -> model (with the dataset's label
+offset) -> weights (seeded fresh init, or a reference-layout
+``.pth``/``.pth.tar`` of either generation) -> LR schedule -> optimizer ->
+resume (from epoch ``start_epoch - 1``, or ``--checkpoint x.pt``) ->
+epochs of train, evaluate (VOC, or COCO against
+``annotations/instances_val2017.json`` under the data root) and
+best-by-mAP checkpoint.
 
 ``--dtype bfloat16`` runs forward and backward under
 ``torch.autocast(bfloat16)`` over float32 master weights (the JAX
@@ -18,14 +22,13 @@ package's ``dtype=bf16, param_dtype=float32``); the losses stay float32.
 from __future__ import annotations
 
 import contextlib
+import os
 import sys
 
 import torch
 
 # What this slice refuses, and where each lands (ROADMAP.md Queue A).
 _NOT_PORTED = (
-    (lambda o: o.model_generation == "fpn", "--model_generation fpn", "item 12"),
-    (lambda o: o.data_type == "coco", "--data_type coco", "item 12"),
     (lambda o: o.model_parallel > 1, "--model_parallel > 1", "item 14"),
     (lambda o: o.num_hosts > 1, "--num_hosts > 1", "item 14"),
     (lambda o: bool(o.coordinator), "--coordinator", "item 14"),
@@ -67,9 +70,13 @@ def _preflight(model, train_loader, opts) -> None:
 def main(argv=None) -> int:
     from faster_rcnn_pytorch_tpu_torch.config import load_options
     from faster_rcnn_pytorch_tpu_torch.data.loader import build_dataloader
-    from faster_rcnn_pytorch_tpu_torch.engine.evaluate import evaluate
+    from faster_rcnn_pytorch_tpu_torch.engine.evaluate import evaluate, label_map_for
     from faster_rcnn_pytorch_tpu_torch.engine.train import train_one_epoch
-    from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import build_model, init_weights
+    from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import (
+        build_model,
+        init_weights,
+        label_offset_for,
+    )
     from faster_rcnn_pytorch_tpu_torch.parallel.train_step import (
         init_train_state,
         make_lr_schedule,
@@ -92,9 +99,22 @@ def main(argv=None) -> int:
     autocast_dtype = dtype if dtype != torch.float32 else None
 
     train_loader, test_loader = build_dataloader(opts)
-    model, cfg = build_model(opts.model_generation, opts.num_classes)
+    model, cfg = build_model(
+        opts.model_generation,
+        opts.num_classes,
+        label_offset=label_offset_for(opts.model_generation, opts.data_type),
+    )
     if cfg.rpn_boundary_filter:
         _preflight(model, train_loader, opts)
+
+    coco_index = None
+    if opts.data_type == "coco":
+        from faster_rcnn_pytorch_tpu_torch.data.coco import CocoIndex
+
+        coco_index = CocoIndex(
+            os.path.join(opts.data_root, "annotations", "instances_val2017.json")
+        )
+    label_map = label_map_for(opts, coco_index)
 
     if opts.checkpoint.endswith((".pth.tar", ".pth")):
         model.load_state_dict(load_reference_checkpoint(opts.checkpoint), strict=True)
@@ -155,7 +175,15 @@ def main(argv=None) -> int:
                 state, step_fn, train_loader, epoch, opts, schedule, writer
             )
         with eval_autocast:
-            result = evaluate(model, cfg, test_loader, score_threshold=opts.thres)
+            result = evaluate(
+                model,
+                cfg,
+                test_loader,
+                data_type=opts.data_type,
+                coco_index=coco_index,
+                label_map=label_map,
+                score_threshold=opts.thres,
+            )
         writer.scalar("eval/mAP", result["map"], epoch)
         print(f"epoch {epoch}: mAP = {result['map']:.4f}", flush=True)
         if result["map"] > best_map:

@@ -351,18 +351,20 @@ def train_targets(
 
 
 def train_losses(
-    model: LegacyFRCNN,
+    model: LegacyFRCNN | FPNFRCNN,
     cfg: DetectorConfig,
-    feats: torch.Tensor,
+    feats,
     rpn_cls: torch.Tensor,
     rpn_reg: torch.Tensor,
     rpn_tg: RPNTargets,
     roi_tg: RoITargets,
+    canvas_hw: tuple[int, int],
     plain: bool = False,
 ) -> TrainStepOutput:
-    """The head on the sampled rois, the regression row of each target
-    class, and the four-part loss. Legacy only for now."""
-    head_cls, head_reg = model.head(feats, roi_tg.rois, plain=plain)
+    """The head on the sampled rois (either generation; FPN aligns in
+    pixels of the ``canvas_hw`` canvas), the regression row of each target
+    class, and the four-part loss."""
+    head_cls, head_reg = _head_apply(model, feats, roi_tg.rois, canvas_hw, plain)
     b, s = roi_tg.labels.shape
     head_reg = head_reg.reshape(b, s, cfg.num_classes, 4)
     safe_cls = roi_tg.labels.clamp(0, cfg.num_classes - 1).long()
@@ -379,7 +381,7 @@ def train_losses(
 
 
 def forward_train(
-    model: LegacyFRCNN,
+    model: LegacyFRCNN | FPNFRCNN,
     cfg: DetectorConfig,
     images: torch.Tensor,
     extents: torch.Tensor,
@@ -399,8 +401,11 @@ def forward_train(
       gt_boxes: ``[B, G, 4]`` xyxy in [0, 1] canvas coords; gt_labels
         ``[B, G]``; gt_mask ``[B, G]``.
       generator: draws the sampling noise (on the images' device) unless
-        ``noise`` is given; a test hands the JAX package's noise over.
-      plain: tests only (see :meth:`LegacyFRCNN.head`).
+        ``noise`` is given; a test hands the JAX package's noise over. The
+        noise is sized by the model's anchors on this canvas and
+        ``post_nms_train + G`` candidate rois.
+      plain: tests only: the plain RoIPool or MultiScaleRoIAlign (forward
+        and backward) in place of the kernels.
 
     The JAX package's slab-batched VGG stem (``train=True``) is a TPU
     layout with the same numbers; this is the plain stack.
@@ -416,7 +421,9 @@ def forward_train(
     rpn_tg, roi_tg = train_targets(
         cfg, anchors, rpn_cls, rpn_reg, extents, gt_boxes, gt_labels, gt_mask, noise
     )
-    return train_losses(model, cfg, feats, rpn_cls, rpn_reg, rpn_tg, roi_tg, plain)
+    return train_losses(
+        model, cfg, feats, rpn_cls, rpn_reg, rpn_tg, roi_tg, (canvas_h, canvas_w), plain
+    )
 
 
 class Detections(NamedTuple):

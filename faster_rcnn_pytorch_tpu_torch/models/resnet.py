@@ -18,6 +18,11 @@ so its state dict loads with ``strict=True``.
   (``floor(i * in / out)``) does not when a level is not exactly twice the
   next (odd ``H / 16``).
 * P6 is ``max_pool2d(P5, 1, 2)`` (``LastLevelMaxPool``); it feeds the RPN only.
+* The stem and ``layer1`` are frozen (the JAX package's ``frozen_stages=2``,
+  torchvision's ``trainable_layers=3``): the activations are detached after
+  the stem's max pool and after ``layer1``, in every mode, as JAX's
+  ``stop_gradient``. Their weights get no gradient from the loss; the
+  optimizer still decays them (``parallel/train_step.py``).
 """
 
 from __future__ import annotations
@@ -83,7 +88,8 @@ class Bottleneck(nn.Module):
 
 
 class ResNet50(nn.Module):
-    """The body: ``[B, 3, H, W]`` -> C2..C5 at strides 4, 8, 16, 32."""
+    """The body: ``[B, 3, H, W]`` -> C2..C5 at strides 4, 8, 16, 32, with
+    the stem and ``layer1`` frozen."""
 
     def __init__(self):
         super().__init__()
@@ -100,10 +106,12 @@ class ResNet50(nn.Module):
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
         x = torch.relu(self.bn1(self.conv1(x)))
-        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        x = F.max_pool2d(x, 3, stride=2, padding=1).detach()  # frozen stem
         feats = []
         for stage in range(len(STAGE_SIZES)):
             x = getattr(self, f"layer{stage + 1}")(x)
+            if stage == 0:
+                x = x.detach()  # frozen layer1
             feats.append(x)
         return tuple(feats)
 

@@ -23,6 +23,12 @@ int roi_align_forward_launch(const void* const* feats, const int* heights, const
                              const float* scales, bool is_bf16, const float* rois,
                              const int32_t* level, int num_rois, int rois_per_image,
                              int channels, void* out, void* stream);
+int roi_align_backward_launch(const void* grad, bool grad_is_bf16, float* const* dfeats,
+                              const int* heights, const int* widths, const float* scales,
+                              const float* rois, const int32_t* level, int num_rois,
+                              int rois_per_image, int channels, void* stream);
+
+static constexpr float kAlignScales[4] = {1.0f / 4, 1.0f / 8, 1.0f / 16, 1.0f / 32};
 
 // features [B, C, H, W] f32/bf16, rois [B, n, 4] f32 (all contiguous, one
 // device) -> fills out [B*n, C, P, P] (features' dtype) and, unless it is
@@ -105,7 +111,6 @@ void roi_pool_backward(const at::Tensor& grad, const at::Tensor& argmax,
 // contiguous, one device) -> fills out [B, n, C, 7, 7] (features' dtype).
 void roi_align_forward(const std::vector<at::Tensor>& features, const at::Tensor& rois,
                        const at::Tensor& level, at::Tensor& out) {
-  static constexpr float kScales[4] = {1.0f / 4, 1.0f / 8, 1.0f / 16, 1.0f / 32};
   TORCH_CHECK(features.size() == 4, "roi_align_forward: want the four levels P2..P5");
   const at::Tensor& f0 = features[0];
   TORCH_CHECK(f0.scalar_type() == at::kFloat || f0.scalar_type() == at::kBFloat16,
@@ -141,10 +146,53 @@ void roi_align_forward(const std::vector<at::Tensor>& features, const at::Tensor
   const c10::cuda::CUDAGuard guard(f0.device());
   const cudaStream_t stream = at::cuda::getCurrentCUDAStream();
   const int err = roi_align_forward_launch(
-      ptrs, heights, widths, kScales, f0.scalar_type() == at::kBFloat16,
+      ptrs, heights, widths, kAlignScales, f0.scalar_type() == at::kBFloat16,
       rois.data_ptr<float>(), level.data_ptr<int32_t>(), static_cast<int>(b * n),
       static_cast<int>(n), static_cast<int>(c), out.data_ptr(), static_cast<void*>(stream));
   TORCH_CHECK(err == 0, "roi_align_forward launch failed: ", roi_pool_error_string(err));
+}
+
+// grad [B, n, C, 7, 7] f32/bf16; rois [B, n, 4] f32; level [B, n] int32;
+// dfeats: the four float32 maps [B, C, h, w] of P2..P5, zeroed by the caller
+// (all contiguous, one device) -> atomically adds the features-gradient.
+void roi_align_backward(const at::Tensor& grad, const at::Tensor& rois, const at::Tensor& level,
+                        const std::vector<at::Tensor>& dfeats) {
+  TORCH_CHECK(dfeats.size() == 4, "roi_align_backward: want the four levels P2..P5");
+  TORCH_CHECK(grad.is_cuda() && rois.is_cuda() && level.is_cuda(),
+              "roi_align_backward: tensors must be on a CUDA device");
+  TORCH_CHECK(grad.scalar_type() == at::kFloat || grad.scalar_type() == at::kBFloat16,
+              "grad must be float32 or bfloat16");
+  TORCH_CHECK(grad.dim() == 5 && grad.size(3) == 7 && grad.size(4) == 7 && grad.is_contiguous(),
+              "grad must be contiguous [B, n, C, 7, 7]");
+  const int64_t b = grad.size(0), n = grad.size(1), c = grad.size(2);
+  TORCH_CHECK(rois.scalar_type() == at::kFloat && rois.dim() == 3 && rois.size(0) == b &&
+                  rois.size(1) == n && rois.size(2) == 4 && rois.is_contiguous(),
+              "rois must be contiguous float32 [B, n, 4] matching grad");
+  TORCH_CHECK(level.scalar_type() == at::kInt && level.dim() == 2 && level.size(0) == b &&
+                  level.size(1) == n && level.is_contiguous(),
+              "level must be contiguous int32 [B, n] matching grad");
+  TORCH_CHECK(rois.get_device() == grad.get_device() && level.get_device() == grad.get_device(),
+              "roi_align_backward: tensors must share one device");
+  float* ptrs[4];
+  int heights[4], widths[4];
+  for (int i = 0; i < 4; ++i) {
+    const at::Tensor& d = dfeats[i];
+    TORCH_CHECK(d.is_cuda() && d.get_device() == grad.get_device() &&
+                    d.scalar_type() == at::kFloat && d.dim() == 4 && d.size(0) == b &&
+                    d.size(1) == c && d.is_contiguous(),
+                "dfeats must be contiguous float32 [B, C, h, w] maps on grad's device");
+    ptrs[i] = d.data_ptr<float>();
+    heights[i] = static_cast<int>(d.size(2));
+    widths[i] = static_cast<int>(d.size(3));
+  }
+  const c10::cuda::CUDAGuard guard(grad.device());
+  const cudaStream_t stream = at::cuda::getCurrentCUDAStream();
+  const int err = roi_align_backward_launch(
+      grad.data_ptr(), grad.scalar_type() == at::kBFloat16, ptrs, heights, widths,
+      kAlignScales, rois.data_ptr<float>(), level.data_ptr<int32_t>(),
+      static_cast<int>(b * n), static_cast<int>(n), static_cast<int>(c),
+      static_cast<void*>(stream));
+  TORCH_CHECK(err == 0, "roi_align_backward launch failed: ", roi_pool_error_string(err));
 }
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
@@ -154,4 +202,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "RoIPool features-gradient, atomically added into a zeroed float32 map (CUDA)");
   m.def("roi_align_forward", &roi_align_forward,
         "MultiScaleRoIAlign forward over P2..P5 into a preallocated output (CUDA)");
+  m.def("roi_align_backward", &roi_align_backward,
+        "MultiScaleRoIAlign features-gradient, atomically added into zeroed float32 maps (CUDA)");
 }

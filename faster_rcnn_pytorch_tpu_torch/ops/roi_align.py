@@ -16,11 +16,19 @@ Counterpart of the forward of ``faster_rcnn_pytorch_tpu/ops/roi_align.py``
 * the output is the mean of the bin's 2x2 bilinear samples, computed in
   float32 and cast to the features' dtype.
 
-:func:`multiscale_roi_align_batch` dispatches: a CUDA tensor goes to the
-hand-written kernel (``ops/cuda/roi_align.cu``), a CPU tensor to the plain
-version :func:`multiscale_roi_align_reference`, which adds the samples in
-the kernel's order so the two agree bit for bit. The TPU package's window
-kernel, its ``fits`` mask and its corner-gather fallback are a VMEM layout
+The features-gradient is the exact adjoint for every roi: each bin's
+upstream gradient times ``0.25 * wy * wx`` added at each of its 16
+corners, summed in float32 and cast once to the features' dtype (the JAX
+package's ``_msra_batch_bwd``). Rois get no gradient.
+
+:func:`multiscale_roi_align_batch` goes through an autograd function on
+every device: a CUDA tensor runs the hand-written kernels
+(``ops/cuda/roi_align.cu``, forward and backward), a CPU tensor the plain
+versions :func:`multiscale_roi_align_reference` (which adds the samples
+in the kernel's order, so the two agree bit for bit) and
+:func:`multiscale_roi_align_backward_reference`. The TPU package's window
+kernels, their ``fits`` mask, the backward's read-modify-write DMA
+protocol and the corner-gather and dense-VJP fallbacks are a VMEM layout
 and are not ported: every roi here is exact whatever its size.
 """
 
@@ -162,19 +170,150 @@ def multiscale_roi_align_cuda(features, rois: torch.Tensor, level: torch.Tensor)
 multiscale_roi_align_cuda.launches = 0
 
 
-def multiscale_roi_align_batch(features, rois: torch.Tensor, plain: bool = False) -> torch.Tensor:
-    """``features`` P2..P5 ``[B, C, h_l, w_l]`` at ``STRIDES``, ``rois
-    [B, n, 4]`` in canvas pixels -> ``[B, n, C, 7, 7]`` in the features'
-    dtype.
+def backward_scatter_terms(grad, rois, image, stride: int, h: int, w: int):
+    """The adjoint's terms for ``k`` rois at one level: ``grad [k, C, 7,
+    7]`` float32, ``rois [k, 4]`` and their ``image`` indices -> ``rows
+    [k * 784]`` int64 into the level's ``[B * h * w]`` cells (NHWC order)
+    and ``vals [k * 784, C]`` float32, one per (bin, sample, corner):
+    ``(g * 0.25) * (wy * wx)``, the kernel's products in its order. A
+    weight outside ``[-1, size]`` is zero; its row stays inside the map."""
+    k, c = grad.shape[:2]
+    ylo, yhi, wylo, wyhi = _axis_samples(rois[:, 1], rois[:, 3], 1.0 / stride, h)
+    xlo, xhi, wxlo, wxhi = _axis_samples(rois[:, 0], rois[:, 2], 1.0 / stride, w)
+    ys, wy = torch.stack([ylo, yhi], -1), torch.stack([wylo, wyhi], -1)  # [k, P, ratio, 2]
+    xs, wx = torch.stack([xlo, xhi], -1), torch.stack([wxlo, wxhi], -1)
+    # -> [k, P(y), ratio, 2, P(x), ratio, 2]
+    rows = (image[:, None, None, None, None, None, None] * h + ys[..., None, None, None]) * w
+    rows = rows + xs[:, None, None, None]
+    weight = wy[..., None, None, None] * wx[:, None, None, None]
+    gq = (grad.permute(0, 2, 3, 1) * 0.25)[:, :, None, None, :, None, None, :]  # [k, P, 1, 1, P, 1, 1, C]
+    vals = gq * weight[..., None]
+    return rows.reshape(-1), vals.reshape(-1, c)
 
-    A CUDA tensor runs the hand kernel, a CPU tensor the plain version.
-    ``plain=True`` is for tests only: it runs the plain version on any
-    device, so a caller can hold the kernel's path against it.
+
+def multiscale_roi_align_backward_reference(
+    grad: torch.Tensor, rois: torch.Tensor, level: torch.Tensor, level_shapes, dtype: torch.dtype
+) -> list[torch.Tensor]:
+    """Plain-PyTorch features-gradient of MultiScaleRoIAlign, the twin of
+    the CUDA backward kernel.
+
+    Args:
+      grad: ``[B, n, C, 7, 7]`` float32 or bfloat16 upstream gradient.
+      rois: ``[B, n, 4]`` float32 canvas pixels; level: ``[B, n]`` int32
+        from :func:`fpn_level_assignment`.
+      level_shapes: ``(h, w)`` of P2..P5.
+      dtype: the features' dtype.
+
+    Returns P2..P5 ``[B, C, h_l, w_l]`` in ``dtype``: every term of
+    :func:`backward_scatter_terms` added (``scatter_add_``, in a fixed
+    order on the CPU) into a float32 map, then cast once, as the JAX
+    package's ``(a + b.astype(f32)).astype(f.dtype)``. Its sums run in
+    another order than the kernel's atomics: the two agree bit for bit
+    only where every order gives the same float32 sum.
     """
-    rois = rois.float()
-    level = fpn_level_assignment(rois)
+    b, n, c = grad.shape[:3]
+    dev = grad.device
+    flat_g = grad.reshape(b * n, c, OUTPUT_SIZE, OUTPUT_SIZE).float()
+    flat_rois = rois.reshape(b * n, 4).float()
+    flat_level = level.reshape(b * n)
+    image = torch.arange(b, device=dev).repeat_interleave(n)
+    maps = []
+    for li, ((h, w), stride) in enumerate(zip(level_shapes, STRIDES)):
+        acc = torch.zeros((b * h * w, c), dtype=torch.float32, device=dev)
+        idx = torch.nonzero(flat_level == li).flatten()
+        for s in range(0, idx.numel(), _ROI_CHUNK):
+            sel = idx[s : s + _ROI_CHUNK]
+            rows, vals = backward_scatter_terms(flat_g[sel], flat_rois[sel], image[sel], stride, h, w)
+            acc.scatter_add_(0, rows[:, None].expand(-1, c), vals)
+        maps.append(acc.reshape(b, h, w, c).permute(0, 3, 1, 2).contiguous().to(dtype))
+    return maps
+
+
+def multiscale_roi_align_backward_cuda(
+    grad: torch.Tensor, rois: torch.Tensor, level: torch.Tensor, level_shapes, dtype: torch.dtype
+) -> list[torch.Tensor]:
+    """The hand-written Hopper backward (``ops/cuda/roi_align.cu``), same
+    arguments and result as :func:`multiscale_roi_align_backward_reference`:
+    atomic float32 adds into zeroed ``[B, C, h, w]`` maps, cast to
+    ``dtype``. Counts its launches in
+    ``multiscale_roi_align_backward_cuda.launches``."""
+    if not (grad.is_cuda and rois.is_cuda and level.is_cuda):
+        raise ValueError("multiscale_roi_align_backward_cuda needs CUDA tensors")
+    if grad.dtype not in (torch.float32, torch.bfloat16) or dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"grad and features must be float32 or bfloat16, not {grad.dtype}, {dtype}")
+    p = OUTPUT_SIZE
+    if grad.dim() != 5 or tuple(grad.shape[3:]) != (p, p):
+        raise ValueError(f"want grad [B, n, C, {p}, {p}], got {tuple(grad.shape)}")
+    b, n, c = grad.shape[:3]
+    if rois.dtype != torch.float32 or tuple(rois.shape) != (b, n, 4):
+        raise ValueError(f"want float32 rois [{b}, {n}, 4], got {tuple(rois.shape)} {rois.dtype}")
+    if level.dtype != torch.int32 or tuple(level.shape) != (b, n):
+        raise ValueError(f"want an int32 level [{b}, {n}], got {tuple(level.shape)} {level.dtype}")
+    if len(level_shapes) != len(STRIDES):
+        raise ValueError(f"want the four levels P2..P5, got {len(level_shapes)}")
+    from faster_rcnn_pytorch_tpu_torch.ops.cuda import extension
+
+    ext = extension()
+    maps = [torch.zeros((b, c, h, w), dtype=torch.float32, device=grad.device) for h, w in level_shapes]
+    ext.roi_align_backward(grad.contiguous(), rois.contiguous(), level.contiguous(), maps)
+    multiscale_roi_align_backward_cuda.launches += 1
+    return [m.to(dtype) for m in maps]
+
+
+multiscale_roi_align_backward_cuda.launches = 0
+
+
+def multiscale_roi_align_backward(grad, rois, level, level_shapes, dtype, plain: bool = False):
+    """Features-gradient dispatch: a CUDA tensor runs the hand kernel, a
+    CPU tensor (or the test-only ``plain``) the plain version."""
+    if grad.is_cuda and not plain:
+        return multiscale_roi_align_backward_cuda(grad, rois, level, level_shapes, dtype)
+    if grad.device.type != "cpu" and not plain:
+        raise NotImplementedError(f"no MultiScaleRoIAlign backward kernel for {grad.device}")
+    return multiscale_roi_align_backward_reference(grad, rois, level, level_shapes, dtype)
+
+
+def _forward(features, rois, level, plain: bool):
     if rois.is_cuda and not plain:
         return multiscale_roi_align_cuda(features, rois, level)
     if rois.device.type != "cpu" and not plain:
         raise NotImplementedError(f"no MultiScaleRoIAlign kernel for {rois.device}")
     return multiscale_roi_align_reference(features, rois, level)
+
+
+class _MultiScaleRoIAlign(torch.autograd.Function):
+    """MultiScaleRoIAlign with its features-gradient (the JAX package's
+    custom VJP). The forward keeps the rois, the level and the level
+    shapes for the backward, not the maps; rois get no gradient
+    (proposals and sampled rois are constants of the train step)."""
+
+    @staticmethod
+    def forward(ctx, rois, level, plain, *features):
+        ctx.save_for_backward(rois, level)
+        ctx.level_shapes = [tuple(f.shape[-2:]) for f in features]
+        ctx.features_dtype = features[0].dtype
+        ctx.plain = plain
+        return _forward(features, rois, level, plain)
+
+    @staticmethod
+    def backward(ctx, grad):
+        rois, level = ctx.saved_tensors
+        dfeats = multiscale_roi_align_backward(
+            grad, rois, level, ctx.level_shapes, ctx.features_dtype, plain=ctx.plain
+        )
+        return (None, None, None, *dfeats)
+
+
+def multiscale_roi_align_batch(features, rois: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """``features`` P2..P5 ``[B, C, h_l, w_l]`` at ``STRIDES``, ``rois
+    [B, n, 4]`` in canvas pixels -> ``[B, n, C, 7, 7]`` in the features'
+    dtype, differentiable in the features.
+
+    A CUDA tensor runs the hand kernels (forward, and backward when the
+    features need a gradient), a CPU tensor the plain versions.
+    ``plain=True`` is for tests only: it runs the plain versions on any
+    device, so a caller can hold the kernels' path against them.
+    """
+    rois = rois.float()
+    level = fpn_level_assignment(rois)
+    return _MultiScaleRoIAlign.apply(rois, level, plain, *features)

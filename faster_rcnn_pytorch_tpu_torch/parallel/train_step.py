@@ -5,7 +5,11 @@ JAX package's ``optax.chain(add_decayed_weights(wd), sgd(lr, momentum))``
 is ``torch.optim.SGD(lr, momentum, weight_decay=wd, nesterov=False)``:
 both add ``wd * p`` to the gradient, keep ``trace = g + momentum *
 trace`` (the first trace is the gradient) and step by ``-lr * trace``.
-There is no mesh here: data parallelism is a later slice.
+optax updates every parameter: one the loss does not reach (the frozen
+``conv1`` and ``layer1`` of the FPN generation) takes a zero gradient plus
+``wd * p`` and momentum, so :func:`apply_gradients` gives such a
+parameter a zero ``.grad`` (``torch.optim.SGD`` would skip it). There is
+no mesh here: data parallelism is a later slice.
 """
 
 from __future__ import annotations
@@ -132,10 +136,14 @@ def init_train_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer) -
 def apply_gradients(state: TrainState, schedule: Callable[[int], float]) -> float:
     """One optimizer update from the gradients in ``.grad``, at the
     learning rate ``schedule(step)`` with ``step`` counted from 0 before
-    the increment (as optax does). Returns that rate."""
+    the increment (as optax does). A parameter without a gradient takes a
+    zero one. Returns that rate."""
     lr = schedule(state.step)
     for group in state.optimizer.param_groups:
         group["lr"] = lr
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
     state.optimizer.step()
     state.step += 1
     return lr

@@ -19,24 +19,10 @@ import sys
 import torch
 
 
-def label_map_for(opts, coco_index):
-    """Model 0-based foreground label -> dataset label: identity for VOC,
-    COCO's contiguous-to-category table for the legacy generation, and
-    ``l + 1`` for the FPN generation, whose softmax index is the raw COCO
-    category id."""
-    if opts.data_type == "voc":
-        return lambda l: l
-    if opts.model_generation == "legacy":
-        # .get(-1): a COCO-format dataset may carry fewer categories than
-        # the model's slots; those map to an id no gt has.
-        return lambda l: coco_index.contiguous_to_cat.get(l, -1)
-    return lambda l: l + 1
-
-
 def main(argv=None) -> int:
     from faster_rcnn_pytorch_tpu_torch.config import load_options
     from faster_rcnn_pytorch_tpu_torch.data.loader import build_dataloader
-    from faster_rcnn_pytorch_tpu_torch.engine.evaluate import evaluate
+    from faster_rcnn_pytorch_tpu_torch.engine.evaluate import evaluate, label_map_for
     from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import (
         build_model,
         init_weights,

@@ -1,6 +1,7 @@
 """The stage tools: each raises without a card unless the CPU is asked
 for, and on the CPU at a small canvas the predict tool runs ``predict``
-through every stage of either generation."""
+through every stage of either generation, and the train tool splits the
+FPN train step into its stages."""
 
 import importlib.util
 import pathlib
@@ -34,13 +35,31 @@ def test_predict_stages_on_the_cpu_when_asked(generation, monkeypatch, capsys):
         assert f" {name}=" in stages
 
 
-def test_train_stages_raises_without_a_card(monkeypatch, capsys):
+def _train_tool():
     path = pathlib.Path(__file__).parents[1] / "tools" / "torch_train_stages.py"
     spec = importlib.util.spec_from_file_location("torch_train_stages", path)
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
+    return tool
+
+
+def test_train_stages_raises_without_a_card(monkeypatch, capsys):
+    tool = _train_tool()
     monkeypatch.delenv(DEVICE_ENV, raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match=DEVICE_ENV):
         tool.main(["--canvas", "192", "256", "--repeats", "1", "--phases", "rate"])
     assert "img/s" not in capsys.readouterr().out
+
+
+def test_train_stages_splits_the_fpn_step_on_the_cpu_when_asked(monkeypatch, capsys):
+    tool = _train_tool()
+    monkeypatch.setenv(DEVICE_ENV, "cpu")
+    args = ["--generation", "fpn", "--canvas", "128", "160", "--steps", "6", "--dtypes", "float32"]
+    assert tool.main([*args, "--phases", "stages"]) == 0
+    out = capsys.readouterr().out
+    assert "generation fpn" in out and "profile" not in out
+    lines = [line for line in out.splitlines() if line.startswith("stages float32")]
+    assert len(lines) == 1  # one split: cuDNN's modes are the card's
+    for name in ("backbone+rpn fwd", "propose+targets", "head+loss fwd", "backward", "sgd", "total"):
+        assert f"{name} " in lines[0]

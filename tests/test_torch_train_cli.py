@@ -173,8 +173,8 @@ def test_main_without_a_card_raises_before_any_work(monkeypatch, tmp_path):
 @pytest.mark.parametrize(
     "flags",
     [
-        ["--model_generation", "fpn"],
-        ["--data_type", "coco"],
+        ["--num_devices", "2"],
+        ["--coordinator", "localhost:1234"],
         ["--model_parallel", "2"],
         ["--num_hosts", "2"],
         ["--remat_backbone", "true"],

@@ -171,7 +171,7 @@ def port_step(setup, port_targets):
     pmodel.zero_grad(set_to_none=True)
     feats = pmodel.features(torch.tensor(batch["image"]).permute(0, 3, 1, 2).contiguous())
     rpn_cls, rpn_reg = pmodel.rpn_out(feats)
-    out = pfr.train_losses(pmodel, CFG, feats, rpn_cls, rpn_reg, rpn_tg, roi_tg)
+    out = pfr.train_losses(pmodel, CFG, feats, rpn_cls, rpn_reg, rpn_tg, roi_tg, CANVAS_HW)
     out.losses.total.backward()
     grads = {n: p.grad.clone() for n, p in pmodel.named_parameters()}
     pmodel.zero_grad(set_to_none=True)

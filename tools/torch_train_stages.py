@@ -1,9 +1,11 @@
-"""Where the PyTorch port's legacy train step spends its time on one GPU.
+"""Where the PyTorch port's train step spends its time on one GPU.
 
-Drives ``chip_smoke.py``'s full-width train configuration (legacy VGG16,
-21 classes, seeded random weights, the 800x1344 canvas, batch 2, one
-repeated synthetic batch, ``LEGACY_CONFIG`` budgets) and prints, per
-dtype (float32 with TF32 off, bfloat16 autocast):
+Drives ``chip_smoke.py``'s full-width train configuration of either
+generation (``--generation legacy``: VGG16, 21 classes, ``LEGACY_CONFIG``
+budgets; ``--generation fpn``: ResNet50-FPN, 91 classes, raw COCO ids,
+``FPN_CONFIG`` budgets; both with seeded random weights, the 800x1344
+canvas, batch 2 and one repeated synthetic batch) and prints, per dtype
+(float32 with TF32 off, bfloat16 autocast):
 
 1. rate: ``--repeats`` runs of 20 steps of ``make_train_step``
    from the same weights and generator seed, each step timed to a device
@@ -13,17 +15,19 @@ dtype (float32 with TF32 off, bfloat16 autocast):
 2. stages: the same steps with a device sync between backbone + RPN
    forward, propose + targets, head + loss forward, backward and the SGD
    update, once with cuDNN deterministic (as the smoke runs) and once with
-   its defaults (as the CLIs run): the median per stage;
+   its defaults (as the CLIs run; once only on the CPU): the median per
+   stage;
 3. busy share: ``torch.profiler`` over 3 whole steps, device kernel time
    (user annotations excluded) over wall time, and the top kernels.
 
 The phases run in that order, every rate before the first profiler
 session. Run from the root of a checkout on a GPU host:
-``python tools/torch_train_stages.py [--repeats 3]
-[--phases rate,stages,profile]``.
+``python tools/torch_train_stages.py [--generation legacy|fpn]
+[--repeats 3] [--phases rate,stages,profile] [--steps 20]
+[--dtypes float32,bfloat16]``.
 Without a card it raises; with ``FRT_TORCH_DEVICE=cpu`` it runs on the
-CPU at a small canvas (``--canvas 192 256``), without the profiler, to
-check the script itself.
+CPU at a small canvas (``--canvas 192 256``, few ``--steps``), without
+the profiler, to check the script itself.
 """
 
 from __future__ import annotations
@@ -43,7 +47,6 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from faster_rcnn_pytorch_tpu_torch.engine.train import epoch_generator  # noqa: E402
 from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import (  # noqa: E402
-    LEGACY_CONFIG,
     draw_train_noise,
     train_losses,
     train_targets,
@@ -84,12 +87,10 @@ def _steady_summary(times, sweeps, batch_size, skip=5) -> str:
     )
 
 
-def run_rate(model, init, dtype, device, batch, steps, repeats) -> None:
+def run_rate(model, init, cfg, dtype, device, batch, steps, repeats) -> None:
     name = str(dtype).removeprefix("torch.")
     schedule = make_lr_schedule("constant", cs.TRAIN_LR, 1, steps)
-    step_fn = make_train_step(
-        LEGACY_CONFIG, schedule, autocast_dtype=None if dtype == torch.float32 else dtype
-    )
+    step_fn = make_train_step(cfg, schedule, autocast_dtype=None if dtype == torch.float32 else dtype)
     for r in range(repeats):
         model.load_state_dict(init)
         state = init_train_state(model, make_optimizer(model))
@@ -114,14 +115,15 @@ def run_rate(model, init, dtype, device, batch, steps, repeats) -> None:
         )
 
 
-def run_stages(model, init, dtype, device, batch, steps, deterministic: bool) -> None:
+def run_stages(model, init, cfg, dtype, device, batch, steps, deterministic: bool) -> None:
     torch.backends.cudnn.deterministic = deterministic
     name = str(dtype).removeprefix("torch.")
-    cfg = LEGACY_CONFIG
     model.load_state_dict(init)
     state = init_train_state(model, make_optimizer(model))
     schedule = make_lr_schedule("constant", cs.TRAIN_LR, 1, steps)
-    anchors = torch.from_numpy(model.canvas_anchors(*batch["image"].shape[1:3])).to(device)
+    canvas_hw = tuple(batch["image"].shape[1:3])
+    anchors = torch.from_numpy(model.canvas_anchors(*canvas_hw)).to(device)
+    n_cand = cfg.post_nms_train + batch["gt_boxes"].shape[1]
     gen = epoch_generator(cs.SEED, 0, device)
     autocast = torch.autocast(device.type, dtype=torch.bfloat16, enabled=dtype != torch.float32)
     rows, sweeps = [], []
@@ -133,14 +135,12 @@ def run_stages(model, init, dtype, device, batch, steps, deterministic: bool) ->
             feats = model.features(batch["image"].permute(0, 3, 1, 2).contiguous())
             rpn_cls, rpn_reg = model.rpn_out(feats)
             t1 = _sync(device)
-            noise = draw_train_noise(
-                gen, cs.TRAIN_BATCH, anchors.shape[0], cfg.post_nms_train + 100, device
-            )
+            noise = draw_train_noise(gen, cs.TRAIN_BATCH, anchors.shape[0], n_cand, device)
             targets = train_targets(
                 cfg, anchors, rpn_cls, rpn_reg, *(batch[k] for k in cs.BATCH_KEYS[1:]), noise
             )
             t2 = _sync(device)
-            out = train_losses(model, cfg, feats, rpn_cls, rpn_reg, *targets)
+            out = train_losses(model, cfg, feats, rpn_cls, rpn_reg, *targets, canvas_hw)
             t3 = _sync(device)
         out.losses.total.backward()
         t4 = _sync(device)
@@ -158,14 +158,12 @@ def run_stages(model, init, dtype, device, batch, steps, deterministic: bool) ->
     )
 
 
-def run_profile(model, init, dtype, device, batch) -> None:
+def run_profile(model, init, cfg, dtype, device, batch) -> None:
     name = str(dtype).removeprefix("torch.")
     model.load_state_dict(init)
     state = init_train_state(model, make_optimizer(model))
     schedule = make_lr_schedule("constant", cs.TRAIN_LR, 1, 10)
-    step_fn = make_train_step(
-        LEGACY_CONFIG, schedule, autocast_dtype=None if dtype == torch.float32 else dtype
-    )
+    step_fn = make_train_step(cfg, schedule, autocast_dtype=None if dtype == torch.float32 else dtype)
     gen = epoch_generator(cs.SEED, 0, device)
     for _ in range(2):
         step_fn(state, batch, gen)
@@ -199,10 +197,15 @@ def run_profile(model, init, dtype, device, batch) -> None:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--generation", choices=("legacy", "fpn"), default="legacy")
     p.add_argument("--canvas", type=int, nargs=2, default=list(cs.CANVAS))
     p.add_argument("--repeats", type=int, default=3)
     p.add_argument("--phases", default="rate,stages,profile")
+    p.add_argument("--steps", type=int, default=cs.TRAIN_STEPS, help="steps per run, at least 6")
+    p.add_argument("--dtypes", default="float32,bfloat16")
     args = p.parse_args(argv)
+    if args.steps < 6:
+        p.error("--steps must be at least 6: steps 1-5 are the warm-up")
     phases = set(args.phases.split(","))
     if not phases <= {"rate", "stages", "profile"}:
         p.error(f"unknown phase in --phases {args.phases!r}")
@@ -221,23 +224,29 @@ def main(argv=None) -> int:
     print(host_line(), flush=True)
 
     torch.backends.cudnn.benchmark = False
-    batch = cs._to_device(cs.synthetic_train_batch(tuple(args.canvas), cs.SEED + 4), device)
-    model = cs._new_model().to(device)
+    cfg, labels = cs._train_setup(args.generation)
+    print(f"generation {args.generation}", flush=True)
+    batch = cs._to_device(
+        cs.synthetic_train_batch(tuple(args.canvas), cs.SEED + 4, labels=labels), device
+    )
+    model = cs._new_model(args.generation).to(device)
     init = {k: v.clone() for k, v in model.state_dict().items()}
-    dtypes = [set_numerics(name) for name in ("float32", "bfloat16")]
+    dtypes = [set_numerics(name) for name in args.dtypes.split(",")]
     if "rate" in phases:
         torch.backends.cudnn.deterministic = True
         for dtype in dtypes:
-            run_rate(model, init, dtype, device, batch, cs.TRAIN_STEPS, args.repeats)
+            run_rate(model, init, cfg, dtype, device, batch, args.steps, args.repeats)
     if "stages" in phases:
+        # cuDNN's modes mean nothing on the CPU: split once there.
+        modes = (True, False) if device.type == "cuda" else (True,)
         for dtype in dtypes:
-            for deterministic in (True, False):
-                run_stages(model, init, dtype, device, batch, cs.TRAIN_STEPS, deterministic)
+            for deterministic in modes:
+                run_stages(model, init, cfg, dtype, device, batch, args.steps, deterministic)
     if "profile" in phases and device.type == "cuda":
         for dtype in dtypes:
             for deterministic in (True, False):
                 torch.backends.cudnn.deterministic = deterministic
-                run_profile(model, init, dtype, device, batch)
+                run_profile(model, init, cfg, dtype, device, batch)
     print(host_line(), flush=True)
     return 0
 
