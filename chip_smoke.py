@@ -28,12 +28,24 @@ CUDA card, builds the port's kernels from the sources in the checkout
      weight a multiple of 1/16) integer gradients are bit-exact in float32
      and bfloat16, normal ones within 1e-5 * max|ref| of the float32 maps
      (atomics add in another order); ``index_put_`` with ``accumulate`` on
-     the plain version's prepared terms is timed beside it.
+     the plain version's prepared terms is timed beside it;
+   * IoU at the dense train shapes ([2512, 4] x [512, 4], legacy at
+     ``--max_gt`` 512, and [1640, 4] x [640, 4], FPN at 640: proposals
+     around 400 small gt boxes, random, degenerate and coincident ones,
+     padded zero gt rows), eps 1e-5 and eps 0 (zero-area pairs hit the
+     1e-12 union floor), bit-exact;
+   * the slot-lattice MultiScaleRoIAlign forward (no main path runs it) on
+     the forward's predict shapes and rois, float32 and bfloat16: bit-exact
+     with its plain version, within 1e-5 * max|ref| of the forward kernel
+     (one bfloat16 ulp more in bfloat16), bound as the forward's. Its
+     count is set to 0 after this check and never reset: phases 3, 6, 9,
+     12 and 15 each require it still 0, and its record's ``launches`` is
+     the count read after phase 16.
 3. main path, predict: full-width legacy VGG16 predict (21 classes, seeded
    random weights, the 800x1344 canvas, batch 1) through the port's
    ``engine.evaluate.evaluate`` on synthetic in-memory VOC batches, in
    float32 (TF32 off) and bfloat16, with the kernels' launch counts reset
-   just before and read just after.
+   just before and read just after; the IoU kernel never runs.
 4. predict vs plain: the same float32 predict with RoIPool forced to the
    plain version must give identical detections.
 5. small-input predict reference: GPU float32 predict against the CPU plain
@@ -43,8 +55,9 @@ CUDA card, builds the port's kernels from the sources in the checkout
    gt padded to 100 slots) on one repeated synthetic batch through
    ``engine.train.train_one_epoch`` and ``parallel.train_step``, in
    float32 and under bfloat16 autocast, counts reset just before and read
-   just after: the backward kernel runs once per step, every loss is
-   finite and the mean loss of steps 16-20 is below that of steps 1-5.
+   just after: the backward kernel runs once per step, the IoU kernel
+   never, every loss is finite and the mean loss of steps 16-20 is below
+   that of steps 1-5.
 7. train step vs plain: one float32 step from the same weights and noise
    through the kernels and through plain RoIPool: identical losses;
    parameter gradients within 1e-5 * max|g| per tensor for the RPN and the
@@ -64,7 +77,7 @@ CUDA card, builds the port's kernels from the sources in the checkout
    ``engine.evaluate.evaluate`` with ``data_type="coco"`` and a synthetic
    ``CocoIndex`` written under ``build/``, in float32 (TF32 off) and
    bfloat16, counts reset just before and read just after: the align
-   kernel runs once per predict call and RoIPool never; every image has a
+   kernel runs once per predict call, RoIPool and IoU never; every image has a
    detection; the std of P2..P6 is printed.
 10. FPN predict vs plain: the same float32 predict with the plain align
    must give identical detections.
@@ -75,8 +88,8 @@ CUDA card, builds the port's kernels from the sources in the checkout
    image under raw COCO ids, FPN_CONFIG budgets) through
    ``train_one_epoch`` and ``parallel.train_step``, in float32 and under
    bfloat16 autocast, counts reset just before and read just after: the
-   align forward and backward kernels run once per step each and RoIPool
-   never; every loss is finite and the mean of steps 16-20 is below that
+   align forward and backward kernels run once per step each, RoIPool and
+   IoU never; every loss is finite and the mean of steps 16-20 is below that
    of steps 1-5.
 13. FPN train step vs plain: one float32 step from the same weights and
    noise through the align kernels and through the plain align (forward
@@ -88,7 +101,16 @@ CUDA card, builds the port's kernels from the sources in the checkout
    bit as ``torch.optim.SGD`` rounds it on zero gradients.
 14. small-input FPN train reference: one GPU float32 step against the CPU
    plain path at 208x240, as phase 8.
-15. imports: jax and flax were never imported.
+15. main path, legacy dense-scene train: phase 6 with the gt padded to
+   512 slots (``--max_gt 512``, past the IoU kernel's gate of 432) and
+   300-500 small boxes tiled over each image, counts reset just before and
+   read just after: the IoU kernel runs once per image and step (2 per
+   step), RoIPool forward and backward once per step each; losses finite
+   and falling as in phase 6; img/s printed as there.
+16. dense step vs plain: one float32 dense step from the same weights and
+   noise through the IoU kernel and with ``plain=True``: identical RPN and
+   RoI targets (rois, labels, is_pos, valid, reg targets) and losses.
+17. imports: jax and flax were never imported.
 
 Its last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -125,6 +147,7 @@ from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import (
     train_losses,
     train_targets,
 )
+from faster_rcnn_pytorch_tpu_torch.ops import boxes as boxes_mod
 from faster_rcnn_pytorch_tpu_torch.ops import roi_align as roi_align_mod
 from faster_rcnn_pytorch_tpu_torch.ops import roi_pool as roi_pool_mod
 from faster_rcnn_pytorch_tpu_torch.ops.cuda import extension
@@ -146,6 +169,9 @@ SEED = 0
 TRAIN_BATCH = 2
 TRAIN_STEPS = 20
 MAX_GT = 100  # the loader's gt slots (config.max_gt)
+DENSE_MAX_GT = 512  # --max_gt of a dense scene: past the IoU kernel's gate (432 for legacy)
+DENSE_BOXES = (300, 501)  # real gt boxes per dense image, [low, high)
+FPN_DENSE_MAX_GT = 640  # the FPN generation's gate, timed in phase 2 only
 TRAIN_LR = 1e-3
 BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 LOG_DIR = os.path.join(BUILD, "chip_smoke_logs")
@@ -458,9 +484,9 @@ def _align_footprint_cells(feats, rois, level) -> int:
     return cells
 
 
-def check_roi_align_kernel(device) -> dict:
-    """The MultiScaleRoIAlign kernel against its plain version at the FPN
-    predict shapes, bit for bit in float32 and bfloat16."""
+def _align_inputs(device):
+    """Seeded P2..P5 maps at the FPN predict shapes (on the CPU) and the
+    predict's 1000 rois per image with their levels (on the card)."""
     h, w = CANVAS
     g = torch.Generator().manual_seed(SEED + 7)
     feats = [
@@ -468,7 +494,13 @@ def check_roi_align_kernel(device) -> dict:
         for s in roi_align_mod.STRIDES
     ]
     rois = _align_rois(g, FPN_CONFIG.post_nms_test).to(device)
-    level = roi_align_mod.fpn_level_assignment(rois)
+    return feats, rois, roi_align_mod.fpn_level_assignment(rois)
+
+
+def check_roi_align_kernel(device) -> dict:
+    """The MultiScaleRoIAlign kernel against its plain version at the FPN
+    predict shapes, bit for bit in float32 and bfloat16."""
+    feats, rois, level = _align_inputs(device)
     print(
         f"align rois per level: {torch.bincount(level.flatten(), minlength=4).tolist()}",
         flush=True,
@@ -509,6 +541,137 @@ def check_roi_align_kernel(device) -> dict:
                 flush=True,
             )
             record.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    record["max_abs_err"] = err
+    return record
+
+
+def check_roi_align_slots_kernel(device, align_record: dict) -> dict:
+    """The slot-lattice MultiScaleRoIAlign kernel against its plain version
+    at the FPN predict shapes and rois of ``check_roi_align_kernel``, bit for
+    bit in float32 and bfloat16, and within 1e-5 * max|ref| of the forward
+    kernel's float32 result (the same function, other rounding; in bfloat16
+    within one bfloat16 ulp of it more). Its bound is that kernel's: the
+    same samples weigh the same cells."""
+    feats, rois, level = _align_inputs(device)
+    record = {
+        "name": "multiscale_roi_align_slots_forward",
+        "route": "cuda",
+        "source": "faster_rcnn_pytorch_tpu_torch/ops/cuda/roi_align_slots.cu",
+        "replaces": "faster_rcnn_pytorch_tpu/ops/pallas/roi_align_kernel.py:107",
+        "library_ms": None,  # PyTorch has no RoIAlign call
+        "bound_ms": align_record["bound_ms"],
+        "bound_by": align_record["bound_by"],
+    }
+    slots_cuda = roi_align_mod.multiscale_roi_align_slots_cuda
+    slots_plain = roi_align_mod.multiscale_roi_align_slots_reference
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        f = [x.to(device, dtype) for x in feats]
+        out = slots_cuda(f, rois, level)
+        torch.cuda.synchronize()
+        ref = slots_plain(f, rois, level)
+        diff = float((out.float() - ref.float()).abs().max())
+        _require(torch.equal(out, ref), f"slots kernel != plain ({dtype}): max|d| {diff}")
+        err = max(err, diff)
+        other = roi_align_mod.multiscale_roi_align_cuda(f, rois, level).float()
+        scale = float(other.abs().max())
+        vs_other = (out.float() - other).abs()
+        ulp = torch.zeros_like(other) if dtype == torch.float32 else torch.exp2(
+            torch.floor(torch.log2(other.abs().clamp(min=1e-30))) - 7
+        )
+        _require(
+            bool((vs_other <= ulp + 1e-5 * scale).all()),
+            f"slots kernel vs forward kernel ({dtype}): max|d| {float(vs_other.max())}, max|ref| {scale}",
+        )
+        ms = _median_ms(lambda: slots_cuda(f, rois, level))
+        plain_ms = _median_ms(lambda: slots_plain(f, rois, level))
+        name = str(dtype).removeprefix("torch.")
+        print(
+            f"roi_align_slots {name} rois {tuple(rois.shape)}: bit-exact with its plain version, "
+            f"max|d| {float(vs_other.max()):.3g} from the forward kernel (max|ref| {scale:.3g}), "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 25)",
+            flush=True,
+        )
+        if dtype == torch.float32:
+            record.update(ms=ms, plain_ms=plain_ms)
+    record["max_abs_err"] = err
+    return record
+
+
+def _require_slots_idle(phase: str) -> None:
+    """No main path runs the slot-lattice align kernel (the FPN head runs
+    roi_align.cu): its count, set to 0 after its kernel check and never
+    reset, must still be 0 after each main-path phase."""
+    n = roi_align_mod.multiscale_roi_align_slots_cuda.launches
+    _require(n == 0, f"{phase} launched the slot-lattice align kernel {n} times")
+
+
+def iou_boxes(generator, n_props: int, max_gt: int, n_real: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``frcnn_targets``' IoU operands in canvas-[0, 1] coordinates: ``gt
+    [max_gt, 4]`` with ``n_real`` small boxes and zero (padded) rows after
+    them, and ``cand [n_props + max_gt, 4]``: proposals jittered around the
+    gt, random ones, degenerate and coincident ones, then the gt appended
+    (so padded rows meet padded rows: zero-area pairs)."""
+    xy = torch.rand(n_real, 2, generator=generator) * 0.9
+    wh = 0.01 + torch.rand(n_real, 2, generator=generator) * 0.09
+    gt = torch.zeros(max_gt, 4)
+    gt[:n_real] = torch.cat([xy, xy + wh], 1)
+    src = gt[torch.randint(0, n_real, (n_props,), generator=generator)]
+    size = (src[:, 2:] - src[:, :2]).repeat(1, 2)
+    props = src + (torch.rand(n_props, 4, generator=generator) - 0.5) * 0.6 * size
+    k = n_props // 8
+    props[:k] = torch.rand(k, 4, generator=generator).sort(1).values[:, [0, 2, 1, 3]]  # random
+    props[k : 2 * k, 2] = props[k : 2 * k, 0]  # degenerate: zero width
+    props[2 * k : 3 * k] = gt[torch.randint(0, n_real, (k,), generator=generator)]  # coincident
+    return torch.cat([props, gt]), gt
+
+
+def check_iou_kernel(device) -> dict:
+    """The IoU kernel against its plain version at the dense train shapes
+    (legacy at --max_gt 512, FPN at 640), bit for bit at eps 1e-5 and at
+    eps 0, where padded rows meet padded rows and the 1e-12 union floor
+    decides."""
+    g = torch.Generator().manual_seed(SEED + 9)
+    record = {
+        "name": "pairwise_iou",
+        "route": "cuda",
+        "source": "faster_rcnn_pytorch_tpu_torch/ops/cuda/iou.cu",
+        "replaces": "faster_rcnn_pytorch_tpu/ops/pallas/iou_kernel.py:25",
+        "library_ms": None,  # PyTorch has no IoU call (torchvision is not a dependency)
+    }
+    err = 0.0
+    shapes = (
+        ("legacy", LEGACY_CONFIG.post_nms_train, DENSE_MAX_GT),
+        ("fpn", FPN_CONFIG.post_nms_train, FPN_DENSE_MAX_GT),
+    )
+    for generation, n_props, max_gt in shapes:
+        cand, gt = (t.to(device) for t in iou_boxes(g, n_props, max_gt, 400))
+        n, m = cand.shape[0], gt.shape[0]
+        _require(n * m >= boxes_mod.IOU_KERNEL_MIN_PAIRS, f"{n} x {m} is below the kernel's gate")
+        for eps in (1e-5, 0.0):
+            got = boxes_mod.pairwise_iou_cuda(cand, gt, eps)
+            torch.cuda.synchronize()
+            want = boxes_mod.pairwise_iou_reference(cand, gt, eps)
+            diff = float((got - want).abs().max())
+            _require(
+                got.dtype == torch.float32 and torch.equal(got, want),
+                f"iou kernel != plain ({generation}, eps {eps}): max|d| {diff}",
+            )
+            err = max(err, diff)
+            floored = int(((cand[:, None, 2] == cand[:, None, 0]) & (gt[None, :, 2] == gt[None, :, 0])).sum())
+            ms = _median_ms(lambda: boxes_mod.pairwise_iou_cuda(cand, gt, eps))
+            plain_ms = _median_ms(lambda: boxes_mod.pairwise_iou_reference(cand, gt, eps))
+            print(
+                f"iou {generation} [{n}, 4] x [{m}, 4] eps {eps}: bit-exact ({floored} zero-width "
+                f"pairs), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 25)",
+                flush=True,
+            )
+            if generation == "legacy" and eps:
+                n_bytes = n * m * 4 + (n + m) * 16
+                # per pair: 4 min/max, 2 subs, 2 clamps, inter, 2 adds, 1 sub, 1 div
+                bound_ms, bound_by = _bound(n_bytes, 13 * n * m)
+                print(f"  {n_bytes / 1e6:.2f} MB moved: bound {bound_ms:.5f} ms", flush=True)
+                record.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
     record["max_abs_err"] = err
     return record
 
@@ -633,28 +796,44 @@ def _align_backward_library_ms(grad, rois, level, shapes) -> float:
 
 
 def synthetic_train_batch(
-    canvas, seed: int, batch: int = TRAIN_BATCH, labels: tuple[int, int] = (0, NUM_CLASSES - 1)
+    canvas,
+    seed: int,
+    batch: int = TRAIN_BATCH,
+    labels: tuple[int, int] = (0, NUM_CLASSES - 1),
+    max_gt: int = MAX_GT,
+    boxes: tuple[int, int] = (1, 4),
 ) -> dict:
     """The JAX loader's train batch layout: normalised images on the
-    padded canvas (zeros past each image's extent), ``extent``, and 1-3
-    gt boxes per image padded to ``MAX_GT`` slots, labels drawn from
-    ``[labels[0], labels[1])`` (VOC's 0-based, or raw COCO ids 1..90 for
-    the FPN generation)."""
+    padded canvas (zeros past each image's extent), ``extent``, and
+    ``boxes[0] .. boxes[1] - 1`` gt boxes per image padded to ``max_gt``
+    slots, labels drawn from ``[labels[0], labels[1])`` (VOC's 0-based, or
+    raw COCO ids 1..90 for the FPN generation). A few boxes are large and
+    anywhere; more than 3 (a dense scene: a shelf, a crowd) are small
+    boxes tiled over the image extent, one per cell of a grid."""
     rs = np.random.RandomState(seed)
     ch, cw = canvas
     images = np.zeros((batch, ch, cw, 3), np.float32)
     extents = np.zeros((batch, 2), np.float32)
-    gt_boxes = np.zeros((batch, MAX_GT, 4), np.float32)
-    gt_labels = np.zeros((batch, MAX_GT), np.int32)
-    gt_mask = np.zeros((batch, MAX_GT), bool)
+    gt_boxes = np.zeros((batch, max_gt, 4), np.float32)
+    gt_labels = np.zeros((batch, max_gt), np.int32)
+    gt_mask = np.zeros((batch, max_gt), bool)
     for i in range(batch):
         rh = ch if i % 2 == 0 else int(ch * 0.75)
         rw = int(cw * (0.9 - 0.1 * (i % 3)))
         images[i, :rh, :rw] = rs.standard_normal((rh, rw, 3)).astype(np.float32)
         extents[i] = (rw / cw, rh / ch)
-        k = rs.randint(1, 4)
-        xy = rs.uniform(0.05, 0.5, size=(k, 2)) * extents[i]
-        wh = rs.uniform(0.15, 0.45, size=(k, 2)) * extents[i]
+        k = rs.randint(*boxes)
+        if boxes[1] <= 4:
+            xy = rs.uniform(0.05, 0.5, size=(k, 2)) * extents[i]
+            wh = rs.uniform(0.15, 0.45, size=(k, 2)) * extents[i]
+        else:
+            cols = int(np.ceil(np.sqrt(k * rw / rh)))
+            rows = -(-k // cols)
+            cell = extents[i] / (cols, rows)
+            slots = np.sort(rs.choice(cols * rows, size=k, replace=False))
+            origin = np.stack([slots % cols, slots // cols], 1) * cell
+            xy = origin + rs.uniform(0.05, 0.25, size=(k, 2)) * cell
+            wh = rs.uniform(0.5, 0.7, size=(k, 2)) * cell
         gt_boxes[i, :k] = np.concatenate([xy, np.minimum(xy + wh, extents[i])], 1)
         gt_labels[i, :k] = rs.randint(*labels, size=k)
         gt_mask[i, :k] = True
@@ -701,10 +880,15 @@ def _train_setup(generation: str):
     return FPN_CONFIG, (1, FPN_CLASSES)
 
 
-def run_train(dtype_name: str, device, generation: str = "legacy") -> tuple[int, int]:
+def run_train(
+    dtype_name: str, device, generation: str = "legacy", dense: bool = False
+) -> tuple[int, int, int]:
     """20 full-width train steps through ``train_one_epoch``; returns the
-    launch counts of the generation's head kernels (forward, backward) in
-    the run, and requires the other generation's kernels to stay idle."""
+    launch counts of the generation's head kernels (forward, backward) and
+    of the IoU kernel in the run, and requires the other generation's
+    kernels to stay idle. ``dense``: gt padded to ``DENSE_MAX_GT`` slots
+    with ``DENSE_BOXES`` boxes per image, past the IoU kernel's gate, so
+    it runs once per image and step; otherwise (100 slots) never."""
     dtype = set_numerics(dtype_name)
     cfg, labels = _train_setup(generation)
     model = _new_model(generation).to(device)
@@ -720,21 +904,23 @@ def run_train(dtype_name: str, device, generation: str = "legacy") -> tuple[int,
         timer.stop()
         return metrics
 
-    seed = SEED + (4 if generation == "legacy" else 6)
-    loader = RepeatedBatch(synthetic_train_batch(CANVAS, seed, labels=labels), TRAIN_STEPS)
+    seed = SEED + (4 if generation == "legacy" else 6) + (10 if dense else 0)
+    gt = dict(max_gt=DENSE_MAX_GT, boxes=DENSE_BOXES) if dense else {}
+    loader = RepeatedBatch(synthetic_train_batch(CANVAS, seed, labels=labels, **gt), TRAIN_STEPS)
     recorder = LossRecorder()
+    name = f"{generation}{' dense' if dense else ''} {dtype_name}"
     opts = SimpleNamespace(
-        seed=SEED, vis_step=1, log_dir=LOG_DIR, name=f"train_{generation}_{dtype_name}",
+        seed=SEED, vis_step=1, log_dir=LOG_DIR, name=f"train_{name.replace(' ', '_')}",
         keep_checkpoints=1,
     )
-    kernels = (*_head_kernels("legacy"), *_head_kernels("fpn"))
+    kernels = (*_head_kernels("legacy"), *_head_kernels("fpn"), boxes_mod.pairwise_iou_cuda)
     for k in kernels:
         k.launches = 0
     train_one_epoch(state, timed_step, loader, 0, opts, schedule, recorder)
     counts = {k.__name__: k.launches for k in kernels}
     shutil.rmtree(LOG_DIR)
     fwd, bwd = (counts.pop(k.__name__) for k in _head_kernels(generation))
-    name = f"{generation} {dtype_name}"
+    iou = counts.pop(boxes_mod.pairwise_iou_cuda.__name__)
     losses = recorder.losses
     _require(len(losses) == TRAIN_STEPS, f"{len(losses)} of {TRAIN_STEPS} losses logged")
     _require(bool(np.isfinite(losses).all()), f"{name} train: non-finite loss {losses}")
@@ -742,16 +928,73 @@ def run_train(dtype_name: str, device, generation: str = "legacy") -> tuple[int,
     _require(last < first, f"{name} train: loss did not fall ({first} -> {last})")
     _require(bwd == TRAIN_STEPS, f"{name} train: {bwd} backward launches, want {TRAIN_STEPS}")
     _require(fwd == TRAIN_STEPS, f"{name} train: {fwd} forward launches, want {TRAIN_STEPS}")
+    want_iou = TRAIN_STEPS * TRAIN_BATCH if dense else 0
+    _require(iou == want_iou, f"{name} train: {iou} IoU launches, want {want_iou}")
     _require(not any(counts.values()), f"{name} train launched another head's kernels: {counts}")
+    _require_slots_idle(f"{name} train")
     steady = timer.times[5:]
     print(
-        f"train {name} {CANVAS[0]}x{CANVAS[1]} batch {TRAIN_BATCH}: "
+        f"train {name} {CANVAS[0]}x{CANVAS[1]} batch {TRAIN_BATCH}"
+        f"{f' gt slots {DENSE_MAX_GT}' if dense else ''}: "
         f"{TRAIN_BATCH * len(steady) / sum(steady):.2f} img/s over steps 6-{TRAIN_STEPS} "
         f"(step p50 {1000 * timer.p50():.1f} ms), mean loss steps 1-5 {first:.4f} -> "
-        f"16-20 {last:.4f}, launches fwd {fwd} bwd {bwd}, other kernels {counts}",
+        f"16-20 {last:.4f}, launches fwd {fwd} bwd {bwd} iou {iou}, other kernels {counts}",
         flush=True,
     )
-    return fwd, bwd
+    return fwd, bwd, iou
+
+
+def check_dense_targets_kernel_vs_plain(device) -> None:
+    """One float32 legacy dense-scene step from the same weights and noise
+    through the IoU kernel and through ``plain=True``: identical RPN and
+    RoI targets (rois, labels, is_pos, valid, reg targets), two kernel
+    launches against none, and identical losses."""
+    set_numerics("float32")
+    cfg = LEGACY_CONFIG
+    model = _new_model("legacy").to(device)
+    batch = _to_device(
+        synthetic_train_batch(CANVAS, SEED + 12, max_gt=DENSE_MAX_GT, boxes=DENSE_BOXES), device
+    )
+    anchors = torch.from_numpy(model.canvas_anchors(*CANVAS)).to(device)
+    noise = draw_train_noise(
+        torch.Generator(device=device).manual_seed(SEED), TRAIN_BATCH, anchors.shape[0],
+        cfg.post_nms_train + DENSE_MAX_GT, device,
+    )
+    iou_k = boxes_mod.pairwise_iou_cuda
+    with torch.no_grad():
+        feats = model.features(batch["image"].permute(0, 3, 1, 2).contiguous())
+        rpn_cls, rpn_reg = model.rpn_out(feats)
+    targets = []
+    for plain in (False, True):
+        before = iou_k.launches
+        targets.append(
+            train_targets(
+                cfg, anchors, rpn_cls, rpn_reg, *(batch[k] for k in BATCH_KEYS[1:]), noise, plain=plain
+            )
+        )
+        torch.cuda.synchronize()
+        want = before if plain else before + TRAIN_BATCH
+        _require(iou_k.launches == want, f"IoU launches {before} -> {iou_k.launches} (plain={plain})")
+    (k_rpn, k_roi), (p_rpn, p_roi) = targets
+    for field in RoITargets._fields:
+        _require(torch.equal(getattr(k_roi, field), getattr(p_roi, field)), f"RoI targets differ in {field}")
+    for field in RPNTargets._fields:
+        _require(torch.equal(getattr(k_rpn, field), getattr(p_rpn, field)), f"RPN targets differ in {field}")
+    losses = []
+    for plain in (False, True):
+        before = iou_k.launches
+        out = forward_train(model, cfg, *(batch[k] for k in BATCH_KEYS), noise=noise, plain=plain)
+        torch.cuda.synchronize()
+        _require(iou_k.launches == before + (0 if plain else TRAIN_BATCH), "forward_train IoU launches")
+        losses.append(_loss_vector(out))
+    _require(torch.equal(*losses), f"dense losses differ: {losses[0].tolist()} vs {losses[1].tolist()}")
+    n_real = batch["gt_mask"].sum(1).tolist()
+    print(
+        f"dense train step legacy float32 ({n_real} of {DENSE_MAX_GT} gt slots real): RoI and RPN "
+        f"targets identical with the IoU kernel and with the plain IoU ({int(k_roi.is_pos.sum())} "
+        f"positive rois), losses identical ({', '.join(f'{v:.5f}' for v in losses[0].tolist())})",
+        flush=True,
+    )
 
 
 def _to_device(batch: dict, device) -> dict:
@@ -1027,13 +1270,15 @@ def run_fpn_predict(device) -> tuple[int, dict]:
         run_predict(model, dtype_name, device, _fpn_loader(SEED + 4, FPN_BATCH), "fpn")
         loader = _fpn_loader(SEED + 5)
         roi_align_mod.multiscale_roi_align_cuda.launches = 0
-        roi_pool_mod.roi_pool_cuda.launches = 0
+        roi_pool_mod.roi_pool_cuda.launches = boxes_mod.pairwise_iou_cuda.launches = 0
         result, counts = run_predict(model, dtype_name, device, loader, "fpn")
         align = roi_align_mod.multiscale_roi_align_cuda.launches
         pool = roi_pool_mod.roi_pool_cuda.launches
         calls = len(loader.batches)
         _require(align == calls, f"{dtype_name} FPN predict: {align} align launches for {calls} calls")
         _require(pool == 0, f"{dtype_name} FPN predict launched RoIPool {pool} times")
+        _require(boxes_mod.pairwise_iou_cuda.launches == 0, f"{dtype_name} FPN predict launched the IoU kernel")
+        _require_slots_idle(f"{dtype_name} FPN predict")
         _require(min(counts) > 0, f"{dtype_name} FPN predict: an image without detections {counts}")
         launches += align
         with torch.no_grad():
@@ -1072,6 +1317,10 @@ def main() -> int:
     bwd_record = check_roi_pool_backward_kernel(device)
     align_record = check_roi_align_kernel(device)
     align_bwd_record = check_roi_align_backward_kernel(device)
+    iou_record = check_iou_kernel(device)
+    slots_record = check_roi_align_slots_kernel(device, align_record)
+    roi_align_mod.multiscale_roi_align_slots_cuda.launches = 0
+    iou_kernel = boxes_mod.pairwise_iou_cuda
 
     launches = 0
     detections = {}
@@ -1080,10 +1329,12 @@ def main() -> int:
         # Warm-up (cuDNN and cuBLAS handles, first launches), outside the counts.
         run_predict(model, dtype_name, device, SyntheticImages(1, CANVAS, SEED))
         loader = SyntheticImages(N_IMAGES, CANVAS, SEED)
-        roi_pool_mod.roi_pool_cuda.launches = 0
+        roi_pool_mod.roi_pool_cuda.launches = iou_kernel.launches = 0
         result, counts = run_predict(model, dtype_name, device, loader)
         count = roi_pool_mod.roi_pool_cuda.launches
         _require(count > 0, f"{dtype_name} predict never launched the RoIPool kernel")
+        _require(iou_kernel.launches == 0, f"{dtype_name} predict launched the IoU kernel")
+        _require_slots_idle(f"{dtype_name} predict")
         if dtype_name == "float32":
             _require(sum(counts) > 0, "float32 predict found no detections to compare")
             detections = result["detections"]
@@ -1104,7 +1355,7 @@ def main() -> int:
 
     bwd_launches = 0
     for dtype_name in ("float32", "bfloat16"):
-        fwd, bwd = run_train(dtype_name, device)
+        fwd, bwd, _ = run_train(dtype_name, device)
         launches += fwd
         bwd_launches += bwd
     record["launches"] = launches
@@ -1129,18 +1380,35 @@ def main() -> int:
 
     align_bwd_record["launches"] = 0
     for dtype_name in ("float32", "bfloat16"):
-        fwd, bwd = run_train(dtype_name, device, "fpn")
+        fwd, bwd, _ = run_train(dtype_name, device, "fpn")
         align_record["launches"] += fwd
         align_bwd_record["launches"] += bwd
     check_train_step_kernel_vs_plain(device, "fpn")
     check_small_input_train_reference(device, "fpn", FPN_SMALL_CANVAS)
+
+    iou_record["launches"] = 0
+    for dtype_name in ("float32", "bfloat16"):
+        fwd, bwd, iou = run_train(dtype_name, device, dense=True)
+        record["launches"] += fwd
+        bwd_record["launches"] += bwd
+        iou_record["launches"] += iou
+    check_dense_targets_kernel_vs_plain(device)
+    slots_record["launches"] = roi_align_mod.multiscale_roi_align_slots_cuda.launches
+    _require_slots_idle("the main paths")
 
     leaked = [m for m in ("jax", "flax") if m in sys.modules]
     _require(not leaked, f"imported {leaked}")
 
     print(f"chip_smoke: {time.time() - t_start:.1f}s end to end", flush=True)
     print(
-        json.dumps({"kernels": [record, bwd_record, align_record, align_bwd_record]}), flush=True
+        json.dumps(
+            {
+                "kernels": [
+                    record, bwd_record, align_record, align_bwd_record, iou_record, slots_record
+                ]
+            }
+        ),
+        flush=True,
     )
     print(
         json.dumps(

@@ -7,16 +7,18 @@ One device (``utils.runtime.select_device``), either generation
 Orchestration: options -> loaders -> model (with the dataset's label
 offset) -> weights (seeded fresh init, or a reference-layout
 ``.pth``/``.pth.tar`` of either generation) -> LR schedule -> optimizer ->
-resume (from epoch ``start_epoch - 1``, or ``--checkpoint x.pt``) ->
+resume (from ``{log_dir}/{name}/saves/{name}.{start_epoch - 1}.pt``, or
+from ``--checkpoint x.pt``, model and optimizer; either must exist) ->
 epochs of train, evaluate (VOC, or COCO against
 ``annotations/instances_val2017.json`` under the data root) and
-best-by-mAP checkpoint.
+best-by-mAP checkpoint, which ``test --test_epoch best`` then loads.
 
 ``--dtype bfloat16`` runs forward and backward under
 ``torch.autocast(bfloat16)`` over float32 master weights (the JAX
 package's ``dtype=bf16, param_dtype=float32``); the losses stay float32.
-``--dtype float32`` means TF32 off. Flags of slices not ported yet raise
-``NotImplementedError`` naming their ROADMAP.md item.
+``--dtype float32`` means TF32 off unless ``--matmul_precision high``
+turns it on (``utils.runtime.apply_matmul_precision``). Flags of slices
+not ported yet raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -90,11 +92,16 @@ def main(argv=None) -> int:
     )
     from faster_rcnn_pytorch_tpu_torch.utils.convert import load_reference_checkpoint
     from faster_rcnn_pytorch_tpu_torch.utils.logging import ScalarWriter, trace_context
-    from faster_rcnn_pytorch_tpu_torch.utils.runtime import select_device, set_numerics
+    from faster_rcnn_pytorch_tpu_torch.utils.runtime import (
+        apply_matmul_precision,
+        select_device,
+        set_numerics,
+    )
 
     opts = load_options(argv)
     refuse_unported(opts)
     dtype = set_numerics(opts.dtype)
+    apply_matmul_precision(opts.matmul_precision)
     device = select_device()
     autocast_dtype = dtype if dtype != torch.float32 else None
 

@@ -299,10 +299,14 @@ def train_targets(
     gt_labels: torch.Tensor,
     gt_mask: torch.Tensor,
     noise: TrainNoise,
+    plain: bool = False,
 ) -> tuple[RPNTargets, RoITargets]:
     """Per image (the JAX package's ``vmap``, written out): train-budget
     proposals, then RPN and RoI targets. Returns both batched, ``[B, A]``
-    and ``[B, S]``. No gradient flows through them."""
+    and ``[B, S]``. No gradient flows through them. Each image's RoI
+    targets see a 2-D ``[post_nms_train + G, 4]`` candidate set, as under
+    the ``vmap``, so ``masked_iou`` applies the JAX package's gate to it;
+    ``plain`` (tests only) keeps the plain IoU above that gate."""
     rpn_tg, roi_tg = [], []
     for i in range(rpn_cls.shape[0]):
         props = propose(
@@ -345,6 +349,7 @@ def train_targets(
                 pos_quota=cfg.roi_pos_quota,
                 pos_iou=cfg.roi_pos_iou,
                 label_offset=cfg.label_offset,
+                plain=plain,
             )
         )
     return _stack(rpn_tg), _stack(roi_tg)
@@ -405,7 +410,8 @@ def forward_train(
         noise is sized by the model's anchors on this canvas and
         ``post_nms_train + G`` candidate rois.
       plain: tests only: the plain RoIPool or MultiScaleRoIAlign (forward
-        and backward) in place of the kernels.
+        and backward) and the plain IoU of the RoI targets in place of the
+        kernels.
 
     The JAX package's slab-batched VGG stem (``train=True``) is a TPU
     layout with the same numbers; this is the plain stack.
@@ -419,7 +425,7 @@ def forward_train(
         n_cand = cfg.post_nms_train + gt_boxes.shape[1]
         noise = draw_train_noise(generator, b, anchors.shape[0], n_cand, dev)
     rpn_tg, roi_tg = train_targets(
-        cfg, anchors, rpn_cls, rpn_reg, extents, gt_boxes, gt_labels, gt_mask, noise
+        cfg, anchors, rpn_cls, rpn_reg, extents, gt_boxes, gt_labels, gt_mask, noise, plain
     )
     return train_losses(
         model, cfg, feats, rpn_cls, rpn_reg, rpn_tg, roi_tg, (canvas_h, canvas_w), plain

@@ -137,6 +137,7 @@ def frcnn_targets(
     pos_quota: int = 32,
     pos_iou: float = 0.5,
     label_offset: int = 1,
+    plain: bool = False,
 ) -> RoITargets:
     """Sample ``num_samples`` rois and their class and box targets.
 
@@ -146,11 +147,16 @@ def frcnn_targets(
       gt_labels: ``[G]`` dataset labels, shifted by ``label_offset`` (1
         clears the legacy background slot).
       pos_noise / neg_noise: ``[R + G]`` uniform noise.
+      plain: tests only: the plain IoU where ``masked_iou`` would launch
+        its kernel (``(R + G) * G >= 2**20``: ``--max_gt`` 432 and up for
+        legacy, 640 for FPN).
     """
     cand = torch.cat([rois, gt_boxes], dim=0)
     cand_valid = torch.cat([roi_valid, gt_mask], dim=0)
 
-    iou = masked_iou(cand, gt_boxes, gt_mask)  # [R+G, G]
+    # Float32 on both sides, also under bfloat16 autocast: the proposals
+    # are decoded against float32 anchors and the gt comes from the loader.
+    iou = masked_iou(cand, gt_boxes, gt_mask, plain=plain)  # [R+G, G]
     iou = torch.where(cand_valid[:, None], iou, -1.0)
     iou_max, iou_argmax = iou.max(dim=1)
 

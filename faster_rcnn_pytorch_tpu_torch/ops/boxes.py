@@ -3,7 +3,9 @@
 Counterpart of ``faster_rcnn_pytorch_tpu/ops/boxes.py`` with the same
 formulas in the same order, so float32 results agree to the last bit
 where the arithmetic allows. Boxes are ``xyxy`` corner form or ``cxcywh``
-center form, normalised to [0, 1] of the canvas.
+center form, normalised to [0, 1] of the canvas. :func:`masked_iou`
+sends a large 2-D problem to the IoU kernel (``ops/cuda/iou.cu``) on a
+CUDA tensor, as the JAX package sends it to its Pallas kernel.
 """
 
 from __future__ import annotations
@@ -76,15 +78,71 @@ def box_iou(set_1: torch.Tensor, set_2: torch.Tensor):
     return iou, union
 
 
-def masked_iou(boxes: torch.Tensor, gt: torch.Tensor, gt_mask: torch.Tensor, eps: float = 1e-5):
+# masked_iou sends a 2-D problem of at least this many pairs to the IoU
+# kernel, as the JAX package's masked_iou sends it to its Pallas kernel:
+# frcnn_targets' (post_nms_train + max_gt) x max_gt passes it at max_gt
+# >= 432 (legacy, 2432 x 432) and >= 640 (FPN, 1640 x 640).
+IOU_KERNEL_MIN_PAIRS = 1 << 20
+
+
+def pairwise_iou_reference(set_1: torch.Tensor, set_2: torch.Tensor, eps: float = 1e-5):
+    """Plain-PyTorch pairwise IoU, the twin of the CUDA kernel: ``[n, 4]``
+    x ``[m, 4]`` cast to float32 -> ``[n, m]`` float32. ``eps > 0`` is
+    :func:`jaccard_iou`; ``eps == 0`` is :func:`box_iou` (union floored at
+    1e-12), as the JAX package's ``pairwise_iou_pallas`` computes them."""
+    a, b = set_1.float(), set_2.float()
+    if eps == 0:
+        return box_iou(a, b)[0]
+    return jaccard_iou(a, b, eps=eps)
+
+
+def pairwise_iou_cuda(set_1: torch.Tensor, set_2: torch.Tensor, eps: float = 1e-5):
+    """The hand-written Hopper kernel (``ops/cuda/iou.cu``), same arguments
+    and result as :func:`pairwise_iou_reference`. Counts its launches in
+    ``pairwise_iou_cuda.launches``."""
+    if not (set_1.is_cuda and set_2.is_cuda):
+        raise ValueError("pairwise_iou_cuda needs CUDA tensors")
+    if set_1.dim() != 2 or set_1.shape[1] != 4 or set_2.dim() != 2 or set_2.shape[1] != 4:
+        raise ValueError(f"want boxes [n, 4] and [m, 4], got {tuple(set_1.shape)}, {tuple(set_2.shape)}")
+    from faster_rcnn_pytorch_tpu_torch.ops.cuda import extension
+
+    ext = extension()
+    a, b = set_1.float().contiguous(), set_2.float().contiguous()
+    out = torch.empty((a.shape[0], b.shape[0]), dtype=torch.float32, device=a.device)
+    ext.pairwise_iou(a, b, float(eps), out)
+    pairwise_iou_cuda.launches += 1
+    return out
+
+
+pairwise_iou_cuda.launches = 0
+
+
+def pairwise_iou(set_1: torch.Tensor, set_2: torch.Tensor, eps: float = 1e-5, plain: bool = False):
+    """Pairwise IoU dispatch: a CUDA tensor runs the hand kernel, a CPU
+    tensor (or the test-only ``plain``) the plain version."""
+    if set_1.is_cuda and not plain:
+        return pairwise_iou_cuda(set_1, set_2, eps)
+    if set_1.device.type != "cpu" and not plain:
+        raise NotImplementedError(f"no IoU kernel for {set_1.device}")
+    return pairwise_iou_reference(set_1, set_2, eps)
+
+
+def masked_iou(
+    boxes: torch.Tensor, gt: torch.Tensor, gt_mask: torch.Tensor, eps: float = 1e-5, plain: bool = False
+):
     """IoU of ``boxes [..., n, 4]`` vs padded ``gt [..., g, 4]``; padded gt
     slots (``gt_mask`` False) get -1, so no argmax or threshold picks them.
 
-    The JAX package sends 2-D problems with ``n*g >= 2**20`` to its Pallas
-    IoU kernel on a TPU; the legacy train step stays below that gate
-    (``frcnn_targets`` is 2100 x 100), so the port has the plain path only.
+    A 2-D problem of at least :data:`IOU_KERNEL_MIN_PAIRS` pairs goes
+    through :func:`pairwise_iou` (the kernel on a CUDA tensor; float32, as
+    the JAX package's Pallas kernel casts), a smaller one through
+    :func:`jaccard_iou` in the inputs' dtype, which is what the JAX
+    package runs on the TPU below that gate. ``plain`` is for tests only.
     """
-    iou = jaccard_iou(boxes, gt, eps=eps)
+    if boxes.dim() == 2 and boxes.shape[0] * gt.shape[0] >= IOU_KERNEL_MIN_PAIRS:
+        iou = pairwise_iou(boxes, gt, eps=eps, plain=plain)
+    else:
+        iou = jaccard_iou(boxes, gt, eps=eps)
     return torch.where(gt_mask[..., None, :], iou, -1.0)
 
 

@@ -1,6 +1,7 @@
-// PyTorch binding of the kernels in roi_pool.cu and roi_align.cu. The only
-// source that includes PyTorch's headers; it checks the tensors the Python
-// wrappers allocated and launches on the current CUDA stream.
+// PyTorch binding of the kernels in roi_pool.cu, roi_align.cu,
+// roi_align_slots.cu and iou.cu. The only source that includes PyTorch's
+// headers; it checks the tensors the Python wrappers allocated and launches
+// on the current CUDA stream.
 
 #include <torch/extension.h>
 
@@ -27,6 +28,13 @@ int roi_align_backward_launch(const void* grad, bool grad_is_bf16, float* const*
                               const int* heights, const int* widths, const float* scales,
                               const float* rois, const int32_t* level, int num_rois,
                               int rois_per_image, int channels, void* stream);
+
+int roi_align_slots_forward_launch(const void* const* feats, const int* heights,
+                                   const int* widths, const float* scales, bool is_bf16,
+                                   const float* rois, const int32_t* level, int num_rois,
+                                   int rois_per_image, int channels, void* out, void* stream);
+int pairwise_iou_launch(const float* a, const float* b, int n, int m, float eps,
+                        float union_floor, float* out, void* stream);
 
 static constexpr float kAlignScales[4] = {1.0f / 4, 1.0f / 8, 1.0f / 16, 1.0f / 32};
 
@@ -109,8 +117,11 @@ void roi_pool_backward(const at::Tensor& grad, const at::Tensor& argmax,
 // features: the four levels P2..P5, each [B, C, h, w] f32/bf16 (one dtype);
 // rois [B, n, 4] f32 canvas pixels; level [B, n] int32 in [0, 4) (all
 // contiguous, one device) -> fills out [B, n, C, 7, 7] (features' dtype).
-void roi_align_forward(const std::vector<at::Tensor>& features, const at::Tensor& rois,
-                       const at::Tensor& level, at::Tensor& out) {
+// slots: the slot-lattice variant (roi_align_slots.cu), which also needs
+// every level map to be at least 2x2.
+static void roi_align_forward_impl(const std::vector<at::Tensor>& features,
+                                   const at::Tensor& rois, const at::Tensor& level,
+                                   at::Tensor& out, bool slots) {
   TORCH_CHECK(features.size() == 4, "roi_align_forward: want the four levels P2..P5");
   const at::Tensor& f0 = features[0];
   TORCH_CHECK(f0.scalar_type() == at::kFloat || f0.scalar_type() == at::kBFloat16,
@@ -124,6 +135,8 @@ void roi_align_forward(const std::vector<at::Tensor>& features, const at::Tensor
                     f.size(0) == b && f.size(1) == c && f.scalar_type() == f0.scalar_type() &&
                     f.is_contiguous(),
                 "levels must be contiguous [B, C, h, w] tensors of one dtype on one device");
+    TORCH_CHECK(!slots || (f.size(2) >= 2 && f.size(3) >= 2),
+                "roi_align_slots_forward: every level map must be at least 2x2");
     ptrs[i] = f.data_ptr();
     heights[i] = static_cast<int>(f.size(2));
     widths[i] = static_cast<int>(f.size(3));
@@ -145,11 +158,51 @@ void roi_align_forward(const std::vector<at::Tensor>& features, const at::Tensor
               "out must be [B, n, C, 7, 7] in the features' dtype");
   const c10::cuda::CUDAGuard guard(f0.device());
   const cudaStream_t stream = at::cuda::getCurrentCUDAStream();
-  const int err = roi_align_forward_launch(
+  const auto launch = slots ? roi_align_slots_forward_launch : roi_align_forward_launch;
+  const int err = launch(
       ptrs, heights, widths, kAlignScales, f0.scalar_type() == at::kBFloat16,
       rois.data_ptr<float>(), level.data_ptr<int32_t>(), static_cast<int>(b * n),
       static_cast<int>(n), static_cast<int>(c), out.data_ptr(), static_cast<void*>(stream));
-  TORCH_CHECK(err == 0, "roi_align_forward launch failed: ", roi_pool_error_string(err));
+  TORCH_CHECK(err == 0, slots ? "roi_align_slots_forward" : "roi_align_forward",
+              " launch failed: ", roi_pool_error_string(err));
+}
+
+void roi_align_forward(const std::vector<at::Tensor>& features, const at::Tensor& rois,
+                       const at::Tensor& level, at::Tensor& out) {
+  roi_align_forward_impl(features, rois, level, out, false);
+}
+
+void roi_align_slots_forward(const std::vector<at::Tensor>& features, const at::Tensor& rois,
+                             const at::Tensor& level, at::Tensor& out) {
+  roi_align_forward_impl(features, rois, level, out, true);
+}
+
+// a [n, 4] and b [m, 4] float32 (contiguous, one device) -> fills out [n, m]
+// float32 with their pairwise IoU; eps as jaccard_iou, and with eps == 0 the
+// union floored at 1e-12 as box_iou.
+void pairwise_iou(const at::Tensor& a, const at::Tensor& b, double eps, at::Tensor& out) {
+  TORCH_CHECK(a.is_cuda() && b.is_cuda() && out.is_cuda(),
+              "pairwise_iou: tensors must be on a CUDA device");
+  TORCH_CHECK(a.get_device() == out.get_device() && b.get_device() == out.get_device(),
+              "pairwise_iou: tensors must share one device");
+  TORCH_CHECK(a.scalar_type() == at::kFloat && b.scalar_type() == at::kFloat &&
+                  out.scalar_type() == at::kFloat,
+              "pairwise_iou: tensors must be float32");
+  TORCH_CHECK(a.dim() == 2 && a.size(1) == 4 && b.dim() == 2 && b.size(1) == 4,
+              "pairwise_iou: boxes must be [n, 4] and [m, 4]");
+  TORCH_CHECK(a.is_contiguous() && b.is_contiguous() && out.is_contiguous(),
+              "pairwise_iou: tensors must be contiguous");
+  const int64_t n = a.size(0), m = b.size(0);
+  TORCH_CHECK(out.sizes() == at::IntArrayRef({n, m}), "pairwise_iou: out must be [n, m]");
+  TORCH_CHECK(n <= 64 * 65535 && m < (int64_t{1} << 31), "pairwise_iou: too many boxes");
+  const c10::cuda::CUDAGuard guard(a.device());
+  const cudaStream_t stream = at::cuda::getCurrentCUDAStream();
+  const float e = static_cast<float>(eps);
+  const int err = pairwise_iou_launch(a.data_ptr<float>(), b.data_ptr<float>(),
+                                      static_cast<int>(n), static_cast<int>(m), e,
+                                      e == 0.0f ? 1e-12f : 0.0f, out.data_ptr<float>(),
+                                      static_cast<void*>(stream));
+  TORCH_CHECK(err == 0, "pairwise_iou launch failed: ", roi_pool_error_string(err));
 }
 
 // grad [B, n, C, 7, 7] f32/bf16; rois [B, n, 4] f32; level [B, n] int32;
@@ -202,6 +255,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "RoIPool features-gradient, atomically added into a zeroed float32 map (CUDA)");
   m.def("roi_align_forward", &roi_align_forward,
         "MultiScaleRoIAlign forward over P2..P5 into a preallocated output (CUDA)");
+  m.def("roi_align_slots_forward", &roi_align_slots_forward,
+        "MultiScaleRoIAlign forward in the slot-lattice kernel's order (CUDA)");
+  m.def("pairwise_iou", &pairwise_iou, "Pairwise IoU [n, 4] x [m, 4] -> [n, m] (CUDA)");
   m.def("roi_align_backward", &roi_align_backward,
         "MultiScaleRoIAlign features-gradient, atomically added into zeroed float32 maps (CUDA)");
 }

@@ -30,6 +30,13 @@ in the kernel's order, so the two agree bit for bit) and
 kernels, their ``fits`` mask, the backward's read-modify-write DMA
 protocol and the corner-gather and dense-VJP fallbacks are a VMEM layout
 and are not ported: every roi here is exact whatever its size.
+
+:func:`multiscale_roi_align_slots` is the same function in the order of
+operations of the JAX package's round-1 slot-lattice kernel
+(``ops/pallas/roi_align_kernel.py``: ``_corner_starts_weights``' two-cell
+windows, weights divided by the ratio, x then y), with its own kernel
+(``ops/cuda/roi_align_slots.cu``) and plain version, forward only. As in
+the JAX package, no model calls it.
 """
 
 from __future__ import annotations
@@ -135,10 +142,8 @@ def multiscale_roi_align_reference(features, rois: torch.Tensor, level: torch.Te
     return out.reshape(b, n, c, p, p).to(features[0].dtype)
 
 
-def multiscale_roi_align_cuda(features, rois: torch.Tensor, level: torch.Tensor) -> torch.Tensor:
-    """The hand-written Hopper kernel (``ops/cuda/roi_align.cu``), same
-    arguments and result as :func:`multiscale_roi_align_reference`.
-    Counts its launches in ``multiscale_roi_align_cuda.launches``."""
+def _check_cuda_forward_args(features, rois: torch.Tensor, level: torch.Tensor) -> None:
+    """Raise on what the forward kernels do not take."""
     if len(features) != len(STRIDES):
         raise ValueError(f"want the four levels P2..P5, got {len(features)}")
     dtype = features[0].dtype
@@ -149,17 +154,25 @@ def multiscale_roi_align_cuda(features, rois: torch.Tensor, level: torch.Tensor)
         if not f.is_cuda or f.dim() != 4 or f.dtype != dtype or tuple(f.shape[:2]) != (b, c):
             raise ValueError(f"want CUDA levels [B, C, h, w] of one dtype, got {tuple(f.shape)}")
     if not (rois.is_cuda and level.is_cuda):
-        raise ValueError("multiscale_roi_align_cuda needs CUDA tensors")
+        raise ValueError("the MultiScaleRoIAlign kernels need CUDA tensors")
     if rois.dtype != torch.float32 or rois.dim() != 3 or rois.shape[0] != b or rois.shape[2] != 4:
         raise ValueError(f"want float32 rois [B, n, 4], got {tuple(rois.shape)} {rois.dtype}")
     if level.dtype != torch.int32 or level.shape != rois.shape[:2]:
         raise ValueError(f"want an int32 level [B, n], got {tuple(level.shape)} {level.dtype}")
+
+
+def multiscale_roi_align_cuda(features, rois: torch.Tensor, level: torch.Tensor) -> torch.Tensor:
+    """The hand-written Hopper kernel (``ops/cuda/roi_align.cu``), same
+    arguments and result as :func:`multiscale_roi_align_reference`.
+    Counts its launches in ``multiscale_roi_align_cuda.launches``."""
+    _check_cuda_forward_args(features, rois, level)
+    b, c = features[0].shape[:2]
     from faster_rcnn_pytorch_tpu_torch.ops.cuda import extension
 
     ext = extension()
     n = rois.shape[1]
     p = OUTPUT_SIZE
-    out = torch.empty((b, n, c, p, p), dtype=dtype, device=rois.device)
+    out = torch.empty((b, n, c, p, p), dtype=features[0].dtype, device=rois.device)
     ext.roi_align_forward(
         [f.contiguous() for f in features], rois.contiguous(), level.contiguous(), out
     )
@@ -168,6 +181,120 @@ def multiscale_roi_align_cuda(features, rois: torch.Tensor, level: torch.Tensor)
 
 
 multiscale_roi_align_cuda.launches = 0
+
+
+def _corner_windows(lo_edge, hi_edge, scale: float, size: int):
+    """Per-axis two-cell windows of ``r`` rois at one level, the JAX
+    package's ``_corner_starts_weights`` with the sampling ratio folded in:
+    ``[r, P, ratio]`` int64 window starts and the float32 weights of the
+    window's two cells, each divided by the ratio. A sample outside ``[-1,
+    size]`` has zero weights; a low cell ``>= size - 1`` collapses: the
+    window starts at ``size - 2`` with the weight in its second cell
+    (``size >= 2``)."""
+    low, high, w_low, w_high = _axis_samples(lo_edge, hi_edge, scale, size)
+    collapse = low == high  # then w_high is 0 and w_low carries the weight
+    start = torch.where(collapse, low - 1, low)
+    zero = torch.zeros((), device=lo_edge.device)
+    ratio = torch.full_like(w_low, SAMPLING_RATIO)
+    w0 = torch.where(collapse, zero, w_low) / ratio
+    w1 = torch.where(collapse, w_low, w_high) / ratio
+    return start, w0, w1
+
+
+def multiscale_roi_align_slots_reference(
+    features, rois: torch.Tensor, level: torch.Tensor
+) -> torch.Tensor:
+    """Plain-PyTorch MultiScaleRoIAlign in the order of operations of the
+    JAX package's slot-lattice kernel (``ops/pallas/roi_align_kernel.py``),
+    the twin of ``ops/cuda/roi_align_slots.cu``.
+
+    Same arguments and result as :func:`multiscale_roi_align_reference`
+    (the same function, other rounding), with every level map at least
+    2x2. Per sample, x first: ``t(y) = wx0 * v[y, x0] + wx1 * v[y, x0 +
+    1]`` for the window's two rows, then ``wy0 * t(y0) + wy1 * t(y0 + 1)``,
+    the weights already divided by the ratio (:func:`_corner_windows`); a
+    bin's samples add in (y, x) order (0,0), (0,1), (1,0), (1,1), with no
+    final division.
+    """
+    for f in features:
+        if f.shape[-2] < 2 or f.shape[-1] < 2:
+            raise ValueError(f"every level map must be at least 2x2, got {tuple(f.shape)}")
+    b, n = rois.shape[:2]
+    c = features[0].shape[1]
+    p = OUTPUT_SIZE
+    dev = rois.device
+    flat_rois = rois.reshape(b * n, 4).float()
+    flat_level = level.reshape(b * n)
+    image = torch.arange(b, device=dev).repeat_interleave(n)
+    out = torch.zeros((b * n, c, p, p), dtype=torch.float32, device=dev)
+    for li, (feat, stride) in enumerate(zip(features, STRIDES)):
+        h, w = feat.shape[-2:]
+        nhwc = feat.float().permute(0, 2, 3, 1)  # [B, h, w, C]
+        idx = torch.nonzero(flat_level == li).flatten()
+        for s in range(0, idx.numel(), _ROI_CHUNK):
+            sel = idx[s : s + _ROI_CHUNK]
+            r = flat_rois[sel]
+            y0, wy0, wy1 = _corner_windows(r[:, 1], r[:, 3], 1.0 / stride, h)
+            x0, wx0, wx1 = _corner_windows(r[:, 0], r[:, 2], 1.0 / stride, w)
+            im = image[sel][:, None, None, None, None]
+            xs = x0[:, None, None, :, :]
+            wx0_, wx1_ = (t[:, None, None, :, :, None] for t in (wx0, wx1))
+
+            def row(ys):  # x-interpolation on rows ys -> [r, P(y), ratio, P(x), ratio, C]
+                ys = ys[:, :, :, None, None]
+                return wx0_ * nhwc[im, ys, xs] + wx1_ * nhwc[im, ys, xs + 1]
+
+            val = wy0[:, :, :, None, None, None] * row(y0) + wy1[:, :, :, None, None, None] * row(y0 + 1)
+            acc = val[:, :, 0, :, 0] + val[:, :, 0, :, 1]
+            acc = acc + val[:, :, 1, :, 0]
+            acc = acc + val[:, :, 1, :, 1]
+            out[sel] = acc.permute(0, 3, 1, 2)
+    return out.reshape(b, n, c, p, p).to(features[0].dtype)
+
+
+def multiscale_roi_align_slots_cuda(features, rois: torch.Tensor, level: torch.Tensor) -> torch.Tensor:
+    """The hand-written Hopper kernel of the slot-lattice order
+    (``ops/cuda/roi_align_slots.cu``), same arguments and result as
+    :func:`multiscale_roi_align_slots_reference`. Counts its launches in
+    ``multiscale_roi_align_slots_cuda.launches``."""
+    _check_cuda_forward_args(features, rois, level)
+    for f in features:
+        if f.shape[-2] < 2 or f.shape[-1] < 2:
+            raise ValueError(f"every level map must be at least 2x2, got {tuple(f.shape)}")
+    from faster_rcnn_pytorch_tpu_torch.ops.cuda import extension
+
+    ext = extension()
+    b, c = features[0].shape[:2]
+    n = rois.shape[1]
+    p = OUTPUT_SIZE
+    out = torch.empty((b, n, c, p, p), dtype=features[0].dtype, device=rois.device)
+    ext.roi_align_slots_forward(
+        [f.contiguous() for f in features], rois.contiguous(), level.contiguous(), out
+    )
+    multiscale_roi_align_slots_cuda.launches += 1
+    return out
+
+
+multiscale_roi_align_slots_cuda.launches = 0
+
+
+def multiscale_roi_align_slots(features, rois: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """The slot-lattice MultiScaleRoIAlign, forward only: ``features``
+    P2..P5 ``[B, C, h_l, w_l]`` (each at least 2x2), ``rois [B, n, 4]`` in
+    canvas pixels -> ``[B, n, C, 7, 7]`` in the features' dtype.
+
+    A CUDA tensor runs its hand kernel, a CPU tensor (or the test-only
+    ``plain``) the plain version. No model calls it: the FPN head uses
+    :func:`multiscale_roi_align_batch`, as the JAX package's head uses its
+    window kernel and keeps the slot-lattice kernel for the record.
+    """
+    rois = rois.float()
+    level = fpn_level_assignment(rois)
+    if rois.is_cuda and not plain:
+        return multiscale_roi_align_slots_cuda(features, rois, level)
+    if rois.device.type != "cpu" and not plain:
+        raise NotImplementedError(f"no slot-lattice RoIAlign kernel for {rois.device}")
+    return multiscale_roi_align_slots_reference(features, rois, level)
 
 
 def backward_scatter_terms(grad, rois, image, stride: int, h: int, w: int):

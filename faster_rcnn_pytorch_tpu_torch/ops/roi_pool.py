@@ -93,8 +93,11 @@ def roi_pool_reference(
     empty = (h_hi <= h_lo)[:, :, None] | (w_hi <= w_lo)[:, None, :]  # [R,P,P]
     image = torch.arange(b, device=dev).repeat_interleave(n)
 
-    nhwc = features.float().permute(0, 2, 3, 1)  # [B, h, w, C]
-    neg_inf = torch.tensor(float("-inf"), device=dev)
+    # The map as [B*h*w, C] rows plus one row of -inf past its end: a window
+    # position outside its bin reads that row, so no masking pass runs
+    # over the gathered channels.
+    cells = features.float().permute(0, 2, 3, 1).reshape(b * h * w, c)
+    cells = torch.cat([cells, torch.full((1, c), float("-inf"), device=dev)])
     out = torch.empty((b * n, p, p, c), dtype=torch.float32, device=dev)
     arg = (
         torch.empty((b * n, p, p, c), dtype=torch.int32, device=dev)
@@ -105,10 +108,10 @@ def roi_pool_reference(
         sl = slice(s, s + _ROI_CHUNK)
         r_idx = rows[sl][:, :, None, :, None]  # [r, P, 1, kh, 1]
         c_idx = cols[sl][:, None, :, None, :]  # [r, 1, P, 1, kw]
-        window = nhwc[image[sl][:, None, None, None, None], r_idx, c_idx]
         ok = row_ok[sl][:, :, None, :, None] & col_ok[sl][:, None, :, None, :]
+        cell = (image[sl][:, None, None, None, None] * h + r_idx) * w + c_idx
+        window = cells[torch.where(ok, cell, b * h * w)]  # [r, P, P, kh, kw, C]
         r = window.shape[0]
-        window = torch.where(ok[..., None], window, neg_inf)
         window = window.reshape(r, p, p, k_h * k_w, c)
         vals = window.amax(dim=3)  # [r, P, P, C]
         e = empty[sl][..., None]

@@ -2,8 +2,12 @@
 
 Same flags (``load_options``), one device: the CUDA card, or the CPU
 when ``FRT_TORCH_DEVICE=cpu`` asks for it (``utils.runtime.select_device``).
-``--checkpoint x.pth.tar`` loads reference-layout weights; without one
-the detector gets a fresh init seeded by ``--seed``. Both generations
+Weights as ``utils.checkpoint.resolve_and_load_params`` resolves them:
+``--checkpoint x.pth.tar`` imports reference-layout weights,
+``--checkpoint x.pt`` loads a port train checkpoint (it must exist), and
+without one the run's ``{log_dir}/{name}/saves/{name}.{test_epoch}.pt``
+(as ``main`` writes it) is loaded, or, where it is missing, the detector
+gets a fresh init seeded by ``--seed`` and a note says so. Both generations
 (``--model_generation legacy|fpn``) on VOC or COCO (``--data_type``);
 COCO scores against ``annotations/instances_val2017.json`` under the
 data root.
@@ -16,20 +20,15 @@ from __future__ import annotations
 import os
 import sys
 
-import torch
-
 
 def main(argv=None) -> int:
     from faster_rcnn_pytorch_tpu_torch.config import load_options
     from faster_rcnn_pytorch_tpu_torch.data.loader import build_dataloader
     from faster_rcnn_pytorch_tpu_torch.engine.evaluate import evaluate, label_map_for
-    from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import (
-        build_model,
-        init_weights,
-        label_offset_for,
-    )
-    from faster_rcnn_pytorch_tpu_torch.utils.convert import load_reference_checkpoint
+    from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import build_model, label_offset_for
+    from faster_rcnn_pytorch_tpu_torch.utils.checkpoint import resolve_and_load_params
     from faster_rcnn_pytorch_tpu_torch.utils.runtime import (
+        apply_matmul_precision,
         prepare_for_inference,
         select_device,
         set_numerics,
@@ -37,6 +36,7 @@ def main(argv=None) -> int:
 
     opts = load_options(argv)
     dtype = set_numerics(opts.dtype)
+    apply_matmul_precision(opts.matmul_precision)
     device = select_device()
     _, test_loader = build_dataloader(opts)
     model, cfg = build_model(
@@ -45,16 +45,7 @@ def main(argv=None) -> int:
         label_offset=label_offset_for(opts.model_generation, opts.data_type),
     )
 
-    if opts.checkpoint.endswith((".pth.tar", ".pth")):
-        model.load_state_dict(load_reference_checkpoint(opts.checkpoint), strict=True)
-        print(f"imported torch checkpoint {opts.checkpoint}", flush=True)
-    elif opts.checkpoint:
-        raise ValueError(
-            f"--checkpoint {opts.checkpoint!r}: the port reads .pth/.pth.tar only"
-        )
-    else:
-        init_weights(model, torch.Generator().manual_seed(opts.seed))
-        print(f"no checkpoint; fresh init with seed {opts.seed}", flush=True)
+    print(resolve_and_load_params(opts, model), flush=True)
     model = prepare_for_inference(model, device, dtype)
 
     coco_index = None

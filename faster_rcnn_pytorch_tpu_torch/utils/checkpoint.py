@@ -8,6 +8,8 @@ written atomically (tmp file, then ``os.replace``), at
 suffix is ``.pt``, not the JAX package's ``.ckpt``, so a flax checkpoint
 is never read as a torch one. Reference-layout ``.pth``/``.pth.tar``
 weights are read by ``utils/convert.load_reference_checkpoint``.
+:func:`resolve_and_load_params` is the eval CLI's checkpoint policy (the
+JAX package's function of that name).
 """
 
 from __future__ import annotations
@@ -47,6 +49,46 @@ def load_checkpoint(path: str, state):
     state.optimizer.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])
     return state, payload["metadata"]
+
+
+def resolve_and_load_params(opts, model: torch.nn.Module) -> str:
+    """Load the weights ``opts.checkpoint`` names into ``model`` (the
+    counterpart of the JAX package's ``resolve_and_load_params``, one
+    policy for the eval CLIs). Returns a note for the console.
+
+    * ``*.pth`` / ``*.pth.tar``: reference-layout weights, imported by
+      ``utils/convert.load_reference_checkpoint``.
+    * ``*.pt``: a port train checkpoint, which must exist; only its
+      ``model`` entry is loaded (``strict=True``).
+    * empty: the run's ``{log_dir}/{name}/saves/{name}.{test_epoch}.pt``.
+      If it is missing, the model gets the fresh init seeded by
+      ``opts.seed`` and the note names the missing path.
+    * anything else: ``ValueError``. Going on with random weights after a
+      typo in the path is the worst failure an eval CLI can have.
+    """
+    ckpt = opts.checkpoint
+    if ckpt.endswith((".pth.tar", ".pth")):
+        from faster_rcnn_pytorch_tpu_torch.utils.convert import load_reference_checkpoint
+
+        model.load_state_dict(load_reference_checkpoint(ckpt), strict=True)
+        return f"imported torch checkpoint {ckpt}"
+    if ckpt and not ckpt.endswith(SUFFIX):
+        raise ValueError(
+            f"--checkpoint {ckpt!r}: expected a port {SUFFIX} checkpoint or "
+            "reference .pth/.pth.tar weights"
+        )
+    path = ckpt or checkpoint_path(opts.log_dir, opts.name, opts.test_epoch)
+    if not os.path.isfile(path):
+        if ckpt:  # an explicit path must exist
+            raise FileNotFoundError(f"--checkpoint {ckpt!r}: no such file")
+        from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import init_weights
+
+        init_weights(model, torch.Generator().manual_seed(opts.seed))
+        return f"no checkpoint at {path}; fresh init with seed {opts.seed}"
+    # mmap: the optimizer state beside the weights is never read.
+    payload = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    model.load_state_dict(payload["model"], strict=True)
+    return f"loaded {path} (epoch {payload['metadata'].get('epoch')})"
 
 
 def prune_checkpoints(log_dir: str, name: str, keep_last: int) -> list[str]:

@@ -43,6 +43,30 @@ def set_numerics(dtype: str) -> torch.dtype:
     return DTYPES[dtype]
 
 
+MATMUL_PRECISIONS = ("default", "high", "highest")
+
+
+def apply_matmul_precision(precision: str) -> None:
+    """``--matmul_precision`` -> the torch switches of float32 products
+    and convolutions (the JAX package's ``apply_matmul_precision``).
+
+    ``default`` and ``highest`` keep TF32 off, as :func:`set_numerics`
+    leaves it: float32 multiplies in float32 (on the TPU, the JAX
+    package's ``default`` multiplies in bfloat16; the port's ``default``
+    is float32 on purpose, so that float32 runs agree with the plain
+    versions and with the JAX package on the CPU). ``high`` turns TF32 on
+    for cuBLAS and cuDNN. Anything else raises.
+    """
+    if precision not in MATMUL_PRECISIONS:
+        raise ValueError(
+            f"--matmul_precision must be one of {MATMUL_PRECISIONS}, not {precision!r}"
+        )
+    tf32 = precision == "high"
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.set_float32_matmul_precision("high" if tf32 else "highest")
+
+
 def prepare_for_inference(model: torch.nn.Module, device, dtype: torch.dtype):
     """Move the model to ``device``, cast its weights once to ``dtype``
     and switch to eval mode (the JAX package's ``cast_inference_params``:

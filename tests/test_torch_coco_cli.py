@@ -37,6 +37,7 @@ from faster_rcnn_pytorch_tpu.models.faster_rcnn import build_model, init_detecto
 from faster_rcnn_pytorch_tpu.utils.checkpoint import save_torch_checkpoint
 from tests.test_torch_legacy_predict import assert_detections_match
 from tests.test_torch_test_cli import _parse
+from tests.torch_threads import subprocess_env
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CATS = (1, 3, 18, 90)
@@ -159,7 +160,7 @@ def test_port_fpn_cli_imports_no_jax_or_flax(coco_root, tmp_path):
     proc = subprocess.run(
         [sys.executable, "-c", _FPN_CLI_WITHOUT_JAX, *args],
         cwd=REPO,
-        env={**os.environ, "FRT_TORCH_DEVICE": "cpu"},
+        env=subprocess_env(FRT_TORCH_DEVICE="cpu"),
         capture_output=True,
         text=True,
         timeout=300,

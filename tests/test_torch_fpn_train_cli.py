@@ -35,6 +35,7 @@ import torch
 from PIL import Image
 
 from faster_rcnn_pytorch_tpu_torch.models import faster_rcnn as pfr
+from tests.torch_threads import subprocess_env
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CATS = (1, 3, 18, 90)
@@ -123,7 +124,7 @@ def fpn_run(coco_root, tmp_path_factory):
     conv1 = model.backbone.body.conv1.weight.detach().clone()
     proc = subprocess.run(
         [sys.executable, "-c", _MAIN_WITHOUT_JAX, *_args(coco_root, log_dir, "fpn", "--checkpoint", ckpt)],
-        cwd=REPO, env=dict(os.environ, FRT_TORCH_DEVICE="cpu"), capture_output=True, text=True,
+        cwd=REPO, env=subprocess_env(FRT_TORCH_DEVICE="cpu"), capture_output=True, text=True,
         timeout=600,
     )
     yield log_dir, proc, conv1

@@ -55,11 +55,13 @@ def test_train_stages_raises_without_a_card(monkeypatch, capsys):
 def test_train_stages_splits_the_fpn_step_on_the_cpu_when_asked(monkeypatch, capsys):
     tool = _train_tool()
     monkeypatch.setenv(DEVICE_ENV, "cpu")
-    args = ["--generation", "fpn", "--canvas", "128", "160", "--steps", "6", "--dtypes", "float32"]
+    args = ["--generation", "fpn", "--canvas", "128", "160", "--steps", "2", "--warmup", "1"]
+    args += ["--dtypes", "float32"]
     assert tool.main([*args, "--phases", "stages"]) == 0
     out = capsys.readouterr().out
     assert "generation fpn" in out and "profile" not in out
     lines = [line for line in out.splitlines() if line.startswith("stages float32")]
     assert len(lines) == 1  # one split: cuDNN's modes are the card's
+    assert "median of steps 2-2" in lines[0]
     for name in ("backbone+rpn fwd", "propose+targets", "head+loss fwd", "backward", "sgd", "total"):
         assert f"{name} " in lines[0]

@@ -138,14 +138,26 @@ def test_rpn_targets_match_jax(boundary_filter, allow_ties, quotas):
     np.testing.assert_allclose(got.reg_targets.numpy(), np.asarray(want.reg_targets), rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("samples,quota", [(128, 32), (64, 8)])
-def test_frcnn_targets_match_jax(samples, quota):
+@pytest.mark.parametrize(
+    "samples,quota,n_rois,slots,real",
+    [
+        pytest.param(128, 32, 300, 10, 4, id="128-32"),
+        pytest.param(64, 8, 300, 10, 4, id="64-8"),
+        # a dense scene (--max_gt 512): (2000 + 512) x 512 candidate pairs,
+        # past masked_iou's kernel gate, where the port's CPU path takes the
+        # kernel's plain twin and the JAX package's its jaccard_iou
+        pytest.param(128, 32, 2000, 512, 400, id="dense-2000-512"),
+    ],
+)
+def test_frcnn_targets_match_jax(samples, quota, n_rois, slots, real):
     rs = np.random.RandomState(5)
-    gt, labels, mask = padded_gt(rs, 10, 4)
-    rois = boxes_fixture(rs, 300)
+    gt, labels, mask = padded_gt(rs, slots, real)
+    rois = boxes_fixture(rs, n_rois)
     # proposals around the gt boxes, so there are positives to sample
-    rois[:40] = np.clip(np.repeat(gt[:4], 10, 0) + rs.normal(0, 0.02, (40, 4)), 0, 1)
-    valid = rs.rand(300) > 0.1
+    near = min(10 * real, n_rois // 2)
+    rois[:near] = np.clip(np.repeat(gt[:real], 10, 0)[:near] + rs.normal(0, 0.02, (near, 4)), 0, 1)
+    valid = rs.rand(n_rois) > 0.1
+    assert ((n_rois + slots) * slots >= pb.IOU_KERNEL_MIN_PAIRS) == (slots == 512)
     key = jax.random.key(7)
     kw = dict(num_samples=samples, pos_quota=quota, label_offset=1)
     want = jt.frcnn_targets(
@@ -153,7 +165,7 @@ def test_frcnn_targets_match_jax(samples, quota):
         jnp.asarray(mask), key, **kw,
     )
     got = pt.frcnn_targets(
-        _t(rois), _t(valid), _t(gt), _t(labels), _t(mask), *split_noise(key, 310), **kw
+        _t(rois), _t(valid), _t(gt), _t(labels), _t(mask), *split_noise(key, n_rois + slots), **kw
     )
     for name in ("rois", "labels", "is_pos", "valid"):
         np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name)), err_msg=name)

@@ -4,30 +4,33 @@ Drives ``chip_smoke.py``'s full-width train configuration of either
 generation (``--generation legacy``: VGG16, 21 classes, ``LEGACY_CONFIG``
 budgets; ``--generation fpn``: ResNet50-FPN, 91 classes, raw COCO ids,
 ``FPN_CONFIG`` budgets; both with seeded random weights, the 800x1344
-canvas, batch 2 and one repeated synthetic batch) and prints, per dtype
+canvas, batch 2 and one repeated synthetic batch; ``--dense``: the smoke's
+dense scene, gt padded to 512 slots with 300-500 boxes an image, where
+the RoI targets' IoU runs through its kernel) and prints, per dtype
 (float32 with TF32 off, bfloat16 autocast):
 
 1. rate: ``--repeats`` runs of 20 steps of ``make_train_step``
    from the same weights and generator seed, each step timed to a device
-   sync as ``chip_smoke.py`` times it: img/s over steps 6 on, step p50,
+   sync as ``chip_smoke.py`` times it: img/s over the steps after the
+   ``--warmup`` (5; steps 6 on, as the smoke counts them), step p50,
    and the number of NMS tile-fixpoint sweeps (each one a host sync) in
    those steps, with both per step;
 2. stages: the same steps with a device sync between backbone + RPN
    forward, propose + targets, head + loss forward, backward and the SGD
    update, once with cuDNN deterministic (as the smoke runs) and once with
    its defaults (as the CLIs run; once only on the CPU): the median per
-   stage;
+   stage over the steps after the warm-up;
 3. busy share: ``torch.profiler`` over 3 whole steps, device kernel time
    (user annotations excluded) over wall time, and the top kernels.
 
 The phases run in that order, every rate before the first profiler
 session. Run from the root of a checkout on a GPU host:
-``python tools/torch_train_stages.py [--generation legacy|fpn]
-[--repeats 3] [--phases rate,stages,profile] [--steps 20]
+``python tools/torch_train_stages.py [--generation legacy|fpn] [--dense]
+[--repeats 3] [--phases rate,stages,profile] [--steps 20] [--warmup 5]
 [--dtypes float32,bfloat16]``.
 Without a card it raises; with ``FRT_TORCH_DEVICE=cpu`` it runs on the
-CPU at a small canvas (``--canvas 192 256``, few ``--steps``), without
-the profiler, to check the script itself.
+CPU at a small canvas (``--canvas 192 256``, ``--steps 2 --warmup 1``),
+without the profiler, to check the script itself.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import (  # noqa: E402
     train_losses,
     train_targets,
 )
+from faster_rcnn_pytorch_tpu_torch.ops import boxes as boxes_mod  # noqa: E402
 from faster_rcnn_pytorch_tpu_torch.ops import nms as nms_mod  # noqa: E402
 from faster_rcnn_pytorch_tpu_torch.parallel.train_step import (  # noqa: E402
     apply_gradients,
@@ -78,7 +82,7 @@ def _sync(device) -> float:
     return time.perf_counter()
 
 
-def _steady_summary(times, sweeps, batch_size, skip=5) -> str:
+def _steady_summary(times, sweeps, batch_size, skip) -> str:
     t, s = times[skip:], sweeps[skip:]
     return (
         f"{batch_size * len(t) / sum(t):.2f} img/s over steps {skip + 1}-{len(times)} "
@@ -87,7 +91,7 @@ def _steady_summary(times, sweeps, batch_size, skip=5) -> str:
     )
 
 
-def run_rate(model, init, cfg, dtype, device, batch, steps, repeats) -> None:
+def run_rate(model, init, cfg, dtype, device, batch, steps, repeats, warmup) -> None:
     name = str(dtype).removeprefix("torch.")
     schedule = make_lr_schedule("constant", cs.TRAIN_LR, 1, steps)
     step_fn = make_train_step(cfg, schedule, autocast_dtype=None if dtype == torch.float32 else dtype)
@@ -104,7 +108,8 @@ def run_rate(model, init, cfg, dtype, device, batch, steps, repeats) -> None:
             sweeps.append(nms_mod._tile_fixpoint.sweeps)
             losses.append(float(metrics["loss"]))
         print(
-            f"rate {name} run {r + 1}/{repeats}: {_steady_summary(times, sweeps, cs.TRAIN_BATCH)}, "
+            f"rate {name} run {r + 1}/{repeats}: "
+            f"{_steady_summary(times, sweeps, cs.TRAIN_BATCH, warmup)}, "
             f"loss step 1 {losses[0]:.4f} -> step {steps} {losses[-1]:.4f}",
             flush=True,
         )
@@ -115,7 +120,7 @@ def run_rate(model, init, cfg, dtype, device, batch, steps, repeats) -> None:
         )
 
 
-def run_stages(model, init, cfg, dtype, device, batch, steps, deterministic: bool) -> None:
+def run_stages(model, init, cfg, dtype, device, batch, steps, warmup, deterministic: bool) -> None:
     torch.backends.cudnn.deterministic = deterministic
     name = str(dtype).removeprefix("torch.")
     model.load_state_dict(init)
@@ -126,7 +131,7 @@ def run_stages(model, init, cfg, dtype, device, batch, steps, deterministic: boo
     n_cand = cfg.post_nms_train + batch["gt_boxes"].shape[1]
     gen = epoch_generator(cs.SEED, 0, device)
     autocast = torch.autocast(device.type, dtype=torch.bfloat16, enabled=dtype != torch.float32)
-    rows, sweeps = [], []
+    rows, sweeps, iou_launches = [], [], [boxes_mod.pairwise_iou_cuda.launches]
     for _ in range(steps):
         nms_mod._tile_fixpoint.sweeps = 0
         t0 = _sync(device)
@@ -147,13 +152,15 @@ def run_stages(model, init, cfg, dtype, device, batch, steps, deterministic: boo
         apply_gradients(state, schedule)
         t5 = _sync(device)
         rows.append([t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4, t5 - t0])
+        iou_launches.append(boxes_mod.pairwise_iou_cuda.launches)
         sweeps.append(nms_mod._tile_fixpoint.sweeps)
-    med = [1000 * statistics.median(r[i] for r in rows[5:]) for i in range(6)]
+    med = [1000 * statistics.median(r[i] for r in rows[warmup:]) for i in range(6)]
     print(
         f"stages {name} cudnn deterministic={deterministic}, ms per step (median of steps "
-        f"6-{steps}): backbone+rpn fwd {med[0]:.2f}, propose+targets {med[1]:.2f}, "
+        f"{warmup + 1}-{steps}): backbone+rpn fwd {med[0]:.2f}, propose+targets {med[1]:.2f}, "
         f"head+loss fwd {med[2]:.2f}, backward {med[3]:.2f}, sgd {med[4]:.2f}, total {med[5]:.2f}; "
-        f"NMS sweeps per step {min(sweeps[5:])}-{max(sweeps[5:])}",
+        f"NMS sweeps per step {min(sweeps[warmup:])}-{max(sweeps[warmup:])}; "
+        f"IoU kernel launches {iou_launches[-1] - iou_launches[0]} in {steps} steps",
         flush=True,
     )
 
@@ -201,11 +208,13 @@ def main(argv=None) -> int:
     p.add_argument("--canvas", type=int, nargs=2, default=list(cs.CANVAS))
     p.add_argument("--repeats", type=int, default=3)
     p.add_argument("--phases", default="rate,stages,profile")
-    p.add_argument("--steps", type=int, default=cs.TRAIN_STEPS, help="steps per run, at least 6")
+    p.add_argument("--steps", type=int, default=cs.TRAIN_STEPS, help="steps per run")
+    p.add_argument("--warmup", type=int, default=5, help="first steps left out of the statistics")
     p.add_argument("--dtypes", default="float32,bfloat16")
+    p.add_argument("--dense", action="store_true", help="the smoke's dense-scene batch")
     args = p.parse_args(argv)
-    if args.steps < 6:
-        p.error("--steps must be at least 6: steps 1-5 are the warm-up")
+    if not 0 <= args.warmup < args.steps:
+        p.error("--steps must exceed --warmup: the statistics need a step after the warm-up")
     phases = set(args.phases.split(","))
     if not phases <= {"rate", "stages", "profile"}:
         p.error(f"unknown phase in --phases {args.phases!r}")
@@ -225,9 +234,10 @@ def main(argv=None) -> int:
 
     torch.backends.cudnn.benchmark = False
     cfg, labels = cs._train_setup(args.generation)
-    print(f"generation {args.generation}", flush=True)
+    print(f"generation {args.generation}{' dense' if args.dense else ''}", flush=True)
+    gt = dict(max_gt=cs.DENSE_MAX_GT, boxes=cs.DENSE_BOXES) if args.dense else {}
     batch = cs._to_device(
-        cs.synthetic_train_batch(tuple(args.canvas), cs.SEED + 4, labels=labels), device
+        cs.synthetic_train_batch(tuple(args.canvas), cs.SEED + 4, labels=labels, **gt), device
     )
     model = cs._new_model(args.generation).to(device)
     init = {k: v.clone() for k, v in model.state_dict().items()}
@@ -235,13 +245,15 @@ def main(argv=None) -> int:
     if "rate" in phases:
         torch.backends.cudnn.deterministic = True
         for dtype in dtypes:
-            run_rate(model, init, cfg, dtype, device, batch, args.steps, args.repeats)
+            run_rate(model, init, cfg, dtype, device, batch, args.steps, args.repeats, args.warmup)
     if "stages" in phases:
         # cuDNN's modes mean nothing on the CPU: split once there.
         modes = (True, False) if device.type == "cuda" else (True,)
         for dtype in dtypes:
             for deterministic in modes:
-                run_stages(model, init, cfg, dtype, device, batch, args.steps, deterministic)
+                run_stages(
+                    model, init, cfg, dtype, device, batch, args.steps, args.warmup, deterministic
+                )
     if "profile" in phases and device.type == "cuda":
         for dtype in dtypes:
             for deterministic in (True, False):
