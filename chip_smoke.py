@@ -40,7 +40,13 @@ CUDA card, builds the port's kernels from the sources in the checkout
      (one bfloat16 ulp more in bfloat16), bound as the forward's. Its
      count is set to 0 after this check and never reset: phases 3, 6, 9,
      12 and 15 each require it still 0, and its record's ``launches`` is
-     the count read after phase 16.
+     the count read after phase 16;
+   * the three align kernels on rois whose footprints stress their
+     per-roi geometry (``footprint_rois``: giant rois on P5, rois partly or
+     wholly outside the canvas, degenerate rois, 64 rois sharing one cell):
+     both forwards bit-exact in float32 and bfloat16, the backward within
+     1e-5 * max|ref| and bit-exact on 64 copies of one dyadic roi with
+     integer gradients.
 3. main path, predict: full-width legacy VGG16 predict (21 classes, seeded
    random weights, the 800x1344 canvas, batch 1) through the port's
    ``engine.evaluate.evaluate`` on synthetic in-memory VOC batches, in
@@ -457,6 +463,66 @@ def _align_rois(generator, n: int, canvas=CANVAS) -> torch.Tensor:
     return rois
 
 
+def footprint_rois(generator, n: int, canvas=CANVAS) -> torch.Tensor:
+    """``[FPN_BATCH, n, 4]`` canvas-pixel rois (``n >= 96``) whose
+    footprints stress the align kernels' per-roi geometry: giant rois on P5
+    (also wholly outside the canvas), rois partly and wholly outside,
+    degenerate rois (zero area, zero width, on the far corner), a banner
+    and a pole, 64 rois sharing one cell (32 identical, 32 nearly so), then
+    ``_align_rois``' random ones."""
+    h, w = canvas
+    edges = torch.tensor(
+        [
+            [200, 200, 3000, 3000],  # giant: P5, samples past the map
+            [-500, -300, 2500, 1800],  # giant: P5, the map inside it
+            [0, 0, w, h],  # the whole canvas
+            [-2000, -2000, -1500, -1500],  # giant, wholly outside
+            [-30, -20, 40, 50],  # partly outside, top left
+            [w - 50, h - 40, w + 60, h + 30],  # partly outside, bottom right
+            [-100, 300, 60, 500],  # partly outside, left
+            [-80, 100, -10, 160],  # wholly left
+            [w + 10, h + 10, w + 90, h + 70],  # wholly beyond the far corner
+            [5, 5, 5, 5],  # degenerate
+            [5, 5, 5.2, 5.2],
+            [w, h, w, h],  # a point on the far corner
+            [0, 0, 0, 0],
+            [w - 1, 0, w - 1, h],  # zero width, full height
+            [0, 0, w, 10],  # banner
+            [0, 0, 10, h],  # pole
+        ],
+        dtype=torch.float32,
+    )
+    clump = torch.tensor([[100, 100, 103, 103]] * 32 + [[100.5, 100.5, 102, 102]] * 32, dtype=torch.float32)
+    rois = _align_rois(generator, n, canvas)
+    rois[:, : len(edges)] = edges
+    rois[:, len(edges) : len(edges) + len(clump)] = clump
+    return rois
+
+
+def align_footprint_shape(rois, level, level_shapes, nonzero: bool = False) -> torch.Tensor:
+    """``[B, n, 2]`` int64: each roi's footprint, the number of distinct
+    rows and of distinct columns that its 14 samples' low and high cells
+    touch at its level; with ``nonzero``, only cells of a nonzero weight:
+    the align backward kernel's per-roi lists, one atomic add per cell
+    and channel. Two cells a sample, so at most 28 each, whatever the roi."""
+    b, n = rois.shape[:2]
+    flat, lv = rois.reshape(b * n, 4).float(), level.reshape(b * n)
+    out = torch.zeros((b * n, 2), dtype=torch.int64, device=rois.device)
+    for li, ((h, w), stride) in enumerate(zip(level_shapes, roi_align_mod.STRIDES)):
+        sel = torch.nonzero(lv == li).flatten()
+        r = flat[sel]
+        for axis, (lo_edge, hi_edge, size) in enumerate(((r[:, 1], r[:, 3], h), (r[:, 0], r[:, 2], w))):
+            low, high, w_low, w_high = roi_align_mod._axis_samples(lo_edge, hi_edge, 1.0 / stride, size)
+            cells = torch.cat([low.reshape(len(sel), -1), high.reshape(len(sel), -1)], 1)
+            if nonzero:
+                weights = torch.cat([w_low.reshape(len(sel), -1), w_high.reshape(len(sel), -1)], 1)
+                cells = torch.where(weights != 0, cells, -1)
+            cells = cells.sort(1).values
+            fresh = torch.cat([cells[:, :1] >= 0, cells[:, 1:] != cells[:, :-1]], 1)
+            out[sel, axis] = fresh.sum(1)
+    return out.reshape(b, n, 2)
+
+
 def _align_footprint_cells(feats, rois, level) -> int:
     """Level-map cells (per image) that some sample of some roi weighs with
     a nonzero weight: the reads this run's data needs."""
@@ -596,6 +662,59 @@ def check_roi_align_slots_kernel(device, align_record: dict) -> dict:
             record.update(ms=ms, plain_ms=plain_ms)
     record["max_abs_err"] = err
     return record
+
+
+def check_align_footprint_edges(device) -> None:
+    """The three align kernels at the FPN shapes on ``footprint_rois``:
+    the forward and the slot kernel bit-exact with their plain versions in
+    float32 and bfloat16; the backward within 1e-5 * max|ref| of the
+    float32 maps and, on ``exact_align_rois`` with 64 copies of one roi in
+    each image (64 blocks adding into the same cells) and integer
+    gradients, bit-exact in float32 and bfloat16."""
+    g = torch.Generator().manual_seed(SEED + 10)
+    shapes = _align_level_shapes()
+    n = 160
+    feats = [torch.randn(FPN_BATCH, 256, h, w, generator=g) for h, w in shapes]
+    rois = footprint_rois(g, n).to(device)
+    level = roi_align_mod.fpn_level_assignment(rois)
+    exact = exact_align_rois(g, n)
+    exact[:, 8:72] = exact[:, :1]
+    exact = exact.to(device)
+    exact_level = roi_align_mod.fpn_level_assignment(exact)
+    grad_shape = (FPN_BATCH, n, 256, roi_align_mod.OUTPUT_SIZE, roi_align_mod.OUTPUT_SIZE)
+    forwards = (
+        (roi_align_mod.multiscale_roi_align_cuda, roi_align_mod.multiscale_roi_align_reference),
+        (roi_align_mod.multiscale_roi_align_slots_cuda, roi_align_mod.multiscale_roi_align_slots_reference),
+    )
+    for dtype in (torch.float32, torch.bfloat16):
+        f = [x.to(device, dtype) for x in feats]
+        for kernel, plain in forwards:
+            out = kernel(f, rois, level)
+            torch.cuda.synchronize()
+            ref = plain(f, rois, level)
+            diff = float((out.float() - ref.float()).abs().max())
+            _require(torch.equal(out, ref), f"{kernel.__name__} != plain on the edge rois ({dtype}): max|d| {diff}")
+        ints = torch.randint(-3, 4, grad_shape, generator=g).to(device, dtype)
+        got = roi_align_mod.multiscale_roi_align_backward_cuda(ints, exact, exact_level, shapes, dtype)
+        torch.cuda.synchronize()
+        want = roi_align_mod.multiscale_roi_align_backward_reference(ints, exact, exact_level, shapes, dtype)
+        _require(
+            all(a.dtype == dtype and torch.equal(a, b) for a, b in zip(got, want)),
+            f"align backward != plain on the clumped exact set ({dtype})",
+        )
+        normal = torch.randn(grad_shape, generator=g).to(device, dtype)
+        got = roi_align_mod.multiscale_roi_align_backward_cuda(normal, rois, level, shapes, torch.float32)
+        want = roi_align_mod.multiscale_roi_align_backward_reference(normal, rois, level, shapes, torch.float32)
+        diff = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        scale = max(float(b.abs().max()) for b in want)
+        _require(diff <= 1e-5 * scale, f"align backward on the edge rois ({dtype}): max|d| {diff} > 1e-5 * {scale}")
+        print(
+            f"align edge rois {str(dtype).removeprefix('torch.')} (levels "
+            f"{torch.bincount(level.flatten(), minlength=4).tolist()}): forward and slot kernels "
+            f"bit-exact, backward bit-exact on 64 rois sharing cells, max|d| {diff:.3g} "
+            f"(max|ref| {scale:.3g}) on normal gradients",
+            flush=True,
+        )
 
 
 def _require_slots_idle(phase: str) -> None:
@@ -759,9 +878,11 @@ def check_roi_align_backward_kernel(device) -> dict:
             # weight product, a value product and an add
             bound_ms, bound_by = _bound(n_bytes, 49 * normal.numel())
             library_ms = _align_backward_library_ms(normal, rois, level, shapes)
+            kept = align_footprint_shape(rois, level, shapes, nonzero=True).prod(-1).sum()
             print(
                 f"  {n_bytes / 1e6:.1f} MB moved: bound {bound_ms:.4f} ms; index_put_(accumulate) "
-                f"on the prepared terms: {library_ms:.4f} ms",
+                f"on the prepared terms: {library_ms:.4f} ms; {int(kept) * 256} atomic adds a call "
+                f"(one per footprint cell of nonzero weight and channel)",
                 flush=True,
             )
             record.update(
@@ -1319,6 +1440,7 @@ def main() -> int:
     align_bwd_record = check_roi_align_backward_kernel(device)
     iou_record = check_iou_kernel(device)
     slots_record = check_roi_align_slots_kernel(device, align_record)
+    check_align_footprint_edges(device)
     roi_align_mod.multiscale_roi_align_slots_cuda.launches = 0
     iou_kernel = boxes_mod.pairwise_iou_cuda
 

@@ -7,10 +7,10 @@
 // roi from a level-stacked buffer into VMEM and contracts it with folded
 // per-bin weight rows on the MXU; rois whose footprint overflows the window
 // come back with fits=False and are re-pooled by the caller's corner gather.
-// Here there is no window to fit: every output element (b, r, c, ph, pw) is one
-// thread that reads the 16 corner values of its bin's four samples straight
-// from its roi's level map (NCHW, L2 or device memory), so every roi is exact
-// whatever its size, and there is no fits mask and no fallback.
+// Here the window is the roi's footprint, which always fits: the distinct
+// cells that its 14 y and 14 x samples touch, at most 28 rows by 28 columns
+// whatever the roi's size or position, so every roi is exact, with no fits
+// mask and no fallback.
 //
 // Semantics (bit-exact with the plain twin
 // ops/roi_align.py::multiscale_roi_align_reference; torchvision aligned=False):
@@ -28,13 +28,17 @@
 // written with __float2bfloat16_rn (round to nearest even, as .to(bfloat16)).
 //
 // What bounds it on an H100: bytes. At predict (B 2, 1000 rois per image,
-// C 256, float32) it writes 100 MB and reads at most the 183 MB of P2..P5
-// (only the footprints of the rois: far less); its ~1.2 GFLOP are negligible
-// against 3.35 TB/s. One thread per output with pw fastest makes a warp's
-// stores contiguous, but its loads walk one channel plane at a time, 7 cells
-// of one row per bin row. Faster designs (an NHWC copy of the levels so a warp
-// reads 32 channels of one cell; one block per roi with its footprint staged
-// in shared memory) are later work.
+// C 256, float32) it writes 100 MB and needs the 132 MB of map cells that
+// some roi weighs; its 16 corner reads per output (401M a call) and each
+// output's sample geometry (three IEEE divisions an axis) are what cost. The
+// design (pool_roi in roi_align_common.cuh): one block per roi and 64
+// channels computes the roi's 14 + 14 samples once in shared memory, then
+// walks the outputs with pw fastest, so the block's reads of one channel's
+// footprint come from L1 after the first and its stores are contiguous.
+// Copying each chunk's footprint into shared memory first (cp.async,
+// double-buffered) measured slower (PERF.md): a block waited on its slowest
+// copy before it could compute, where L1 lets each warp go on as its own
+// loads land.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,47 +51,38 @@ using namespace roi_align_common;
 
 namespace {
 
-template <typename T>
-__global__ void roi_align_fwd_kernel(Levels levels, const float* __restrict__ rois,
-                                     const int32_t* __restrict__ level,
-                                     int rois_per_image, int channels, int64_t total,
-                                     T* __restrict__ out) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       idx < total; idx += stride) {
-    const int pw = static_cast<int>(idx % kPooled);
-    const int ph = static_cast<int>((idx / kPooled) % kPooled);
-    const int c = static_cast<int>((idx / (kPooled * kPooled)) % channels);
-    const int64_t r = idx / (static_cast<int64_t>(kPooled) * kPooled * channels);
-    const int64_t b = r / rois_per_image;
-
-    const int l = level[r];
-    const int h = levels.height[l];
-    const int w = levels.width[l];
-    const float scale = levels.scale[l];
-    const float* roi = rois + r * 4;
-    AxisSample ys[kRatio], xs[kRatio];
-    axis_samples(roi[1], roi[3], scale, h, ph, ys);
-    axis_samples(roi[0], roi[2], scale, w, pw, xs);
-
-    const T* plane = static_cast<const T*>(levels.feat[l]) +
-                     (b * channels + c) * static_cast<int64_t>(h) * w;
-    float acc = 0.0f;
-#pragma unroll
-    for (int iy = 0; iy < kRatio; ++iy) {
-#pragma unroll
-      for (int ix = 0; ix < kRatio; ++ix) {
-        const AxisSample& y = ys[iy];
-        const AxisSample& x = xs[ix];
-        float val = __fmul_rn(__fmul_rn(y.w_lo, x.w_lo), load_f32(plane, y.lo * w + x.lo));
-        val = __fadd_rn(val, __fmul_rn(__fmul_rn(y.w_lo, x.w_hi), load_f32(plane, y.lo * w + x.hi)));
-        val = __fadd_rn(val, __fmul_rn(__fmul_rn(y.w_hi, x.w_lo), load_f32(plane, y.hi * w + x.lo)));
-        val = __fadd_rn(val, __fmul_rn(__fmul_rn(y.w_hi, x.w_hi), load_f32(plane, y.hi * w + x.hi)));
-        acc = (iy == 0 && ix == 0) ? val : __fadd_rn(acc, val);
-      }
-    }
-    store(__fmul_rn(acc, 1.0f / (kRatio * kRatio)), out + idx);
+// The forward's arithmetic: corners (lo, hi) of axis_samples, each sample's
+// four products in the plain version's order, the bin's mean by * 1/4.
+struct CornerOrder {
+  __device__ __forceinline__ void corners(float lo_edge, float hi_edge, float scale, int size,
+                                          int k, int* cell0, int* cell1, float* w0,
+                                          float* w1) const {
+    AxisSample s[kRatio];
+    axis_samples(lo_edge, hi_edge, scale, size, k / kRatio, s);
+    const AxisSample a = k % kRatio ? s[1] : s[0];
+    *cell0 = a.lo;
+    *cell1 = a.hi;
+    *w0 = a.w_lo;
+    *w1 = a.w_hi;
   }
+  __device__ __forceinline__ float sample(float wy0, float wy1, float wx0, float wx1, float v00,
+                                          float v01, float v10, float v11) const {
+    float val = __fmul_rn(__fmul_rn(wy0, wx0), v00);
+    val = __fadd_rn(val, __fmul_rn(__fmul_rn(wy0, wx1), v01));
+    val = __fadd_rn(val, __fmul_rn(__fmul_rn(wy1, wx0), v10));
+    return __fadd_rn(val, __fmul_rn(__fmul_rn(wy1, wx1), v11));
+  }
+  __device__ __forceinline__ float finish(float acc) const {
+    return __fmul_rn(acc, 1.0f / (kRatio * kRatio));
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kForwardThreads)
+    roi_align_fwd_kernel(Levels levels, const float* __restrict__ rois,
+                         const int32_t* __restrict__ level, int rois_per_image, int channels,
+                         T* __restrict__ out) {
+  pool_roi(levels, rois, level, rois_per_image, channels, out, CornerOrder());
 }
 
 // MultiScaleRoIAlign backward: the features-gradient.
@@ -100,34 +95,78 @@ __global__ void roi_align_fwd_kernel(Levels levels, const float* __restrict__ ro
 // semaphore protocol (rois sorted and interleaved so that neighbours do not
 // collide); rois that overflow the window get zero weights there and their
 // gradient from a compacted dense-matmul VJP added by the caller. None of that
-// is carried over. Here every upstream element (b, r, c, ph, pw) is one thread
-// that recomputes its bin's samples with axis_samples (the forward's, above)
-// and atomicAdds g * 0.25 * wy * wx at each corner of non-zero weight into a
-// zeroed float32 NCHW map of the roi's level:
+// is carried over. It computes, for every roi whatever its size or position,
 //
 //   dfeat_l[b, c, y, x] = sum over (r in image b at level l, ph, pw, sample,
 //                         corner at (y, x)) of (g[r, c, ph, pw] * 0.25) * (wy * wx)
 //
-// so the adjoint is exact for every roi, whatever its size or position. A
-// collapsed low cell (low >= size - 1) has lo == hi with frac 0: its high
-// corner's weight is 0 and adds nothing, as the forward reads it with weight 0.
-// A sample outside [-1, size] has zero weights, so a roi wholly outside the
-// canvas adds nothing. The products are __fmul_rn in the plain twin's order
-// (ops/roi_align.py::backward_scatter_terms); bfloat16 gradients are widened
-// with __bfloat162float, and the wrapper casts the maps to the features' dtype
-// afterwards. Atomics add in an order that changes from run to run: the result
-// is bit-exact against the plain version only where every order gives the same
-// float32 sum (dyadic weights and integer gradients).
+// into zeroed float32 NCHW maps, with the forward's geometry. A corner of
+// weight 0 (a sample outside [-1, size], a collapsed high cell, a sample on a
+// cell edge) adds nothing and is left out. The products are __fmul_rn in the
+// plain twin's order (ops/roi_align.py::backward_scatter_terms); bfloat16
+// gradients are widened with __bfloat162float, and the wrapper casts the maps
+// to the features' dtype afterwards. The terms of one cell are summed in a
+// register, then added to the map atomically: the sums run in another order
+// than the plain version's, and that order changes from run to run where rois
+// overlap, so the result is bit-exact against the plain version only where
+// every order gives the same float32 sum (dyadic weights, integer gradients).
 //
-// What bounds it on an H100: bytes. At the FPN train shape (B 2, 512 rois per
-// image, C 256) it reads the 51.4 MB float32 gradient once, coalesced (threads
-// walk the contiguous [B, n, C, 7, 7] layout), and adds into 183 MB of level
-// maps, which the wrapper zeroes with a memset. The atomics land in one channel
-// plane per 49 threads, so a warp's adds scatter over a few rows of one plane:
-// they resolve in L2 for the rois' footprints but each is a 4-byte
-// transaction. Faster designs (one block per roi with its footprint
-// accumulated in shared memory, NHWC maps so a warp adds 32 channels of one
-// cell) are later work.
+// What bounds it on an H100: bytes. At the FPN train shape (B 2, 520 rois per
+// image, C 256) it reads the 52 MB float32 gradient once and adds into 183 MB
+// of level maps, which the wrapper zeroes. One thread per upstream element
+// with 16 atomicAdds each made that 213M 4-byte atomics, each its own L2
+// transaction (a warp's scatter over a few rows of one plane), 30x the bound.
+// The design: one block per roi and 32 channels loads the chunk's g * 0.25
+// (contiguous, coalesced) and lists the roi's footprint in shared memory, each
+// footprint cell's corners listed by cell. A warp then sums one cell's terms
+// (its y corners times its x corners) for the 32 channels, one lane each, in
+// registers, and the block adds each cell's sum to the map once, through
+// shared memory, so that a warp's adds land on consecutive cells of a row and
+// coalesce. At the train shape that is 34M adds instead of 213M, and no
+// shared-memory atomics. The time divides between the per-roi setup, the
+// sums, the adds and the wrapper's memset of the maps.
+
+constexpr int kCorners = 2 * kSamples;  // per axis: two cells per sample
+
+// One axis of a roi's footprint: the distinct cells its corners touch.
+struct AxisFootprint {
+  int cell[kCorners];       // ascending
+  int start[kCorners + 1];  // rank of each cell's first corner; start[n] = kept corners
+  int n;
+};
+
+// Builds one axis's footprint in one warp, all 32 lanes together: lane
+// i < 28 holds corner i (the (i % 2)-th cell of sample i / 2, so of bin
+// i / 4), a cell < 0 (and lanes 28..31 pass -1) marks a corner left out.
+// Writes fp; returns in each lane its corner's rank among the kept corners
+// ordered by (cell, i).
+__device__ __forceinline__ int build_axis(int cell, AxisFootprint& fp) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x % 32;
+  const bool kept = cell >= 0;
+  const unsigned kept_mask = __ballot_sync(kAll, kept);
+  // Every lane reaches each *_sync call (none behind a && or a branch).
+  const unsigned same = __match_any_sync(kAll, cell);
+  const bool first = kept && __ffs(same) - 1 == lane;
+  const unsigned firsts = __ballot_sync(kAll, first);
+  int slot = 0, rank = 0;
+#pragma unroll
+  for (int m = 0; m < kCorners; ++m) {
+    const int cm = __shfl_sync(kAll, cell, m);
+    slot += ((firsts >> m) & 1) && cm < cell;
+    rank += ((kept_mask >> m) & 1) && (cm < cell || (cm == cell && m < lane));
+  }
+  if (first) {
+    fp.cell[slot] = cell;
+    fp.start[slot] = rank;
+  }
+  if (lane == 0) {
+    fp.n = __popc(firsts);
+    fp.start[__popc(firsts)] = __popc(kept_mask);
+  }
+  return rank;
+}
+
 struct GradLevels {
   float* grad[kLevels];
   int height[kLevels];
@@ -135,46 +174,93 @@ struct GradLevels {
   float scale[kLevels];
 };
 
-__device__ __forceinline__ void add_corner(float* plane, int cell, float weight, float gq) {
-  if (weight != 0.0f) atomicAdd(plane + cell, __fmul_rn(gq, weight));
-}
+constexpr int kBwdChannels = 32;  // a warp's lanes
+constexpr int kBwdThreads = 256;
+constexpr int kCellBatch = 64;
 
 template <typename G>
-__global__ void roi_align_bwd_kernel(GradLevels levels, const G* __restrict__ grad,
-                                     const float* __restrict__ rois,
-                                     const int32_t* __restrict__ level,
-                                     int rois_per_image, int channels, int64_t total) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       idx < total; idx += stride) {
-    const int pw = static_cast<int>(idx % kPooled);
-    const int ph = static_cast<int>((idx / kPooled) % kPooled);
-    const int c = static_cast<int>((idx / (kPooled * kPooled)) % channels);
-    const int64_t r = idx / (static_cast<int64_t>(kPooled) * kPooled * channels);
-    const int64_t b = r / rois_per_image;
+__global__ void __launch_bounds__(kBwdThreads)
+    roi_align_bwd_kernel(GradLevels levels, const G* __restrict__ grad,
+                         const float* __restrict__ rois, const int32_t* __restrict__ level,
+                         int rois_per_image, int channels) {
+  __shared__ AxisFootprint fp[2];
+  __shared__ float gq[kBwdChannels * kBins];
+  // The kept corners of each axis in footprint order: weight and bin.
+  __shared__ float sorted_w[2][kCorners];
+  __shared__ int sorted_bin[2][kCorners];
+  // A batch of footprint cells' sums per channel (odd pitch: conflict-free
+  // both ways), and each cell's offset in the map.
+  __shared__ float sums[kBwdChannels][kCellBatch + 1];
+  __shared__ int cell_offset[kCellBatch];
 
-    const int l = level[r];
-    const int h = levels.height[l];
-    const int w = levels.width[l];
+  const int64_t r = blockIdx.x;
+  const int64_t b = r / rois_per_image;
+  const int c0 = kBwdChannels * blockIdx.y;
+  const int count = min(kBwdChannels, channels - c0);
+  const int l = level[r];
+  const int h = pick(levels.height, l);
+  const int w = pick(levels.width, l);
+  const int t = threadIdx.x;
+  if (t < 32) {  // warp 0: both axes' footprints, corners of weight 0 left out
     const float* roi = rois + r * 4;
-    AxisSample ys[kRatio], xs[kRatio];
-    axis_samples(roi[1], roi[3], levels.scale[l], h, ph, ys);
-    axis_samples(roi[0], roi[2], levels.scale[l], w, pw, xs);
-
-    float* plane = levels.grad[l] + (b * channels + c) * static_cast<int64_t>(h) * w;
-    const float gq = __fmul_rn(load_f32(grad, idx), 1.0f / (kRatio * kRatio));
+    const int k = min(t / 2, kSamples - 1);
 #pragma unroll
-    for (int iy = 0; iy < kRatio; ++iy) {
-#pragma unroll
-      for (int ix = 0; ix < kRatio; ++ix) {
-        const AxisSample& y = ys[iy];
-        const AxisSample& x = xs[ix];
-        add_corner(plane, y.lo * w + x.lo, __fmul_rn(y.w_lo, x.w_lo), gq);
-        add_corner(plane, y.lo * w + x.hi, __fmul_rn(y.w_lo, x.w_hi), gq);
-        add_corner(plane, y.hi * w + x.lo, __fmul_rn(y.w_hi, x.w_lo), gq);
-        add_corner(plane, y.hi * w + x.hi, __fmul_rn(y.w_hi, x.w_hi), gq);
+    for (int axis = 0; axis < 2; ++axis) {
+      AxisSample s[kRatio];
+      axis_samples(roi[axis ? 0 : 1], roi[axis ? 2 : 3], pick(levels.scale, l), axis ? w : h,
+                   k / kRatio, s);
+      const AxisSample a = k % kRatio ? s[1] : s[0];
+      const float weight = t % 2 ? a.w_hi : a.w_lo;
+      const bool kept = t < kCorners && weight != 0.0f;
+      const int rank = build_axis(kept ? (t % 2 ? a.hi : a.lo) : -1, fp[axis]);
+      if (kept) {
+        sorted_w[axis][rank] = weight;
+        sorted_bin[axis][rank] = t / (2 * kRatio);
       }
     }
+  } else {  // the other warps: the chunk's g * 0.25
+    const G* g = grad + (r * channels + c0) * kBins;
+    for (int i = t - 32; i < count * kBins; i += blockDim.x - 32) {
+      gq[i] = __fmul_rn(load_f32(g, i), 1.0f / (kRatio * kRatio));
+    }
+  }
+  __syncthreads();
+
+  // The footprint's cells in batches: each warp sums whole cells, its lanes
+  // the chunk's channels (the same corners, so no lane waits on another; gq
+  // at stride 49 puts the lanes' reads in 32 banks), into sums; then the
+  // block adds the batch to the map, a warp's lanes on consecutive cells.
+  const int rows = fp[0].n, cols = fp[1].n;
+  const int n_cells = rows * cols;
+  const int lane = t % 32, warp = t / 32;
+  float* const plane = pick(levels.grad, l) + (b * channels + c0) * static_cast<int64_t>(h) * w;
+  for (int first = 0; first < n_cells; first += kCellBatch) {
+    const int n_batch = min(kCellBatch, n_cells - first);
+    for (int j = warp; j < n_batch; j += kBwdThreads / 32) {
+      const int ry = (first + j) / cols, rx = (first + j) % cols;
+      float acc = 0.0f;
+      if (lane < count) {
+        const float* gc = gq + lane * kBins;
+        for (int a = fp[0].start[ry]; a < fp[0].start[ry + 1]; ++a) {
+          const float wy = sorted_w[0][a];
+          const float* grow = gc + sorted_bin[0][a] * kPooled;
+          for (int x = fp[1].start[rx]; x < fp[1].start[rx + 1]; ++x) {
+            acc = __fadd_rn(acc, __fmul_rn(grow[sorted_bin[1][x]], __fmul_rn(wy, sorted_w[1][x])));
+          }
+        }
+      }
+      sums[lane][j] = acc;
+      if (lane == 0) cell_offset[j] = fp[0].cell[ry] * w + fp[1].cell[rx];
+    }
+    __syncthreads();
+    for (int i = t; i < count * kCellBatch; i += kBwdThreads) {
+      const int j = i % kCellBatch, c = i / kCellBatch;
+      // Adding +-0 leaves every float32 map value's bits as they are.
+      if (j < n_batch && sums[c][j] != 0.0f) {
+        atomicAdd(plane + c * static_cast<int64_t>(h) * w + cell_offset[j], sums[c][j]);
+      }
+    }
+    __syncthreads();
   }
 }
 
@@ -195,19 +281,15 @@ int roi_align_forward_launch(const void* const* feats, const int* heights, const
     levels.width[i] = widths[i];
     levels.scale[i] = scales[i];
   }
-  const int64_t total = static_cast<int64_t>(num_rois) * channels * kPooled * kPooled;
-  if (total == 0) return static_cast<int>(cudaSuccess);
-  constexpr int kThreads = 256;
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  const int grid = static_cast<int>(blocks < (1 << 20) ? blocks : (1 << 20));
+  if (num_rois == 0 || channels == 0) return static_cast<int>(cudaSuccess);
+  const dim3 grid(num_rois, (channels + kGroupChannels - 1) / kGroupChannels);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    roi_align_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        levels, rois, level, rois_per_image, channels, total,
-        static_cast<__nv_bfloat16*>(out));
+    roi_align_fwd_kernel<__nv_bfloat16><<<grid, kForwardThreads, 0, s>>>(
+        levels, rois, level, rois_per_image, channels, static_cast<__nv_bfloat16*>(out));
   } else {
-    roi_align_fwd_kernel<float><<<grid, kThreads, 0, s>>>(
-        levels, rois, level, rois_per_image, channels, total, static_cast<float*>(out));
+    roi_align_fwd_kernel<float><<<grid, kForwardThreads, 0, s>>>(
+        levels, rois, level, rois_per_image, channels, static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -223,19 +305,15 @@ int roi_align_backward_launch(const void* grad, bool grad_is_bf16, float* const*
     levels.width[i] = widths[i];
     levels.scale[i] = scales[i];
   }
-  const int64_t total = static_cast<int64_t>(num_rois) * channels * kPooled * kPooled;
-  if (total == 0) return static_cast<int>(cudaSuccess);
-  constexpr int kThreads = 256;
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  const int grid = static_cast<int>(blocks < (1 << 20) ? blocks : (1 << 20));
+  if (num_rois == 0 || channels == 0) return static_cast<int>(cudaSuccess);
+  const dim3 grid(num_rois, (channels + kBwdChannels - 1) / kBwdChannels);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (grad_is_bf16) {
-    roi_align_bwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        levels, static_cast<const __nv_bfloat16*>(grad), rois, level, rois_per_image,
-        channels, total);
+    roi_align_bwd_kernel<__nv_bfloat16><<<grid, kBwdThreads, 0, s>>>(
+        levels, static_cast<const __nv_bfloat16*>(grad), rois, level, rois_per_image, channels);
   } else {
-    roi_align_bwd_kernel<float><<<grid, kThreads, 0, s>>>(
-        levels, static_cast<const float*>(grad), rois, level, rois_per_image, channels, total);
+    roi_align_bwd_kernel<float><<<grid, kBwdThreads, 0, s>>>(
+        levels, static_cast<const float*>(grad), rois, level, rois_per_image, channels);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,11 +10,10 @@
 // runs one grid over all rois per level (zero blocks for rois of other
 // levels), DMAs 32x72 windows on a lattice of 8-aligned slots into VMEM and
 // contracts them with per-slot weight rows on the MXU. None of that is
-// carried over. Here one block takes one roi: its first 28 threads compute the
-// 14 y and 14 x samples' two-cell windows and weights into shared memory, then
-// the block's threads walk the roi's C x 7 x 7 outputs (pw fastest, so a
-// warp's stores are contiguous) and read the 16 cells of each output's 4
-// samples straight from the roi's level map (NCHW).
+// carried over. It runs roi_align.cu's forward skeleton (pool_roi in
+// roi_align_common.cuh: a block per roi and 64 channels, the roi's sample
+// geometry once in shared memory, contiguous stores); only the corners and
+// the per-sample arithmetic are its own.
 //
 // Semantics (bit-exact with the plain twin
 // ops/roi_align.py::multiscale_roi_align_slots_reference):
@@ -30,10 +29,10 @@
 // nothing into an FMA. Level maps must be at least 2x2 (the window start
 // size-2 must be a cell); the wrapper checks it.
 //
-// What bounds it on an H100: bytes, as roi_align.cu: at FPN predict (B 2,
-// 1000 rois per image, C 256, float32) it writes 100 MB and reads the rois'
-// footprints. The per-roi geometry is computed once per block instead of once
-// per output, but the loads of a warp still walk one channel plane.
+// What bounds it on an H100: bytes, as roi_align.cu's forward: at FPN predict
+// (B 2, 1000 rois per image, C 256, float32) it writes 100 MB and reads the
+// rois' footprints, 16 corner reads an output that the skeleton serves from
+// L1 (a block per roi and 64 channels, pw fastest).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,74 +45,39 @@ using namespace roi_align_common;
 
 namespace {
 
-constexpr int kSamples = kPooled * kRatio;  // per axis
-constexpr int kThreads = 256;
-
-// Sample k (bin k / 2, sub-sample k % 2) along one axis as the JAX package's
-// _corner_starts_weights has it: the start of its two-cell window and the
-// window's two weights, each divided by the ratio. A collapsed sample
-// (axis_samples' lo == hi, the last cell, its high weight 0) takes the
-// window one cell lower, with its weight in the second slot.
-__device__ __forceinline__ void corner_window(float lo_edge, float hi_edge, float scale,
-                                              int size, int k, int* start, float* w0,
-                                              float* w1) {
-  AxisSample s[kRatio];
-  axis_samples(lo_edge, hi_edge, scale, size, k / kRatio, s);
-  const AxisSample& a = s[k % kRatio];
-  const bool collapse = a.lo == a.hi;
-  *start = collapse ? a.lo - 1 : a.lo;
-  *w0 = __fdiv_rn(collapse ? 0.0f : a.w_lo, static_cast<float>(kRatio));
-  *w1 = __fdiv_rn(collapse ? a.w_lo : a.w_hi, static_cast<float>(kRatio));
-}
+// The slot-lattice arithmetic: sample k's two-cell window (start, start + 1)
+// as the JAX package's _corner_starts_weights has it, weights divided by the
+// ratio; a collapsed sample (axis_samples' lo == hi, the last cell, its high
+// weight 0) takes the window one cell lower, with its weight in the second
+// cell. Per sample x first, then y; no final division.
+struct SlotOrder {
+  __device__ __forceinline__ void corners(float lo_edge, float hi_edge, float scale, int size,
+                                          int k, int* cell0, int* cell1, float* w0,
+                                          float* w1) const {
+    AxisSample s[kRatio];
+    axis_samples(lo_edge, hi_edge, scale, size, k / kRatio, s);
+    const AxisSample a = k % kRatio ? s[1] : s[0];
+    const bool collapse = a.lo == a.hi;
+    *cell0 = collapse ? a.lo - 1 : a.lo;
+    *cell1 = *cell0 + 1;
+    *w0 = __fdiv_rn(collapse ? 0.0f : a.w_lo, static_cast<float>(kRatio));
+    *w1 = __fdiv_rn(collapse ? a.w_lo : a.w_hi, static_cast<float>(kRatio));
+  }
+  __device__ __forceinline__ float sample(float wy0, float wy1, float wx0, float wx1, float v00,
+                                          float v01, float v10, float v11) const {
+    const float t0 = __fadd_rn(__fmul_rn(wx0, v00), __fmul_rn(wx1, v01));
+    const float t1 = __fadd_rn(__fmul_rn(wx0, v10), __fmul_rn(wx1, v11));
+    return __fadd_rn(__fmul_rn(wy0, t0), __fmul_rn(wy1, t1));
+  }
+  __device__ __forceinline__ float finish(float acc) const { return acc; }
+};
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kForwardThreads)
     roi_align_slots_kernel(Levels levels, const float* __restrict__ rois,
                            const int32_t* __restrict__ level, int rois_per_image,
                            int channels, T* __restrict__ out) {
-  __shared__ int ys[kSamples], xs[kSamples];
-  __shared__ float wy0[kSamples], wy1[kSamples], wx0[kSamples], wx1[kSamples];
-  const int64_t r = blockIdx.x;
-  const int64_t b = r / rois_per_image;
-  const int l = level[r];
-  const int h = levels.height[l];
-  const int w = levels.width[l];
-  const float* roi = rois + r * 4;
-  const int t = threadIdx.x;
-  if (t < kSamples) {
-    corner_window(roi[1], roi[3], levels.scale[l], h, t, &ys[t], &wy0[t], &wy1[t]);
-  } else if (t < 2 * kSamples) {
-    const int k = t - kSamples;
-    corner_window(roi[0], roi[2], levels.scale[l], w, k, &xs[k], &wx0[k], &wx1[k]);
-  }
-  __syncthreads();
-
-  const T* feat = static_cast<const T*>(levels.feat[l]);
-  T* dst = out + r * channels * kPooled * kPooled;
-  for (int idx = t; idx < channels * kPooled * kPooled; idx += kThreads) {
-    const int pw = idx % kPooled;
-    const int ph = (idx / kPooled) % kPooled;
-    const int c = idx / (kPooled * kPooled);
-    const T* plane = feat + (b * channels + c) * static_cast<int64_t>(h) * w;
-    float acc = 0.0f;
-#pragma unroll
-    for (int iy = 0; iy < kRatio; ++iy) {
-#pragma unroll
-      for (int ix = 0; ix < kRatio; ++ix) {
-        const int i = ph * kRatio + iy;
-        const int j = pw * kRatio + ix;
-        const int64_t row0 = static_cast<int64_t>(ys[i]) * w + xs[j];
-        const int64_t row1 = row0 + w;
-        const float t0 = __fadd_rn(__fmul_rn(wx0[j], load_f32(plane, row0)),
-                                   __fmul_rn(wx1[j], load_f32(plane, row0 + 1)));
-        const float t1 = __fadd_rn(__fmul_rn(wx0[j], load_f32(plane, row1)),
-                                   __fmul_rn(wx1[j], load_f32(plane, row1 + 1)));
-        const float s = __fadd_rn(__fmul_rn(wy0[i], t0), __fmul_rn(wy1[i], t1));
-        acc = (iy == 0 && ix == 0) ? s : __fadd_rn(acc, s);
-      }
-    }
-    store(acc, dst + idx);
-  }
+  pool_roi(levels, rois, level, rois_per_image, channels, out, SlotOrder());
 }
 
 }  // namespace
@@ -136,12 +100,13 @@ int roi_align_slots_forward_launch(const void* const* feats, const int* heights,
     levels.scale[i] = scales[i];
   }
   if (num_rois == 0 || channels == 0) return static_cast<int>(cudaSuccess);
+  const dim3 grid(num_rois, (channels + kGroupChannels - 1) / kGroupChannels);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    roi_align_slots_kernel<__nv_bfloat16><<<num_rois, kThreads, 0, s>>>(
+    roi_align_slots_kernel<__nv_bfloat16><<<grid, kForwardThreads, 0, s>>>(
         levels, rois, level, rois_per_image, channels, static_cast<__nv_bfloat16*>(out));
   } else {
-    roi_align_slots_kernel<float><<<num_rois, kThreads, 0, s>>>(
+    roi_align_slots_kernel<float><<<grid, kForwardThreads, 0, s>>>(
         levels, rois, level, rois_per_image, channels, static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());

@@ -302,8 +302,10 @@ def backward_scatter_terms(grad, rois, image, stride: int, h: int, w: int):
     7]`` float32, ``rois [k, 4]`` and their ``image`` indices -> ``rows
     [k * 784]`` int64 into the level's ``[B * h * w]`` cells (NHWC order)
     and ``vals [k * 784, C]`` float32, one per (bin, sample, corner):
-    ``(g * 0.25) * (wy * wx)``, the kernel's products in its order. A
-    weight outside ``[-1, size]`` is zero; its row stays inside the map."""
+    ``(g * 0.25) * (wy * wx)``, the kernel's products in its order (the
+    kernel then sums each cell's terms of one roi before it adds them to
+    the map; here every term is added on its own). A weight outside
+    ``[-1, size]`` is zero; its row stays inside the map."""
     k, c = grad.shape[:2]
     ylo, yhi, wylo, wyhi = _axis_samples(rois[:, 1], rois[:, 3], 1.0 / stride, h)
     xlo, xhi, wxlo, wxhi = _axis_samples(rois[:, 0], rois[:, 2], 1.0 / stride, w)

@@ -18,7 +18,10 @@
 * The dispatch: a CPU tensor takes the plain version and launches
   nothing; the kernel wrapper refuses CPU tensors.
 * On a card only (skipped here): the kernel against the plain version,
-  bit for bit, float32 and bfloat16.
+  bit for bit, float32 and bfloat16, on the fixture's rois and on
+  ``chip_smoke.footprint_rois`` (the footprints that stress the kernel's
+  per-roi geometry: giant rois on P5, rois partly and wholly outside,
+  degenerate rois, 64 rois sharing one cell).
 """
 
 import jax
@@ -27,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from faster_rcnn_pytorch_tpu.ops.roi_align import (
     _batch_window_kernel,
     fpn_level_assignment as jax_levels,
@@ -158,3 +162,17 @@ def test_cuda_kernel_matches_plain_bit_for_bit(inputs, dtype):
     assert pra.multiscale_roi_align_cuda.launches == before + 1
     ref = pra.multiscale_roi_align_batch(feats, r, plain=True)
     assert out.dtype == dtype and torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernel_matches_plain_on_footprint_edges(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    gen = torch.Generator().manual_seed(2)
+    shapes = chip_smoke._align_level_shapes(CANVAS)
+    feats = [torch.randn(2, C, h, w, generator=gen).to("cuda", dtype) for h, w in shapes]
+    r = chip_smoke.footprint_rois(gen, 96, CANVAS).cuda()
+    level = pra.fpn_level_assignment(r)
+    out = pra.multiscale_roi_align_cuda(feats, r, level)
+    torch.cuda.synchronize()
+    assert torch.equal(out, pra.multiscale_roi_align_reference(feats, r, level))

@@ -25,7 +25,11 @@ It is held against:
 The autograd function on the CPU launches neither kernel; the CUDA
 wrapper refuses CPU tensors. On a card only (skipped here): the kernel
 against the plain version, bit for bit on the exact set in float32 and
-bfloat16, within ``1e-5 * max|ref|`` otherwise.
+bfloat16, within ``1e-5 * max|ref|`` otherwise; and on the footprints that
+stress its per-roi lists (``chip_smoke.footprint_rois``: giant rois on
+P5, rois partly and wholly outside, degenerate rois, 64 rois sharing one
+cell) within ``1e-5 * max|ref|``, bit for bit on 40 copies of one dyadic
+roi with integer gradients.
 """
 
 import importlib
@@ -222,3 +226,29 @@ def test_cuda_backward_matches_plain(dtype):
     want = pra.multiscale_roi_align_backward_reference(normal, rois, level, shapes, torch.float32)
     for a, b in zip(got, want):
         assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_backward_matches_plain_on_footprint_edges(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    canvas = (384, 448)
+    gen = torch.Generator().manual_seed(4)
+    shapes = chip_smoke._align_level_shapes(canvas)
+    rois = chip_smoke.footprint_rois(gen, 96, canvas).cuda()
+    level = pra.fpn_level_assignment(rois)
+    normal = torch.randn(2, 96, 64, 7, 7, generator=gen).to("cuda", dtype)
+    got = pra.multiscale_roi_align_backward_cuda(normal, rois, level, shapes, torch.float32)
+    want = pra.multiscale_roi_align_backward_reference(normal, rois, level, shapes, torch.float32)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+    # many blocks adding into the same cells, in an order that varies
+    exact = chip_smoke.exact_align_rois(gen, 96, canvas)
+    exact[:, 8:48] = exact[:, :1]
+    exact = exact.cuda()
+    level = pra.fpn_level_assignment(exact)
+    ints = torch.randint(-3, 4, normal.shape, generator=gen).to("cuda", dtype)
+    got = pra.multiscale_roi_align_backward_cuda(ints, exact, level, shapes, dtype)
+    want = pra.multiscale_roi_align_backward_reference(ints, exact, level, shapes, dtype)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and torch.equal(a, b)

@@ -21,7 +21,9 @@ against the JAX package's ``multiscale_roi_align_pallas``.
 * A level map under 2x2 raises; the CPU takes the plain version and
   launches nothing; the kernel wrapper refuses CPU tensors.
 * On a card only (skipped here): the kernel against the plain version,
-  bit for bit, float32 and bfloat16.
+  bit for bit, float32 and bfloat16, on the fuzz set and on
+  ``chip_smoke.footprint_rois`` (giant, outside, degenerate and clumped
+  rois: the kernel shares the forward's per-roi skeleton).
 """
 
 import jax.numpy as jnp
@@ -29,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from faster_rcnn_pytorch_tpu.ops.pallas.roi_align_kernel import multiscale_roi_align_pallas
 from faster_rcnn_pytorch_tpu_torch.ops import roi_align as pra
 
@@ -130,3 +133,17 @@ def test_cuda_kernel_matches_plain_bit_for_bit(fuzz, dtype):
     torch.cuda.synchronize()
     assert pra.multiscale_roi_align_slots_cuda.launches == before + 1
     assert out.dtype == dtype and torch.equal(out, pra.multiscale_roi_align_slots(feats, r, plain=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernel_matches_plain_on_footprint_edges(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    canvas = (384, 448)
+    gen = torch.Generator().manual_seed(5)
+    feats = [torch.randn(2, 32, h, w, generator=gen).to("cuda", dtype) for h, w in chip_smoke._align_level_shapes(canvas)]
+    r = chip_smoke.footprint_rois(gen, 96, canvas).cuda()
+    level = pra.fpn_level_assignment(r)
+    out = pra.multiscale_roi_align_slots_cuda(feats, r, level)
+    torch.cuda.synchronize()
+    assert torch.equal(out, pra.multiscale_roi_align_slots_reference(feats, r, level))
