@@ -7,17 +7,28 @@ CUDA card, builds the port's kernels from the sources in the checkout
 
 1. device: a CUDA card is present; prints its name and power limit.
 2. kernels: each hand-written kernel against its plain PyTorch version,
-   timed with CUDA events (median of 25 runs), with its bound (the least
+   timed with CUDA events (median of 25 runs; the RoIPool kernels also
+   back to back, 10 calls between two events, so that their wrappers' host
+   path overlaps the device's work), with its bound (the least
    time for the bytes this run's data needs at 3.35 TB/s, or its
    operations at 67 TFLOP/s float32, whichever is larger):
-   * RoIPool forward at the legacy predict shapes (feats [1, 512, 50, 84],
-     rois [1, 300, 4] plus edge rois; float32 and bfloat16; values and
-     argmax bit-exact);
+   * RoIPool forward at the legacy predict shape (feats [1, 512, 50, 84],
+     rois [1, 300, 4] plus edge rois, timed without the argmax: the
+     record's times) and at the legacy train shape (feats [2, 512, 50, 84],
+     128 rois per image, timed with the argmax, as train calls it);
+     float32 and bfloat16; values and argmax bit-exact;
    * RoIPool backward at the legacy train shapes (feats [2, 512, 50, 84],
      128 rois per image plus edge rois inside the map, argmax from the
      forward kernel): integer-valued gradients bit-exact in float32 and
-     bfloat16, normal ones within 1e-5 * max|ref| (atomics add in another
-     order); ``scatter_add_`` on the prepared index is timed beside it;
+     bfloat16, normal ones within 1e-5 * max|ref| (shared-memory atomics
+     add in another order); ``scatter_add_`` on the prepared index is
+     timed beside it;
+   * both RoIPool kernels on maps whose channel plane exceeds a block's
+     shared memory ([1, 16, 240, 256] float32, [1, 16, 340, 352]
+     bfloat16: the forward's direct-read route, the backward's row bands)
+     and on [1, 16, 240, 256] bfloat16 (a staged forward block of 122 KB),
+     64 rois with the edge rois: the forward bit-exact, the backward as
+     above; then the launch plans of phase 2's RoIPool shapes;
    * MultiScaleRoIAlign forward at the FPN predict shapes (P2..P5
      [2, 256, 200, 336] .. [2, 256, 25, 42], 1000 rois per image plus
      extremes: banners, poles, degenerate, giant, partly outside),
@@ -190,6 +201,7 @@ WEIGHT_DECAY = 5e-4  # make_optimizer's default
 # H100 SXM peaks (NVIDIA's data sheet) for the kernels' bounds.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BURST = 10  # calls between two events for the RoIPool kernels' back-to-back times
 
 
 class SyntheticImages:
@@ -275,7 +287,12 @@ def _bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _median_ms(fn, runs: int = 25, warmup: int = 3) -> float:
+def _median_ms(fn, runs: int = 25, warmup: int = 3, burst: int = 1) -> float:
+    """Median ms of one call of ``fn`` between two CUDA events. With
+    ``burst`` > 1, ``burst`` calls back to back between the events, over
+    ``burst``: the host's time to enqueue a call then overlaps the
+    device's work on the calls before it, so a kernel shorter than its
+    wrapper's host path is timed by its own device time."""
     for _ in range(warmup):
         fn()
     times = []
@@ -283,10 +300,11 @@ def _median_ms(fn, runs: int = 25, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(burst):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / burst)
     return statistics.median(times)
 
 
@@ -305,52 +323,83 @@ def _edge_rois(h: int, w: int) -> torch.Tensor:
     )
 
 
+def _pool_inputs(seed: int, b: int, c: int, h: int, w: int, n: int, inside: bool = False):
+    """Seeded relu features ``[b, c, h, w]`` and ``[b, n, 4]`` rois in cells
+    (random, extents up to half the map; the first of each image
+    ``_edge_rois``, with ``inside`` only those inside the map), and the
+    generator for what the caller draws next."""
+    g = torch.Generator().manual_seed(seed)
+    feats = torch.relu(torch.randn(b, c, h, w, generator=g))
+    xy = torch.rand(b, n, 2, generator=g) * torch.tensor([w - 4.0, h - 4.0])
+    wh = torch.rand(b, n, 2, generator=g) * torch.tensor([w / 2.0, h / 2.0])
+    rois = torch.cat([xy, torch.minimum(xy + wh, torch.tensor([w * 1.0, h * 1.0]))], -1)
+    edge = _edge_rois(h, w)
+    if inside:
+        edge = edge[((edge >= 0) & (edge <= torch.tensor([w, h, w, h]))).all(1)]
+    rois[:, : len(edge)] = edge
+    return feats, rois, g
+
+
+def _check_pool_forward(f, rois, what: str) -> None:
+    """The forward kernel bit-exact (values and argmax) with its plain version."""
+    out, arg = roi_pool_mod.roi_pool_cuda(f, rois, 1.0, 7, with_argmax=True)
+    torch.cuda.synchronize()
+    ref, ref_arg = roi_pool_mod.roi_pool_reference(f, rois, 1.0, 7, with_argmax=True)
+    _require(
+        torch.equal(out, ref) and torch.equal(arg, ref_arg),
+        f"roi_pool kernel != plain ({what}): max|d| {float((out.float() - ref.float()).abs().max())}, "
+        f"argmax differs at {int((arg != ref_arg).sum())} outputs",
+    )
+
+
 def check_roi_pool_kernel(device) -> dict:
+    """The forward kernel at the legacy predict shape (1 image, 300 rois,
+    no argmax: the record's times) and train shape (2 images of 128 rois,
+    with the argmax the backward needs), bit-exact in both dtypes."""
     t0 = time.time()
     extension()
     print(f"kernel build: {time.time() - t0:.1f}s", flush=True)
     h, w = CANVAS[0] // 16, CANVAS[1] // 16
-    g = torch.Generator().manual_seed(SEED)
-    feats = torch.relu(torch.randn(1, 512, h, w, generator=g))
-    xy = torch.rand(1, 300, 2, generator=g) * torch.tensor([w - 4.0, h - 4.0])
-    wh = torch.rand(1, 300, 2, generator=g) * torch.tensor([w / 2.0, h / 2.0])
-    rois = torch.cat([xy, torch.minimum(xy + wh, torch.tensor([w * 1.0, h * 1.0]))], -1)
-    rois[0, : len(_edge_rois(h, w))] = _edge_rois(h, w)
-    rois = rois.to(device)
     record = {
         "name": "roi_pool_forward",
         "route": "cuda",
         "source": "faster_rcnn_pytorch_tpu_torch/ops/cuda/roi_pool.cu",
         "replaces": "faster_rcnn_pytorch_tpu/ops/pallas/roi_pool_kernel.py:30",
+        "max_abs_err": 0.0,  # every output is held bit-exact
+        "library_ms": None,  # PyTorch has no RoIPool call (torchvision is not a dependency)
     }
-    err = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        f = feats.to(device, dtype)
-        out, arg = roi_pool_mod.roi_pool_cuda(f, rois, 1.0, 7, with_argmax=True)
-        torch.cuda.synchronize()
-        ref, ref_arg = roi_pool_mod.roi_pool_reference(f, rois, 1.0, 7, with_argmax=True)
-        diff = float((out.float() - ref.float()).abs().max())
-        _require(
-            torch.equal(out, ref) and torch.equal(arg, ref_arg),
-            f"roi_pool kernel != plain ({dtype}): max|d| {diff}",
-        )
-        err = max(err, diff)
-        ms = _median_ms(lambda: roi_pool_mod.roi_pool_cuda(f, rois, 1.0, 7))
-        plain_ms = _median_ms(lambda: roi_pool_mod.roi_pool_reference(f, rois, 1.0, 7))
-        name = str(dtype).removeprefix("torch.")
-        print(
-            f"roi_pool {name} feats {tuple(f.shape)} rois {tuple(rois.shape)}: bit-exact "
-            f"(values and argmax), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 25)",
-            flush=True,
-        )
-        if dtype == torch.float32:
-            cells, bin_cells = _roi_pool_footprint(rois, h, w)
-            c = f.shape[1]
-            n_bytes = cells * c * 4 + rois.numel() * 4 + ref.numel() * 4
-            bound_ms, bound_by = _bound(n_bytes, bin_cells * c)  # one max per bin cell
-            record.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-    # PyTorch has no RoIPool call (torchvision is not a dependency).
-    record.update(max_abs_err=err, library_ms=None)
+    shapes = (
+        ("predict", SEED, 1, 300, False),
+        ("train", SEED + 2, TRAIN_BATCH, LEGACY_CONFIG.roi_samples, True),
+    )
+    for label, seed, b, n, with_argmax in shapes:
+        feats, rois, _ = _pool_inputs(seed, b, 512, h, w, n)
+        rois = rois.to(device)
+        cells, bin_cells = _roi_pool_footprint(rois, h, w)
+        for dtype in (torch.float32, torch.bfloat16):
+            f = feats.to(device, dtype)
+            name = str(dtype).removeprefix("torch.")
+            _check_pool_forward(f, rois, f"{label} {name}")
+            call = lambda: roi_pool_mod.roi_pool_cuda(f, rois, 1.0, 7, with_argmax)
+            ms, burst_ms = _median_ms(call), _median_ms(call, burst=BURST)
+            plain_ms = _median_ms(
+                lambda: roi_pool_mod.roi_pool_reference(f, rois, 1.0, 7, with_argmax)
+            )
+            outputs = b * n * f.shape[1] * 49
+            size = f.element_size()
+            # The map's covered cells read once, the rois, the output (and
+            # the int32 argmax) written once; one comparison per bin cell.
+            n_bytes = cells * f.shape[1] * size + rois.numel() * 4 + outputs * (size + 4 * with_argmax)
+            bound_ms, bound_by = _bound(n_bytes, bin_cells * f.shape[1])
+            print(
+                f"roi_pool {label} {name} feats {tuple(f.shape)} rois {tuple(rois.shape)}"
+                f"{' with argmax' if with_argmax else ''}: bit-exact (values and argmax), "
+                f"kernel {ms:.4f} ms ({burst_ms:.4f} back to back), plain {plain_ms:.4f} ms "
+                f"(median of 25), bound {bound_ms:.4f} ms ({n_bytes / 1e6:.2f} MB)",
+                flush=True,
+            )
+            if label == "predict" and dtype == torch.float32:
+                record.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
     return record
 
 
@@ -366,18 +415,35 @@ def _roi_pool_footprint(rois, h: int, w: int) -> tuple[int, int]:
     return int(mask.sum()), bin_cells
 
 
+def _check_pool_backward(arg, shape, dtype, g, what: str):
+    """The backward kernel against its plain version on the argmax ``arg``:
+    integer-valued gradients in ``dtype`` bit-exact (every order of the
+    float32 sums is exact), normal ones within 1e-5 * max|ref| of the
+    float32 map (shared-memory atomics add in another order). Returns the
+    normal gradients, max|d| and max|ref|."""
+    ints = torch.randint(-3, 4, arg.shape, generator=g).to(arg.device, dtype)
+    got = roi_pool_mod.roi_pool_backward_cuda(ints, arg, shape, dtype)
+    torch.cuda.synchronize()
+    want = roi_pool_mod.roi_pool_backward_reference(ints, arg, shape, dtype)
+    _require(
+        got.dtype == dtype and torch.equal(got, want),
+        f"roi_pool backward != plain on integer gradients ({what}): "
+        f"max|d| {float((got.float() - want.float()).abs().max())}",
+    )
+    normal = torch.randn(arg.shape, generator=g).to(arg.device, dtype)
+    got = roi_pool_mod.roi_pool_backward_cuda(normal, arg, shape, torch.float32)
+    want = roi_pool_mod.roi_pool_backward_reference(normal, arg, shape, torch.float32)
+    diff = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    _require(diff <= 1e-5 * scale, f"roi_pool backward ({what}): max|d| {diff} > 1e-5 * {scale}")
+    return normal, diff, scale
+
+
 def check_roi_pool_backward_kernel(device) -> dict:
-    """The backward kernel against its plain version at the train shapes."""
+    """The backward kernel against its plain version at the train shapes,
+    timed beside ``scatter_add_`` on the plain version's prepared index."""
     h, w = CANVAS[0] // 16, CANVAS[1] // 16
-    g = torch.Generator().manual_seed(SEED + 1)
-    feats = torch.relu(torch.randn(TRAIN_BATCH, 512, h, w, generator=g))
-    n = LEGACY_CONFIG.roi_samples
-    xy = torch.rand(TRAIN_BATCH, n, 2, generator=g) * torch.tensor([w - 4.0, h - 4.0])
-    wh = torch.rand(TRAIN_BATCH, n, 2, generator=g) * torch.tensor([w / 2.0, h / 2.0])
-    rois = torch.cat([xy, torch.minimum(xy + wh, torch.tensor([w * 1.0, h * 1.0]))], -1)
-    edge = _edge_rois(h, w)
-    edge = edge[((edge >= 0) & (edge <= torch.tensor([w, h, w, h]))).all(1)]
-    rois[:, : len(edge)] = edge  # the backward's rois lie inside the map
+    feats, rois, g = _pool_inputs(SEED + 1, TRAIN_BATCH, 512, h, w, LEGACY_CONFIG.roi_samples, inside=True)
     rois = rois.to(device)
     record = {
         "name": "roi_pool_backward",
@@ -390,37 +456,25 @@ def check_roi_pool_backward_kernel(device) -> dict:
         f = feats.to(device, dtype)
         _, arg = roi_pool_mod.roi_pool_cuda(f, rois, 1.0, 7, with_argmax=True)
         shape = tuple(f.shape)
-        ints = torch.randint(-3, 4, arg.shape, generator=g).to(device, dtype)
-        got = roi_pool_mod.roi_pool_backward_cuda(ints, arg, shape, dtype)
-        torch.cuda.synchronize()
-        want = roi_pool_mod.roi_pool_backward_reference(ints, arg, shape, dtype)
-        _require(
-            got.dtype == dtype and torch.equal(got, want),
-            f"roi_pool backward != plain on integer gradients ({dtype}): "
-            f"max|d| {float((got.float() - want.float()).abs().max())}",
-        )
-        # Normal gradients, summed in float32 (the map before the cast).
-        normal = torch.randn(arg.shape, generator=g).to(device, dtype)
-        got = roi_pool_mod.roi_pool_backward_cuda(normal, arg, shape, torch.float32)
-        want = roi_pool_mod.roi_pool_backward_reference(normal, arg, shape, torch.float32)
-        diff = float((got - want).abs().max())
-        scale = float(want.abs().max())
-        _require(diff <= 1e-5 * scale, f"roi_pool backward ({dtype}): max|d| {diff} > 1e-5 * {scale}")
+        name = str(dtype).removeprefix("torch.")
+        normal, diff, scale = _check_pool_backward(arg, shape, dtype, g, f"train {name}")
         err = max(err, diff)
-        ms = _median_ms(lambda: roi_pool_mod.roi_pool_backward_cuda(normal, arg, shape, dtype))
+        call = lambda: roi_pool_mod.roi_pool_backward_cuda(normal, arg, shape, dtype)
+        ms, burst_ms = _median_ms(call), _median_ms(call, burst=BURST)
         plain_ms = _median_ms(
             lambda: roi_pool_mod.roi_pool_backward_reference(normal, arg, shape, dtype)
         )
-        name = str(dtype).removeprefix("torch.")
+        size = f.element_size()
+        n_bytes = normal.numel() * (size + 4) + f.numel() * size  # grad, argmax, map
+        bound_ms, bound_by = _bound(n_bytes, int((arg >= 0).sum()))  # one add each
         print(
             f"roi_pool_backward {name} grad {tuple(normal.shape)} -> feats {shape}: bit-exact on "
             f"integer gradients, max|d| {diff:.3g} (max|ref| {scale:.3g}) on normal ones, "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 25)",
+            f"kernel {ms:.4f} ms ({burst_ms:.4f} back to back), plain {plain_ms:.4f} ms "
+            f"(median of 25), bound {bound_ms:.4f} ms ({n_bytes / 1e6:.2f} MB)",
             flush=True,
         )
         if dtype == torch.float32:
-            n_bytes = normal.numel() * 4 + arg.numel() * 4 + want.numel() * 4
-            bound_ms, bound_by = _bound(n_bytes, int((arg >= 0).sum()))  # one add each
             # One PyTorch call computes the same sums: scatter_add_ on the
             # plain version's prepared [B, C, h*w + 1] index.
             b, c, h2, w2 = shape
@@ -428,14 +482,72 @@ def check_roi_pool_backward_kernel(device) -> dict:
             flat_a = arg.transpose(1, 2).reshape(b, c, -1).long()
             flat_a = torch.where(flat_a >= 0, flat_a, h2 * w2)
             acc = torch.zeros((b, c, h2 * w2 + 1), device=device)
-            library_ms = _median_ms(lambda: acc.scatter_add_(2, flat_a, flat_g))
+            scatter = lambda: acc.scatter_add_(2, flat_a, flat_g)
+            library_ms = _median_ms(scatter)
             record.update(
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library_ms,
             )
-            print(f"  scatter_add_ on the prepared index: {library_ms:.4f} ms", flush=True)
+            print(
+                f"  scatter_add_ on the prepared index: {library_ms:.4f} ms "
+                f"({_median_ms(scatter, burst=BURST):.4f} back to back)",
+                flush=True,
+            )
     record["max_abs_err"] = err
     return record
+
+
+def check_roi_pool_large_maps(device) -> None:
+    """Both RoIPool kernels on maps whose channel plane exceeds a block's
+    232,448 bytes of shared memory in the dtype under test (the forward's
+    direct-read route, the backward's row bands), and on a bfloat16 plane
+    of 122,880 bytes (a staged forward block above 48 KB), 64 rois each
+    with the edge rois: the forward bit-exact, the backward as at the train
+    shape."""
+    for (c, h, w), dtype in (
+        ((16, 240, 256), torch.float32),
+        ((16, 340, 352), torch.bfloat16),
+        ((16, 240, 256), torch.bfloat16),
+    ):
+        feats, rois, g = _pool_inputs(SEED + 3, 1, c, h, w, 64)
+        f, rois = feats.to(device, dtype), rois.to(device)
+        name = f"{str(dtype).removeprefix('torch.')} feats {tuple(f.shape)}"
+        _check_pool_forward(f, rois, name)
+        _, arg = roi_pool_mod.roi_pool_cuda(f, rois, 1.0, 7, with_argmax=True)
+        _, diff, scale = _check_pool_backward(arg, tuple(f.shape), dtype, g, name)
+        print(
+            f"roi_pool large map {name} ({h * w * f.element_size()} B a plane), 64 rois: forward "
+            f"bit-exact; backward bit-exact on integer gradients, max|d| {diff:.3g} "
+            f"(max|ref| {scale:.3g}) on normal ones",
+            flush=True,
+        )
+
+
+def print_roi_pool_plans() -> None:
+    """The launch plans of phase 2's RoIPool shapes on this card."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    h, w = CANVAS[0] // 16, CANVAS[1] // 16
+    for b, c, h2, w2, n in (
+        (1, 512, h, w, 300),
+        (TRAIN_BATCH, 512, h, w, LEGACY_CONFIG.roi_samples),
+        (1, 16, 240, 256, 64),
+        (1, 16, 340, 352, 64),
+    ):
+        for dtype in (torch.float32, torch.bfloat16):
+            size = torch.empty((), dtype=dtype).element_size()
+            fwd = roi_pool_mod.forward_plan(b, c, h2, w2, n, size, 7, sms)
+            bwd = roi_pool_mod.backward_plan(b, c, h2, w2, n)
+            staged = (
+                f"{fwd.grid} blocks of {fwd.chunk_channels} channel(s) x {fwd.chunk_rois} rois, "
+                f"{fwd.shared_bytes} B shared"
+            )
+            print(
+                f"roi_pool plans [{b}, {c}, {h2}, {w2}] x {n} rois {str(dtype).removeprefix('torch.')}: "
+                f"forward {staged if fwd.shared_bytes else 'direct reads'}; "
+                f"backward {bwd.grid} blocks of {bwd.chunk_channels} channel(s) x "
+                f"{bwd.band_rows} rows, {bwd.shared_bytes} B shared",
+                flush=True,
+            )
 
 
 def _align_rois(generator, n: int, canvas=CANVAS) -> torch.Tensor:
@@ -1436,6 +1548,8 @@ def main() -> int:
 
     record = check_roi_pool_kernel(device)
     bwd_record = check_roi_pool_backward_kernel(device)
+    check_roi_pool_large_maps(device)
+    print_roi_pool_plans()
     align_record = check_roi_align_kernel(device)
     align_bwd_record = check_roi_align_backward_kernel(device)
     iou_record = check_iou_kernel(device)

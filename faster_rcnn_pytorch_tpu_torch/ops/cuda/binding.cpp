@@ -8,16 +8,19 @@
 #include <ATen/cuda/CUDAContext.h>
 #include <c10/cuda/CUDAGuard.h>
 
+#include <algorithm>
 #include <cstdint>
 #include <vector>
 
 int roi_pool_forward_launch(const void* feat, bool feat_is_bf16, const float* rois,
-                            int num_rois, int rois_per_image, int channels,
-                            int height, int width, int pooled, float spatial_scale,
-                            void* out, int32_t* argmax, void* stream);
+                            int num_rois, int rois_per_image, int channels, int height,
+                            int width, int pooled, float spatial_scale, int chunk_channels,
+                            int chunk_rois, int shared_bytes, void* out, int32_t* argmax,
+                            void* stream);
 int roi_pool_backward_launch(const void* grad, bool grad_is_bf16, const int32_t* argmax,
-                             int num_rois, int rois_per_image, int channels,
-                             int height, int width, int pooled, float* dfeat,
+                             int images, int rois_per_image, int channels, int height,
+                             int width, int pooled, int chunk_channels, int band_rows,
+                             int shared_bytes, void* dfeat, bool dfeat_is_bf16,
                              void* stream);
 const char* roi_pool_error_string(int err);
 int roi_align_forward_launch(const void* const* feats, const int* heights, const int* widths,
@@ -38,11 +41,17 @@ int pairwise_iou_launch(const float* a, const float* b, int n, int m, float eps,
 
 static constexpr float kAlignScales[4] = {1.0f / 4, 1.0f / 8, 1.0f / 16, 1.0f / 32};
 
+// The most dynamic shared memory an sm_90 block may ask for.
+static constexpr int64_t kMaxSharedBytes = 232448;
+
 // features [B, C, H, W] f32/bf16, rois [B, n, 4] f32 (all contiguous, one
 // device) -> fills out [B*n, C, P, P] (features' dtype) and, unless it is
-// empty, argmax [B*n, C, P, P] int32.
+// empty, argmax [B*n, C, P, P] int32. The plan (ops/roi_pool.py::forward_plan):
+// channels and rois per block and the bytes of shared memory a block takes,
+// 0 for the direct-read route.
 void roi_pool_forward(const at::Tensor& features, const at::Tensor& rois,
-                      double spatial_scale, int64_t pooled, at::Tensor& out,
+                      double spatial_scale, int64_t pooled, int64_t chunk_channels,
+                      int64_t chunk_rois, int64_t shared_bytes, at::Tensor& out,
                       at::Tensor& argmax) {
   TORCH_CHECK(features.is_cuda() && rois.is_cuda() && out.is_cuda(),
               "roi_pool_forward: tensors must be on a CUDA device");
@@ -59,10 +68,19 @@ void roi_pool_forward(const at::Tensor& features, const at::Tensor& rois,
                   out.get_device() == features.get_device(),
               "roi_pool_forward: tensors must share one device");
   const int64_t b = features.size(0), c = features.size(1);
+  const int64_t h = features.size(2), w = features.size(3);
   const int64_t n = rois.size(1);
   TORCH_CHECK(out.scalar_type() == features.scalar_type() &&
                   out.sizes() == at::IntArrayRef({b * n, c, pooled, pooled}),
               "out must be [B*n, C, P, P] in the features' dtype");
+  if (shared_bytes != 0) {
+    const int64_t plane = (chunk_channels * h * w * features.element_size() + 15) / 16 * 16;
+    TORCH_CHECK(chunk_channels >= 1 && chunk_rois >= 1 && h < 65536 && w < 65536 &&
+                    shared_bytes >= plane + chunk_rois * 2 * pooled * 4 &&
+                    shared_bytes <= kMaxSharedBytes,
+                "roi_pool_forward: a plan of ", chunk_channels, " channels, ", chunk_rois,
+                " rois and ", shared_bytes, " bytes does not fit a [", h, ", ", w, "] map");
+  }
   int32_t* argmax_ptr = nullptr;
   if (argmax.numel() > 0) {
     TORCH_CHECK(argmax.is_cuda() && argmax.get_device() == features.get_device() &&
@@ -76,16 +94,20 @@ void roi_pool_forward(const at::Tensor& features, const at::Tensor& rois,
   const int err = roi_pool_forward_launch(
       features.data_ptr(), features.scalar_type() == at::kBFloat16,
       rois.data_ptr<float>(), static_cast<int>(b * n), static_cast<int>(n),
-      static_cast<int>(c), static_cast<int>(features.size(2)),
-      static_cast<int>(features.size(3)), static_cast<int>(pooled),
-      static_cast<float>(spatial_scale), out.data_ptr(), argmax_ptr,
+      static_cast<int>(c), static_cast<int>(h), static_cast<int>(w),
+      static_cast<int>(pooled), static_cast<float>(spatial_scale),
+      static_cast<int>(chunk_channels), static_cast<int>(chunk_rois),
+      static_cast<int>(shared_bytes), out.data_ptr(), argmax_ptr,
       static_cast<void*>(stream));
   TORCH_CHECK(err == 0, "roi_pool_forward launch failed: ", roi_pool_error_string(err));
 }
 
 // grad [B, n, C, P, P] f32/bf16 and argmax [B, n, C, P, P] int32 (contiguous)
-// -> atomically adds into dfeat [B, C, H, W] float32, which the caller zeroed.
+// -> writes every cell of dfeat [B, C, H, W] (float32 or bfloat16; no need
+// to zero it). The plan (ops/roi_pool.py::backward_plan): channels per
+// block, rows per band and the bytes of shared memory a block takes.
 void roi_pool_backward(const at::Tensor& grad, const at::Tensor& argmax,
+                       int64_t chunk_channels, int64_t band_rows, int64_t shared_bytes,
                        at::Tensor& dfeat) {
   TORCH_CHECK(grad.is_cuda() && argmax.is_cuda() && dfeat.is_cuda(),
               "roi_pool_backward: tensors must be on a CUDA device");
@@ -95,22 +117,30 @@ void roi_pool_backward(const at::Tensor& grad, const at::Tensor& argmax,
               "grad must be float32 or bfloat16");
   TORCH_CHECK(argmax.scalar_type() == at::kInt && argmax.sizes() == grad.sizes(),
               "argmax must be int32 shaped like grad");
-  TORCH_CHECK(dfeat.scalar_type() == at::kFloat && dfeat.dim() == 4 &&
-                  dfeat.size(0) == grad.size(0) && dfeat.size(1) == grad.size(2),
-              "dfeat must be float32 [B, C, H, W] matching grad");
+  TORCH_CHECK((dfeat.scalar_type() == at::kFloat || dfeat.scalar_type() == at::kBFloat16) &&
+                  dfeat.dim() == 4 && dfeat.size(0) == grad.size(0) &&
+                  dfeat.size(1) == grad.size(2),
+              "dfeat must be float32 or bfloat16 [B, C, H, W] matching grad");
   TORCH_CHECK(grad.is_contiguous() && argmax.is_contiguous() && dfeat.is_contiguous(),
               "roi_pool_backward: tensors must be contiguous");
   TORCH_CHECK(argmax.get_device() == grad.get_device() &&
                   dfeat.get_device() == grad.get_device(),
               "roi_pool_backward: tensors must share one device");
   const int64_t b = grad.size(0), n = grad.size(1), c = grad.size(2);
+  const int64_t h = dfeat.size(2), w = dfeat.size(3);
+  TORCH_CHECK(chunk_channels >= 1 && band_rows >= 1 &&
+                  shared_bytes >= chunk_channels * std::min(band_rows, h) * w * 4 &&
+                  shared_bytes <= kMaxSharedBytes,
+              "roi_pool_backward: a plan of ", chunk_channels, " channels, ", band_rows,
+              " rows and ", shared_bytes, " bytes does not fit a [", h, ", ", w, "] map");
   const c10::cuda::CUDAGuard guard(grad.device());
   const cudaStream_t stream = at::cuda::getCurrentCUDAStream();
   const int err = roi_pool_backward_launch(
       grad.data_ptr(), grad.scalar_type() == at::kBFloat16, argmax.data_ptr<int32_t>(),
-      static_cast<int>(b * n), static_cast<int>(n), static_cast<int>(c),
-      static_cast<int>(dfeat.size(2)), static_cast<int>(dfeat.size(3)),
-      static_cast<int>(grad.size(3)), dfeat.data_ptr<float>(), static_cast<void*>(stream));
+      static_cast<int>(b), static_cast<int>(n), static_cast<int>(c), static_cast<int>(h),
+      static_cast<int>(w), static_cast<int>(grad.size(3)), static_cast<int>(chunk_channels),
+      static_cast<int>(band_rows), static_cast<int>(shared_bytes), dfeat.data_ptr(),
+      dfeat.scalar_type() == at::kBFloat16, static_cast<void*>(stream));
   TORCH_CHECK(err == 0, "roi_pool_backward launch failed: ", roi_pool_error_string(err));
 }
 
@@ -252,7 +282,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("roi_pool_forward", &roi_pool_forward,
         "RoIPool forward into preallocated outputs (CUDA)");
   m.def("roi_pool_backward", &roi_pool_backward,
-        "RoIPool features-gradient, atomically added into a zeroed float32 map (CUDA)");
+        "RoIPool features-gradient, summed in shared memory and written once (CUDA)");
   m.def("roi_align_forward", &roi_align_forward,
         "MultiScaleRoIAlign forward over P2..P5 into a preallocated output (CUDA)");
   m.def("roi_align_slots_forward", &roi_align_slots_forward,

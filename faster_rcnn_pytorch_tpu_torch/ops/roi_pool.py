@@ -18,6 +18,8 @@ the JAX package's, bit for bit:
 :func:`roi_pool_batch` dispatches: a CUDA tensor goes to the hand-written
 kernels (``ops/cuda/roi_pool.cu``) and a CPU tensor to the plain versions,
 :func:`roi_pool_reference` and :func:`roi_pool_backward_reference`. The
+kernels hold channel planes in shared memory; :func:`forward_plan` and
+:func:`backward_plan` cut the work into thread blocks. The
 gradient w.r.t. the features adds each pooled cell's upstream gradient at
 its argmax cell (ties went to the first max in the forward, as in the
 TPU kernel; ``jax.grad`` of a plain max would split them). There is no
@@ -26,10 +28,136 @@ fallback: a build or launch failure on a CUDA tensor raises.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
 # Rois gathered per step by the plain version (bounds its transient memory).
 _ROI_CHUNK = 32
+
+# The most dynamic shared memory one block may take on an H100 (sm_90).
+SHARED_MEMORY_BYTES = 232_448
+H100_SMS = 132
+# Forward blocks each SM gets at least, where the shape allows: eight
+# blocks of up to 256 threads fill an SM.
+_BLOCKS_PER_SM = 8
+# Channels a forward block stages: its warps' lanes take one bin of both
+# channels, whose scans run the same trip counts.
+_FORWARD_CHANNELS = 2
+# The fewest rois a forward block walks when the rois are cut (unless the
+# image has fewer): below it, staging the planes outweighs the scans.
+_MIN_CHUNK_ROIS = 32
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How a RoIPool kernel cuts a ``[batch, channels, height, *]`` map and
+    ``rois`` rois per image into thread blocks.
+
+    A block owns one image, ``chunk_channels`` channels, ``band_rows`` rows
+    and ``chunk_rois`` rois, and asks for ``shared_bytes`` of dynamic shared
+    memory. The forward cuts the rois (its blocks hold whole planes); the
+    backward cuts the rows into bands (its blocks walk every roi).
+    ``shared_bytes == 0`` is the forward's direct-read route for a plane too
+    large for shared memory: no blocks of its own, a thread per output.
+    """
+
+    batch: int
+    channels: int
+    height: int
+    rois: int
+    chunk_channels: int
+    chunk_rois: int
+    band_rows: int
+    shared_bytes: int
+
+    def blocks(self):
+        """``(image, (c_lo, c_hi), (row_lo, row_hi), (roi_lo, roi_hi))`` of
+        every block, in the kernels' ``blockIdx.x`` order."""
+        for b in range(self.batch):
+            for c in range(0, self.channels, self.chunk_channels):
+                for r in range(0, max(self.rois, 1), self.chunk_rois):
+                    for y in range(0, self.height, self.band_rows):
+                        yield (
+                            b,
+                            (c, min(c + self.chunk_channels, self.channels)),
+                            (y, min(y + self.band_rows, self.height)),
+                            (r, min(r + self.chunk_rois, self.rois)),
+                        )
+
+    @property
+    def grid(self) -> int:
+        return (
+            self.batch
+            * _cdiv(self.channels, self.chunk_channels)
+            * _cdiv(max(self.rois, 1), self.chunk_rois)
+            * _cdiv(self.height, self.band_rows)
+        )
+
+
+@functools.lru_cache(maxsize=64)  # a few shapes a run; keeps the host path short
+def forward_plan(
+    batch: int,
+    channels: int,
+    height: int,
+    width: int,
+    rois: int,
+    itemsize: int,
+    pooled: int = 7,
+    sms: int = H100_SMS,
+) -> LaunchPlan:
+    """The forward kernel's plan. A block stages ``_FORWARD_CHANNELS``
+    channel planes (one where two leave no room for a roi; ``itemsize``
+    bytes a cell, padded to 16 bytes) and the packed bin bounds of its rois
+    (``2 * pooled`` int32 a roi). The rois are cut into as few chunks as
+    give every SM ``_BLOCKS_PER_SM`` blocks, of at least
+    ``_MIN_CHUNK_ROIS`` rois: each further chunk stages its planes again,
+    from L2. A plane that leaves no room for one roi (or a side of 2^16
+    cells, past the packed bounds) takes the direct-read route."""
+    roi_bytes = 2 * pooled * 4
+
+    def planes_bytes(n: int) -> int:
+        return _cdiv(n * height * width * itemsize, 16) * 16
+
+    if planes_bytes(1) + roi_bytes > SHARED_MEMORY_BYTES or max(height, width) >= 1 << 16:
+        return LaunchPlan(batch, channels, height, rois, channels, max(rois, 1), height, 0)
+    cc = min(_FORWARD_CHANNELS, channels)
+    if planes_bytes(cc) + roi_bytes > SHARED_MEMORY_BYTES:
+        cc = 1
+    n = max(rois, 1)
+    chunks = min(
+        _cdiv(_BLOCKS_PER_SM * sms, batch * _cdiv(channels, cc)), _cdiv(n, _MIN_CHUNK_ROIS)
+    )
+    chunk_rois = min(_cdiv(n, chunks), (SHARED_MEMORY_BYTES - planes_bytes(cc)) // roi_bytes)
+    return LaunchPlan(
+        batch, channels, height, rois, cc, chunk_rois, height,
+        planes_bytes(cc) + chunk_rois * roi_bytes,
+    )
+
+
+@functools.lru_cache(maxsize=64)
+def backward_plan(batch: int, channels: int, height: int, width: int, rois: int) -> LaunchPlan:
+    """The backward kernel's plan. A block sums one channel's float32
+    plane in shared memory (two a block were slower at the train shape,
+    PERF.md section 6). A plane larger than a block's shared memory is cut
+    into bands of rows as even as can be, a block each: a block then adds
+    only the entries whose argmax row lies in its band."""
+    row_bytes = width * 4
+    if row_bytes > SHARED_MEMORY_BYTES:
+        raise ValueError(f"a row of {width} float32 cells exceeds one block's shared memory")
+    rows = max(1, min(height, SHARED_MEMORY_BYTES // max(row_bytes, 1)))
+    rows = _cdiv(height, _cdiv(height, rows)) if height else 1
+    return LaunchPlan(batch, channels, height, rois, 1, max(rois, 1), rows, rows * row_bytes)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _bin_bounds(start, extent, size: int, output_size: int):
@@ -137,8 +265,8 @@ def roi_pool_cuda(
     with_argmax: bool = False,
 ):
     """The hand-written Hopper kernel (``ops/cuda/roi_pool.cu``), same
-    arguments and results as :func:`roi_pool_reference`. Counts its
-    launches in ``roi_pool_cuda.launches``."""
+    arguments and results as :func:`roi_pool_reference`, cut into blocks by
+    :func:`forward_plan`. Counts its launches in ``roi_pool_cuda.launches``."""
     if not (features.is_cuda and rois.is_cuda):
         raise ValueError("roi_pool_cuda needs CUDA tensors")
     if features.dtype not in (torch.float32, torch.bfloat16):
@@ -153,9 +281,10 @@ def roi_pool_cuda(
     from faster_rcnn_pytorch_tpu_torch.ops.cuda import extension
 
     ext = extension()
-    b, c = features.shape[:2]
+    b, c, h, w = features.shape
     n = rois.shape[1]
     p = output_size
+    plan = forward_plan(b, c, h, w, n, features.element_size(), p, _sms(features.device))
     out = torch.empty((b * n, c, p, p), dtype=features.dtype, device=features.device)
     arg = torch.empty(
         (b * n, c, p, p) if with_argmax else (0,),
@@ -163,7 +292,15 @@ def roi_pool_cuda(
         device=features.device,
     )
     ext.roi_pool_forward(
-        features.contiguous(), rois.contiguous(), float(spatial_scale), p, out, arg
+        features.contiguous(),
+        rois.contiguous(),
+        float(spatial_scale),
+        p,
+        plan.chunk_channels,
+        plan.chunk_rois,
+        plan.shared_bytes,
+        out,
+        arg,
     )
     roi_pool_cuda.launches += 1
     out = out.reshape(b, n, c, p, p)
@@ -202,9 +339,10 @@ def roi_pool_backward_cuda(
     grad: torch.Tensor, argmax: torch.Tensor, features_shape, dtype: torch.dtype
 ) -> torch.Tensor:
     """The hand-written Hopper backward (``ops/cuda/roi_pool.cu``), same
-    arguments and result as :func:`roi_pool_backward_reference`: atomic
-    float32 adds into a zeroed ``[B, C, h, w]`` scratch, cast to
-    ``dtype``. Counts its launches in ``roi_pool_backward_cuda.launches``."""
+    arguments and result as :func:`roi_pool_backward_reference` for
+    ``dtype`` float32 or bfloat16: float32 sums in shared memory, cut into
+    blocks by :func:`backward_plan`, each cell written once in ``dtype``.
+    Counts its launches in ``roi_pool_backward_cuda.launches``."""
     if not (grad.is_cuda and argmax.is_cuda):
         raise ValueError("roi_pool_backward_cuda needs CUDA tensors")
     if grad.dtype not in (torch.float32, torch.bfloat16):
@@ -214,16 +352,26 @@ def roi_pool_backward_cuda(
             f"want grad [B,n,C,P,P] and an int32 argmax of its shape, got "
             f"{tuple(grad.shape)} and {tuple(argmax.shape)} {argmax.dtype}"
         )
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"dtype must be float32 or bfloat16, not {dtype}")
     b, c, h, w = features_shape
     if grad.shape[0] != b or grad.shape[2] != c:
         raise ValueError(f"grad {tuple(grad.shape)} does not match features {features_shape}")
     from faster_rcnn_pytorch_tpu_torch.ops.cuda import extension
 
     ext = extension()
-    dfeat = torch.zeros((b, c, h, w), dtype=torch.float32, device=grad.device)
-    ext.roi_pool_backward(grad.contiguous(), argmax.contiguous(), dfeat)
+    plan = backward_plan(b, c, h, w, grad.shape[1])
+    dfeat = torch.empty((b, c, h, w), dtype=dtype, device=grad.device)
+    ext.roi_pool_backward(
+        grad.contiguous(),
+        argmax.contiguous(),
+        plan.chunk_channels,
+        plan.band_rows,
+        plan.shared_bytes,
+        dfeat,
+    )
     roi_pool_backward_cuda.launches += 1
-    return dfeat.to(dtype)
+    return dfeat
 
 
 roi_pool_backward_cuda.launches = 0
