@@ -7,9 +7,9 @@ CUDA card, builds the port's kernels from the sources in the checkout
 
 1. device: a CUDA card is present; prints its name and power limit.
 2. kernels: each hand-written kernel against its plain PyTorch version,
-   timed with CUDA events (median of 25 runs; the RoIPool kernels also
-   back to back, 10 calls between two events, so that their wrappers' host
-   path overlaps the device's work), with its bound (the least
+   timed with CUDA events (median of 25 runs; the RoIPool and IoU kernels
+   also back to back, 10 calls between two events, so that their wrappers'
+   host path overlaps the device's work), with its bound (the least
    time for the bytes this run's data needs at 3.35 TB/s, or its
    operations at 67 TFLOP/s float32, whichever is larger):
    * RoIPool forward at the legacy predict shape (feats [1, 512, 50, 84],
@@ -43,8 +43,13 @@ CUDA card, builds the port's kernels from the sources in the checkout
    * IoU at the dense train shapes ([2512, 4] x [512, 4], legacy at
      ``--max_gt`` 512, and [1640, 4] x [640, 4], FPN at 640: proposals
      around 400 small gt boxes, random, degenerate and coincident ones,
-     padded zero gt rows), eps 1e-5 and eps 0 (zero-area pairs hit the
-     1e-12 union floor), bit-exact;
+     padded zero gt rows, 10 gt slots copied), eps 1e-5 and eps 0
+     (zero-area pairs hit the 1e-12 union floor): the matrix mode
+     bit-exact without masks, with both masks and on a width that is not a
+     multiple of 4; the match mode over the two-image batch equal to the
+     plain chain (max bit for bit, first argmax); both also back to back
+     (``BURST`` calls), beside an empty kernel (the launch floor) and the
+     per-image chain (matrix, ``where``, ``max``) that the match replaces;
    * the slot-lattice MultiScaleRoIAlign forward (no main path runs it) on
      the forward's predict shapes and rois, float32 and bfloat16: bit-exact
      with its plain version, within 1e-5 * max|ref| of the forward kernel
@@ -121,12 +126,14 @@ CUDA card, builds the port's kernels from the sources in the checkout
 15. main path, legacy dense-scene train: phase 6 with the gt padded to
    512 slots (``--max_gt 512``, past the IoU kernel's gate of 432) and
    300-500 small boxes tiled over each image, counts reset just before and
-   read just after: the IoU kernel runs once per image and step (2 per
-   step), RoIPool forward and backward once per step each; losses finite
-   and falling as in phase 6; img/s printed as there.
+   read just after: the IoU kernel's match mode runs once per step for
+   the batch and its matrix mode never, RoIPool forward and backward once
+   per step each; losses finite and falling as in phase 6; img/s printed
+   as there.
 16. dense step vs plain: one float32 dense step from the same weights and
-   noise through the IoU kernel and with ``plain=True``: identical RPN and
-   RoI targets (rois, labels, is_pos, valid, reg targets) and losses.
+   noise through the IoU match kernel and with ``plain=True``: identical
+   RPN and RoI targets (rois, labels, is_pos, valid, reg targets) and
+   losses.
 17. imports: jax and flax were never imported.
 
 Its last two lines are the kernels' JSON record and
@@ -857,53 +864,147 @@ def iou_boxes(generator, n_props: int, max_gt: int, n_real: int) -> tuple[torch.
     return torch.cat([props, gt]), gt
 
 
+IOU_KERNELS = (boxes_mod.pairwise_iou_cuda, boxes_mod.iou_match_cuda)  # the matrix and match modes
+
+
+def _iou_launches() -> int:
+    return sum(k.launches for k in IOU_KERNELS)
+
+
+def _iou_inputs(generator, n_props: int, max_gt: int, device):
+    """A ``TRAIN_BATCH`` of ``frcnn_targets``' candidates and gt
+    (``iou_boxes``, 400 real gt an image; slots 10-19 copies of 0-9, so
+    that equal maxima meet in the match) with their masks: 10% of the
+    proposals invalid, the appended gt valid where its slot is."""
+    pairs = [iou_boxes(generator, n_props, max_gt, 400) for _ in range(TRAIN_BATCH)]
+    cand, gt = (torch.stack(t) for t in zip(*pairs))
+    gt[:, 10:20] = gt[:, 0:10]
+    cand[:, n_props + 10 : n_props + 20] = gt[:, 10:20]
+    gt_mask = (torch.arange(max_gt) < 400).expand(TRAIN_BATCH, max_gt).contiguous()
+    roi_valid = torch.rand(TRAIN_BATCH, n_props, generator=generator) > 0.1
+    cand_valid = torch.cat([roi_valid, gt_mask], 1)
+    return (t.to(device) for t in (cand, cand_valid, gt, gt_mask))
+
+
 def check_iou_kernel(device) -> dict:
-    """The IoU kernel against its plain version at the dense train shapes
-    (legacy at --max_gt 512, FPN at 640), bit for bit at eps 1e-5 and at
-    eps 0, where padded rows meet padded rows and the 1e-12 union floor
-    decides."""
+    """Both modes of the IoU kernel at the dense train shapes (legacy at
+    --max_gt 512, FPN at 640), eps 1e-5 and eps 0 (padded rows meet padded
+    rows: the 1e-12 union floor decides): the matrix mode bit for bit
+    against ``pairwise_iou_reference`` without a mask, with the gt mask,
+    and with it on a width that is not a multiple of 4 (the scalar
+    stores); the match mode on the two-image batch against the plain chain
+    (``iou_match_reference``), the max bit for bit and the argmax equal.
+    Timed one call between two events and back to back (``BURST`` calls),
+    beside an empty kernel launched through the same extension (the launch
+    floor), the plain versions, and the chain the match replaces on the
+    card (per image the matrix mode with the gt mask, ``where`` on the
+    candidates' validity, ``max``). The record's ``ms``, ``burst_ms``,
+    ``plain_ms`` and bound are the match mode's, the one the main path
+    launches (legacy shape, eps 1e-5); the matrix mode's, which no main
+    path launches, are its ``matrix_*`` keys."""
     g = torch.Generator().manual_seed(SEED + 9)
+    empty = extension().empty_kernel
+    floor_ms, floor_burst_ms = _median_ms(empty), _median_ms(empty, burst=BURST)
+    print(
+        f"empty kernel: {floor_ms:.4f} ms one call, {floor_burst_ms:.4f} ms back to back "
+        "(the launch floor)",
+        flush=True,
+    )
     record = {
         "name": "pairwise_iou",
         "route": "cuda",
         "source": "faster_rcnn_pytorch_tpu_torch/ops/cuda/iou.cu",
         "replaces": "faster_rcnn_pytorch_tpu/ops/pallas/iou_kernel.py:25",
+        "max_abs_err": 0.0,  # every output is held bit-exact
         "library_ms": None,  # PyTorch has no IoU call (torchvision is not a dependency)
+        "floor_ms": floor_ms,
+        "floor_burst_ms": floor_burst_ms,
     }
-    err = 0.0
     shapes = (
         ("legacy", LEGACY_CONFIG.post_nms_train, DENSE_MAX_GT),
         ("fpn", FPN_CONFIG.post_nms_train, FPN_DENSE_MAX_GT),
     )
+    matrix, match = boxes_mod.pairwise_iou_cuda, boxes_mod.iou_match_cuda
     for generation, n_props, max_gt in shapes:
-        cand, gt = (t.to(device) for t in iou_boxes(g, n_props, max_gt, 400))
-        n, m = cand.shape[0], gt.shape[0]
+        cand, cand_valid, gt, gt_mask = _iou_inputs(g, n_props, max_gt, device)
+        b, n, m = cand.shape[0], cand.shape[1], gt.shape[1]
         _require(n * m >= boxes_mod.IOU_KERNEL_MIN_PAIRS, f"{n} x {m} is below the kernel's gate")
+        a0, v0, g0, m0 = cand[0], cand_valid[0], gt[0], gt_mask[0]
         for eps in (1e-5, 0.0):
-            got = boxes_mod.pairwise_iou_cuda(cand, gt, eps)
-            torch.cuda.synchronize()
-            want = boxes_mod.pairwise_iou_reference(cand, gt, eps)
-            diff = float((got - want).abs().max())
-            _require(
-                got.dtype == torch.float32 and torch.equal(got, want),
-                f"iou kernel != plain ({generation}, eps {eps}): max|d| {diff}",
+            cases = (
+                ("matrix", (a0, g0, eps), boxes_mod.pairwise_iou_reference(a0, g0, eps)),
+                (
+                    "matrix masked",
+                    (a0, g0, eps, m0),
+                    boxes_mod.pairwise_iou_reference(a0, g0, eps, m0),
+                ),
+                (
+                    f"matrix masked, {m - 3} columns",
+                    (a0, g0[: m - 3], eps, m0[: m - 3]),
+                    boxes_mod.pairwise_iou_reference(a0, g0[: m - 3], eps, m0[: m - 3]),
+                ),
             )
-            err = max(err, diff)
-            floored = int(((cand[:, None, 2] == cand[:, None, 0]) & (gt[None, :, 2] == gt[None, :, 0])).sum())
-            ms = _median_ms(lambda: boxes_mod.pairwise_iou_cuda(cand, gt, eps))
-            plain_ms = _median_ms(lambda: boxes_mod.pairwise_iou_reference(cand, gt, eps))
+            for what, args, want in cases:
+                got = matrix(*args)
+                torch.cuda.synchronize()
+                _require(
+                    got.dtype == torch.float32 and torch.equal(got, want),
+                    f"iou {what} != plain ({generation}, eps {eps}): max|d| {float((got - want).abs().max())}",
+                )
+            got = match(cand, cand_valid, gt, gt_mask, eps)
+            torch.cuda.synchronize()
+            want = boxes_mod.iou_match_reference(cand, cand_valid, gt, gt_mask, eps)
+            _require(
+                torch.equal(got[0], want.values) and torch.equal(got[1], want.indices),
+                f"iou match != plain ({generation}, eps {eps}): max|d| "
+                f"{float((got[0] - want.values).abs().max())}, "
+                f"{int((got[1] != want.indices).sum())} argmax differ",
+            )
+            ties = int((((cases[1][2] == want.values[0][:, None]).sum(1) > 1) & v0).sum())
+            floored = int(((a0[:, None, 2] == a0[:, None, 0]) & (g0[None, :, 2] == g0[None, :, 0])).sum())
+            mat_call = lambda: matrix(a0, g0, eps)
+            match_call = lambda: match(cand, cand_valid, gt, gt_mask, eps)
+
+            def chain():  # what frcnn_targets ran per image before the match mode
+                for i in range(b):
+                    iou = matrix(cand[i], gt[i], eps, gt_mask[i])
+                    torch.where(cand_valid[i][:, None], iou, -1.0).max(dim=1)
+
+            ms, burst_ms = _median_ms(mat_call), _median_ms(mat_call, burst=BURST)
+            plain_ms = _median_ms(lambda: boxes_mod.pairwise_iou_reference(a0, g0, eps))
+            match_ms, match_burst_ms = _median_ms(match_call), _median_ms(match_call, burst=BURST)
+            match_plain_ms = _median_ms(
+                lambda: boxes_mod.iou_match_reference(cand, cand_valid, gt, gt_mask, eps)
+            )
+            chain_ms, chain_burst_ms = _median_ms(chain), _median_ms(chain, burst=BURST)
+            # matrix: the [n, m] float32 output and the boxes; 13 operations a
+            # pair (4 min/max, 2 subs, 2 clamps, inter, 2 adds, 1 sub, 1 div)
+            n_bytes = n * m * 4 + (n + m) * 16
+            bound_ms, bound_by = _bound(n_bytes, 13 * n * m)
+            # match: the batch's boxes and masks in, max and int64 argmax out;
+            # the 13 operations and one comparison a pair
+            match_bytes = b * (n + m) * 17 + b * n * 12
+            match_bound_ms, match_bound_by = _bound(match_bytes, 14 * b * n * m)
             print(
-                f"iou {generation} [{n}, 4] x [{m}, 4] eps {eps}: bit-exact ({floored} zero-width "
-                f"pairs), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 25)",
+                f"iou {generation} eps {eps}: matrix [{n}, 4] x [{m}, 4] bit-exact with and without the mask "
+                f"({floored} zero-width pairs), kernel {ms:.4f} ms ({burst_ms:.4f} back to back), plain "
+                f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({n_bytes / 1e6:.2f} MB, {bound_by}); match "
+                f"[{b}, {n}, 4] x [{b}, {m}, 4] equal to the plain chain ({ties} valid rows with tied "
+                f"maxima in image 0), kernel {match_ms:.4f} ms ({match_burst_ms:.4f} back to back), plain "
+                f"{match_plain_ms:.4f} ms, bound {match_bound_ms:.5f} ms ({match_bytes / 1e6:.3f} MB, "
+                f"{match_bound_by}); the per-image chain it replaces {chain_ms:.4f} ms "
+                f"({chain_burst_ms:.4f} back to back) (medians of 25)",
                 flush=True,
             )
             if generation == "legacy" and eps:
-                n_bytes = n * m * 4 + (n + m) * 16
-                # per pair: 4 min/max, 2 subs, 2 clamps, inter, 2 adds, 1 sub, 1 div
-                bound_ms, bound_by = _bound(n_bytes, 13 * n * m)
-                print(f"  {n_bytes / 1e6:.2f} MB moved: bound {bound_ms:.5f} ms", flush=True)
-                record.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-    record["max_abs_err"] = err
+                record.update(
+                    ms=match_ms, burst_ms=match_burst_ms, plain_ms=match_plain_ms,
+                    bound_ms=match_bound_ms, bound_by=match_bound_by, matrix_ms=ms,
+                    matrix_burst_ms=burst_ms, matrix_plain_ms=plain_ms, matrix_bound_ms=bound_ms,
+                    matrix_bound_by=bound_by, chain_ms=chain_ms, chain_burst_ms=chain_burst_ms,
+                    # run_train and the predict phases require no matrix launch
+                    matrix_launches=0,
+                )
     return record
 
 
@@ -1121,7 +1222,8 @@ def run_train(
     of the IoU kernel in the run, and requires the other generation's
     kernels to stay idle. ``dense``: gt padded to ``DENSE_MAX_GT`` slots
     with ``DENSE_BOXES`` boxes per image, past the IoU kernel's gate, so
-    it runs once per image and step; otherwise (100 slots) never."""
+    its match mode runs once per step for the batch and its matrix mode
+    never; otherwise (100 slots) neither."""
     dtype = set_numerics(dtype_name)
     cfg, labels = _train_setup(generation)
     model = _new_model(generation).to(device)
@@ -1146,14 +1248,15 @@ def run_train(
         seed=SEED, vis_step=1, log_dir=LOG_DIR, name=f"train_{name.replace(' ', '_')}",
         keep_checkpoints=1,
     )
-    kernels = (*_head_kernels("legacy"), *_head_kernels("fpn"), boxes_mod.pairwise_iou_cuda)
+    kernels = (*_head_kernels("legacy"), *_head_kernels("fpn"), *IOU_KERNELS)
     for k in kernels:
         k.launches = 0
     train_one_epoch(state, timed_step, loader, 0, opts, schedule, recorder)
     counts = {k.__name__: k.launches for k in kernels}
     shutil.rmtree(LOG_DIR)
     fwd, bwd = (counts.pop(k.__name__) for k in _head_kernels(generation))
-    iou = counts.pop(boxes_mod.pairwise_iou_cuda.__name__)
+    iou = counts.pop(boxes_mod.iou_match_cuda.__name__)
+    matrix = counts.pop(boxes_mod.pairwise_iou_cuda.__name__)
     losses = recorder.losses
     _require(len(losses) == TRAIN_STEPS, f"{len(losses)} of {TRAIN_STEPS} losses logged")
     _require(bool(np.isfinite(losses).all()), f"{name} train: non-finite loss {losses}")
@@ -1161,8 +1264,9 @@ def run_train(
     _require(last < first, f"{name} train: loss did not fall ({first} -> {last})")
     _require(bwd == TRAIN_STEPS, f"{name} train: {bwd} backward launches, want {TRAIN_STEPS}")
     _require(fwd == TRAIN_STEPS, f"{name} train: {fwd} forward launches, want {TRAIN_STEPS}")
-    want_iou = TRAIN_STEPS * TRAIN_BATCH if dense else 0
-    _require(iou == want_iou, f"{name} train: {iou} IoU launches, want {want_iou}")
+    want_iou = TRAIN_STEPS if dense else 0
+    _require(iou == want_iou, f"{name} train: {iou} IoU match launches, want {want_iou}")
+    _require(matrix == 0, f"{name} train: {matrix} IoU matrix launches, want 0")
     _require(not any(counts.values()), f"{name} train launched another head's kernels: {counts}")
     _require_slots_idle(f"{name} train")
     steady = timer.times[5:]
@@ -1180,8 +1284,8 @@ def run_train(
 def check_dense_targets_kernel_vs_plain(device) -> None:
     """One float32 legacy dense-scene step from the same weights and noise
     through the IoU kernel and through ``plain=True``: identical RPN and
-    RoI targets (rois, labels, is_pos, valid, reg targets), two kernel
-    launches against none, and identical losses."""
+    RoI targets (rois, labels, is_pos, valid, reg targets), one launch of
+    the match mode for the batch against none, and identical losses."""
     set_numerics("float32")
     cfg = LEGACY_CONFIG
     model = _new_model("legacy").to(device)
@@ -1193,7 +1297,7 @@ def check_dense_targets_kernel_vs_plain(device) -> None:
         torch.Generator(device=device).manual_seed(SEED), TRAIN_BATCH, anchors.shape[0],
         cfg.post_nms_train + DENSE_MAX_GT, device,
     )
-    iou_k = boxes_mod.pairwise_iou_cuda
+    iou_k = boxes_mod.iou_match_cuda
     with torch.no_grad():
         feats = model.features(batch["image"].permute(0, 3, 1, 2).contiguous())
         rpn_cls, rpn_reg = model.rpn_out(feats)
@@ -1206,8 +1310,8 @@ def check_dense_targets_kernel_vs_plain(device) -> None:
             )
         )
         torch.cuda.synchronize()
-        want = before if plain else before + TRAIN_BATCH
-        _require(iou_k.launches == want, f"IoU launches {before} -> {iou_k.launches} (plain={plain})")
+        want = before if plain else before + 1
+        _require(iou_k.launches == want, f"IoU match launches {before} -> {iou_k.launches} (plain={plain})")
     (k_rpn, k_roi), (p_rpn, p_roi) = targets
     for field in RoITargets._fields:
         _require(torch.equal(getattr(k_roi, field), getattr(p_roi, field)), f"RoI targets differ in {field}")
@@ -1218,13 +1322,13 @@ def check_dense_targets_kernel_vs_plain(device) -> None:
         before = iou_k.launches
         out = forward_train(model, cfg, *(batch[k] for k in BATCH_KEYS), noise=noise, plain=plain)
         torch.cuda.synchronize()
-        _require(iou_k.launches == before + (0 if plain else TRAIN_BATCH), "forward_train IoU launches")
+        _require(iou_k.launches == before + (0 if plain else 1), "forward_train IoU match launches")
         losses.append(_loss_vector(out))
     _require(torch.equal(*losses), f"dense losses differ: {losses[0].tolist()} vs {losses[1].tolist()}")
     n_real = batch["gt_mask"].sum(1).tolist()
     print(
         f"dense train step legacy float32 ({n_real} of {DENSE_MAX_GT} gt slots real): RoI and RPN "
-        f"targets identical with the IoU kernel and with the plain IoU ({int(k_roi.is_pos.sum())} "
+        f"targets identical with the IoU match kernel and with the plain match ({int(k_roi.is_pos.sum())} "
         f"positive rois), losses identical ({', '.join(f'{v:.5f}' for v in losses[0].tolist())})",
         flush=True,
     )
@@ -1503,14 +1607,16 @@ def run_fpn_predict(device) -> tuple[int, dict]:
         run_predict(model, dtype_name, device, _fpn_loader(SEED + 4, FPN_BATCH), "fpn")
         loader = _fpn_loader(SEED + 5)
         roi_align_mod.multiscale_roi_align_cuda.launches = 0
-        roi_pool_mod.roi_pool_cuda.launches = boxes_mod.pairwise_iou_cuda.launches = 0
+        roi_pool_mod.roi_pool_cuda.launches = 0
+        for k in IOU_KERNELS:
+            k.launches = 0
         result, counts = run_predict(model, dtype_name, device, loader, "fpn")
         align = roi_align_mod.multiscale_roi_align_cuda.launches
         pool = roi_pool_mod.roi_pool_cuda.launches
         calls = len(loader.batches)
         _require(align == calls, f"{dtype_name} FPN predict: {align} align launches for {calls} calls")
         _require(pool == 0, f"{dtype_name} FPN predict launched RoIPool {pool} times")
-        _require(boxes_mod.pairwise_iou_cuda.launches == 0, f"{dtype_name} FPN predict launched the IoU kernel")
+        _require(_iou_launches() == 0, f"{dtype_name} FPN predict launched the IoU kernel")
         _require_slots_idle(f"{dtype_name} FPN predict")
         _require(min(counts) > 0, f"{dtype_name} FPN predict: an image without detections {counts}")
         launches += align
@@ -1556,7 +1662,6 @@ def main() -> int:
     slots_record = check_roi_align_slots_kernel(device, align_record)
     check_align_footprint_edges(device)
     roi_align_mod.multiscale_roi_align_slots_cuda.launches = 0
-    iou_kernel = boxes_mod.pairwise_iou_cuda
 
     launches = 0
     detections = {}
@@ -1565,11 +1670,13 @@ def main() -> int:
         # Warm-up (cuDNN and cuBLAS handles, first launches), outside the counts.
         run_predict(model, dtype_name, device, SyntheticImages(1, CANVAS, SEED))
         loader = SyntheticImages(N_IMAGES, CANVAS, SEED)
-        roi_pool_mod.roi_pool_cuda.launches = iou_kernel.launches = 0
+        roi_pool_mod.roi_pool_cuda.launches = 0
+        for k in IOU_KERNELS:
+            k.launches = 0
         result, counts = run_predict(model, dtype_name, device, loader)
         count = roi_pool_mod.roi_pool_cuda.launches
         _require(count > 0, f"{dtype_name} predict never launched the RoIPool kernel")
-        _require(iou_kernel.launches == 0, f"{dtype_name} predict launched the IoU kernel")
+        _require(_iou_launches() == 0, f"{dtype_name} predict launched the IoU kernel")
         _require_slots_idle(f"{dtype_name} predict")
         if dtype_name == "float32":
             _require(sum(counts) > 0, "float32 predict found no detections to compare")

@@ -35,8 +35,9 @@ from faster_rcnn_pytorch_tpu_torch.models.targets import (
     REG_STD,
     RoITargets,
     RPNTargets,
-    frcnn_targets,
+    roi_match,
     rpn_targets,
+    sample_roi_targets,
 )
 from faster_rcnn_pytorch_tpu_torch.models.resnet import Bottleneck, ResNet50FPN
 from faster_rcnn_pytorch_tpu_torch.models.vgg import VGG16Features
@@ -301,13 +302,15 @@ def train_targets(
     noise: TrainNoise,
     plain: bool = False,
 ) -> tuple[RPNTargets, RoITargets]:
-    """Per image (the JAX package's ``vmap``, written out): train-budget
-    proposals, then RPN and RoI targets. Returns both batched, ``[B, A]``
-    and ``[B, S]``. No gradient flows through them. Each image's RoI
-    targets see a 2-D ``[post_nms_train + G, 4]`` candidate set, as under
-    the ``vmap``, so ``masked_iou`` applies the JAX package's gate to it;
-    ``plain`` (tests only) keeps the plain IoU above that gate."""
-    rpn_tg, roi_tg = [], []
+    """The JAX package's ``vmap`` of proposals, RPN and RoI targets, written
+    out: per image the train-budget proposals and RPN targets; then one
+    :func:`roi_match` for the batch (each image's ``[post_nms_train + G,
+    4]`` candidates against its gt: the IoU kernel's match mode, one
+    launch, where an image's problem passes the JAX package's gate); then
+    per image the sampling. Returns both batched, ``[B, A]`` and ``[B, S]``.
+    No gradient flows through them. ``plain`` (tests only) keeps the plain
+    match above the gate."""
+    rpn_tg, rois, roi_valid = [], [], []
     for i in range(rpn_cls.shape[0]):
         props = propose(
             rpn_cls[i],
@@ -320,6 +323,8 @@ def train_targets(
             min_size=cfg.proposal_min_size,
             nms_tile=cfg.rpn_nms_tile_train or cfg.rpn_nms_tile,
         )
+        rois.append(props.rois)
+        roi_valid.append(props.valid)
         rpn_tg.append(
             rpn_targets(
                 anchors,
@@ -336,22 +341,26 @@ def train_targets(
                 boundary_filter=cfg.rpn_boundary_filter,
             )
         )
-        roi_tg.append(
-            frcnn_targets(
-                props.rois,
-                props.valid,
-                gt_boxes[i],
-                gt_labels[i],
-                gt_mask[i],
-                noise.roi_pos[i],
-                noise.roi_neg[i],
-                num_samples=cfg.roi_samples,
-                pos_quota=cfg.roi_pos_quota,
-                pos_iou=cfg.roi_pos_iou,
-                label_offset=cfg.label_offset,
-                plain=plain,
-            )
+    cand = torch.cat([torch.stack(rois), gt_boxes], dim=1)
+    cand_valid = torch.cat([torch.stack(roi_valid), gt_mask], dim=1)
+    iou_max, iou_argmax = roi_match(cand, cand_valid, gt_boxes, gt_mask, plain=plain)
+    roi_tg = [
+        sample_roi_targets(
+            cand[i],
+            cand_valid[i],
+            iou_max[i],
+            iou_argmax[i],
+            gt_boxes[i],
+            gt_labels[i],
+            noise.roi_pos[i],
+            noise.roi_neg[i],
+            num_samples=cfg.roi_samples,
+            pos_quota=cfg.roi_pos_quota,
+            pos_iou=cfg.roi_pos_iou,
+            label_offset=cfg.label_offset,
         )
+        for i in range(cand.shape[0])
+    ]
     return _stack(rpn_tg), _stack(roi_tg)
 
 

@@ -15,7 +15,9 @@ from typing import NamedTuple
 import torch
 
 from faster_rcnn_pytorch_tpu_torch.ops.boxes import (
+    IOU_KERNEL_MIN_PAIRS,
     encode,
+    iou_match,
     masked_iou,
     masked_iou_gt_major,
     xy_to_cxcy,
@@ -125,6 +127,68 @@ def rpn_targets(
 
 
 @torch.no_grad()
+def roi_match(
+    cand: torch.Tensor,
+    cand_valid: torch.Tensor,
+    gt_boxes: torch.Tensor,
+    gt_mask: torch.Tensor,
+    plain: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each candidate's best gt: ``(iou_max, iou_argmax)`` ``[..., R+G]`` of
+    the masked IoU (-1 for a padded gt slot and for an invalid candidate),
+    ties to the first slot, for one image ``[R+G, 4]`` or a batch ``[B,
+    R+G, 4]``.
+
+    Where an image's ``(R + G) * G`` reaches :data:`IOU_KERNEL_MIN_PAIRS`
+    (the JAX package's gate: ``--max_gt`` 432 and up for legacy, 640 for
+    FPN) this is the IoU kernel's match mode on a CUDA tensor, one launch
+    for the batch (its plain twin on the CPU or with the test-only
+    ``plain``); below it the plain chain in the inputs' dtype. Float32 on
+    both sides, also under bfloat16 autocast: the proposals are decoded
+    against float32 anchors and the gt comes from the loader."""
+    if cand.shape[-2] * gt_boxes.shape[-2] >= IOU_KERNEL_MIN_PAIRS:
+        return iou_match(cand, cand_valid, gt_boxes, gt_mask, plain=plain)
+    iou = torch.where(cand_valid[..., :, None], masked_iou(cand, gt_boxes, gt_mask), -1.0)
+    return iou.max(dim=-1)
+
+
+@torch.no_grad()
+def sample_roi_targets(
+    cand: torch.Tensor,
+    cand_valid: torch.Tensor,
+    iou_max: torch.Tensor,
+    iou_argmax: torch.Tensor,
+    gt_boxes: torch.Tensor,
+    gt_labels: torch.Tensor,
+    pos_noise: torch.Tensor,
+    neg_noise: torch.Tensor,
+    num_samples: int = 128,
+    pos_quota: int = 32,
+    pos_iou: float = 0.5,
+    label_offset: int = 1,
+) -> RoITargets:
+    """One image's sampling half of :func:`frcnn_targets`, from
+    :func:`roi_match`'s ``iou_max`` / ``iou_argmax`` of its candidates."""
+    pos_mask = cand_valid & (iou_max >= pos_iou)
+    neg_mask = cand_valid & (iou_max < pos_iou) & (iou_max >= 0.0)
+    idx, is_pos, valid = sample_pos_neg(
+        pos_noise, neg_noise, pos_mask, neg_mask, num_samples, pos_quota
+    )
+    sample_rois = cand[idx]
+    matched = iou_argmax[idx]
+    matched_label = gt_labels[matched].to(torch.int32) + label_offset
+    labels = torch.where(is_pos, matched_label, 0)
+    labels = torch.where(valid, labels, -1)
+
+    std = torch.tensor(REG_STD, dtype=cand.dtype, device=cand.device)
+    reg = encode(xy_to_cxcy(gt_boxes[matched]), xy_to_cxcy(sample_rois), eps=1e-8)
+    reg = torch.where(is_pos[:, None], reg / std, 0.0)
+    return RoITargets(
+        rois=sample_rois, labels=labels, reg_targets=reg, is_pos=is_pos, valid=valid
+    )
+
+
+@torch.no_grad()
 def frcnn_targets(
     rois: torch.Tensor,
     roi_valid: torch.Tensor,
@@ -139,7 +203,8 @@ def frcnn_targets(
     label_offset: int = 1,
     plain: bool = False,
 ) -> RoITargets:
-    """Sample ``num_samples`` rois and their class and box targets.
+    """Sample ``num_samples`` rois and their class and box targets:
+    :func:`roi_match`, then :func:`sample_roi_targets`.
 
     Args:
       rois: ``[R, 4]`` proposals; the gt boxes are appended as candidates,
@@ -147,33 +212,13 @@ def frcnn_targets(
       gt_labels: ``[G]`` dataset labels, shifted by ``label_offset`` (1
         clears the legacy background slot).
       pos_noise / neg_noise: ``[R + G]`` uniform noise.
-      plain: tests only: the plain IoU where ``masked_iou`` would launch
-        its kernel (``(R + G) * G >= 2**20``: ``--max_gt`` 432 and up for
-        legacy, 640 for FPN).
+      plain: tests only: the plain match where :func:`roi_match` would
+        launch the kernel.
     """
     cand = torch.cat([rois, gt_boxes], dim=0)
     cand_valid = torch.cat([roi_valid, gt_mask], dim=0)
-
-    # Float32 on both sides, also under bfloat16 autocast: the proposals
-    # are decoded against float32 anchors and the gt comes from the loader.
-    iou = masked_iou(cand, gt_boxes, gt_mask, plain=plain)  # [R+G, G]
-    iou = torch.where(cand_valid[:, None], iou, -1.0)
-    iou_max, iou_argmax = iou.max(dim=1)
-
-    pos_mask = cand_valid & (iou_max >= pos_iou)
-    neg_mask = cand_valid & (iou_max < pos_iou) & (iou_max >= 0.0)
-    idx, is_pos, valid = sample_pos_neg(
-        pos_noise, neg_noise, pos_mask, neg_mask, num_samples, pos_quota
-    )
-    sample_rois = cand[idx]
-    matched = iou_argmax[idx]
-    matched_label = gt_labels[matched].to(torch.int32) + label_offset
-    labels = torch.where(is_pos, matched_label, 0)
-    labels = torch.where(valid, labels, -1)
-
-    std = torch.tensor(REG_STD, dtype=rois.dtype, device=rois.device)
-    reg = encode(xy_to_cxcy(gt_boxes[matched]), xy_to_cxcy(sample_rois), eps=1e-8)
-    reg = torch.where(is_pos[:, None], reg / std, 0.0)
-    return RoITargets(
-        rois=sample_rois, labels=labels, reg_targets=reg, is_pos=is_pos, valid=valid
+    iou_max, iou_argmax = roi_match(cand, cand_valid, gt_boxes, gt_mask, plain=plain)
+    return sample_roi_targets(
+        cand, cand_valid, iou_max, iou_argmax, gt_boxes, gt_labels, pos_noise, neg_noise,
+        num_samples=num_samples, pos_quota=pos_quota, pos_iou=pos_iou, label_offset=label_offset,
     )

@@ -4,13 +4,18 @@ Counterpart of ``faster_rcnn_pytorch_tpu/ops/boxes.py`` with the same
 formulas in the same order, so float32 results agree to the last bit
 where the arithmetic allows. Boxes are ``xyxy`` corner form or ``cxcywh``
 center form, normalised to [0, 1] of the canvas. :func:`masked_iou`
-sends a large 2-D problem to the IoU kernel (``ops/cuda/iou.cu``) on a
-CUDA tensor, as the JAX package sends it to its Pallas kernel.
+sends a large 2-D problem to the IoU kernel's matrix mode
+(``ops/cuda/iou.cu``) on a CUDA tensor, as the JAX package sends it to its
+Pallas kernel; :func:`iou_match` gives the row max and argmax of the masked
+matrix (``frcnn_targets``' use of it) in the kernel's match mode, which
+never writes the matrix.
 """
 
 from __future__ import annotations
 
 import torch
+
+from faster_rcnn_pytorch_tpu_torch.ops.cuda import extension
 
 
 def cxcy_to_xy(cxcy: torch.Tensor) -> torch.Tensor:
@@ -85,31 +90,40 @@ def box_iou(set_1: torch.Tensor, set_2: torch.Tensor):
 IOU_KERNEL_MIN_PAIRS = 1 << 20
 
 
-def pairwise_iou_reference(set_1: torch.Tensor, set_2: torch.Tensor, eps: float = 1e-5):
-    """Plain-PyTorch pairwise IoU, the twin of the CUDA kernel: ``[n, 4]``
-    x ``[m, 4]`` cast to float32 -> ``[n, m]`` float32. ``eps > 0`` is
-    :func:`jaccard_iou`; ``eps == 0`` is :func:`box_iou` (union floored at
-    1e-12), as the JAX package's ``pairwise_iou_pallas`` computes them."""
+def pairwise_iou_reference(
+    set_1: torch.Tensor,
+    set_2: torch.Tensor,
+    eps: float = 1e-5,
+    col_mask: torch.Tensor | None = None,
+):
+    """Plain-PyTorch pairwise IoU, the twin of the kernel's matrix mode:
+    ``[..., n, 4]`` x ``[..., m, 4]`` cast to float32 -> ``[..., n, m]``
+    float32. ``eps > 0`` is :func:`jaccard_iou`; ``eps == 0`` is
+    :func:`box_iou` (union floored at 1e-12), as the JAX package's
+    ``pairwise_iou_pallas`` computes them. Then -1 where ``col_mask
+    [..., m]`` is False."""
     a, b = set_1.float(), set_2.float()
-    if eps == 0:
-        return box_iou(a, b)[0]
-    return jaccard_iou(a, b, eps=eps)
+    iou = box_iou(a, b)[0] if eps == 0 else jaccard_iou(a, b, eps=eps)
+    if col_mask is not None:
+        iou = torch.where(col_mask[..., None, :], iou, -1.0)
+    return iou
 
 
-def pairwise_iou_cuda(set_1: torch.Tensor, set_2: torch.Tensor, eps: float = 1e-5):
-    """The hand-written Hopper kernel (``ops/cuda/iou.cu``), same arguments
-    and result as :func:`pairwise_iou_reference`. Counts its launches in
-    ``pairwise_iou_cuda.launches``."""
-    if not (set_1.is_cuda and set_2.is_cuda):
+def pairwise_iou_cuda(
+    set_1: torch.Tensor,
+    set_2: torch.Tensor,
+    eps: float = 1e-5,
+    col_mask: torch.Tensor | None = None,
+):
+    """The hand-written Hopper kernel's matrix mode (``ops/cuda/iou.cu``),
+    2-D: same arguments and result as :func:`pairwise_iou_reference`. The
+    binding casts, checks, allocates and launches. Counts its launches in
+    ``pairwise_iou_cuda.launches``. No model path reaches it (``roi_match``
+    takes the match mode above the gate): it is the TPU kernel's own
+    function, behind :func:`masked_iou`'s copy of the JAX package's gate."""
+    if not set_1.is_cuda:
         raise ValueError("pairwise_iou_cuda needs CUDA tensors")
-    if set_1.dim() != 2 or set_1.shape[1] != 4 or set_2.dim() != 2 or set_2.shape[1] != 4:
-        raise ValueError(f"want boxes [n, 4] and [m, 4], got {tuple(set_1.shape)}, {tuple(set_2.shape)}")
-    from faster_rcnn_pytorch_tpu_torch.ops.cuda import extension
-
-    ext = extension()
-    a, b = set_1.float().contiguous(), set_2.float().contiguous()
-    out = torch.empty((a.shape[0], b.shape[0]), dtype=torch.float32, device=a.device)
-    ext.pairwise_iou(a, b, float(eps), out)
+    out = extension().pairwise_iou(set_1, set_2, eps, col_mask)
     pairwise_iou_cuda.launches += 1
     return out
 
@@ -117,14 +131,20 @@ def pairwise_iou_cuda(set_1: torch.Tensor, set_2: torch.Tensor, eps: float = 1e-
 pairwise_iou_cuda.launches = 0
 
 
-def pairwise_iou(set_1: torch.Tensor, set_2: torch.Tensor, eps: float = 1e-5, plain: bool = False):
+def pairwise_iou(
+    set_1: torch.Tensor,
+    set_2: torch.Tensor,
+    eps: float = 1e-5,
+    plain: bool = False,
+    col_mask: torch.Tensor | None = None,
+):
     """Pairwise IoU dispatch: a CUDA tensor runs the hand kernel, a CPU
     tensor (or the test-only ``plain``) the plain version."""
     if set_1.is_cuda and not plain:
-        return pairwise_iou_cuda(set_1, set_2, eps)
+        return pairwise_iou_cuda(set_1, set_2, eps, col_mask)
     if set_1.device.type != "cpu" and not plain:
         raise NotImplementedError(f"no IoU kernel for {set_1.device}")
-    return pairwise_iou_reference(set_1, set_2, eps)
+    return pairwise_iou_reference(set_1, set_2, eps, col_mask)
 
 
 def masked_iou(
@@ -134,16 +154,76 @@ def masked_iou(
     slots (``gt_mask`` False) get -1, so no argmax or threshold picks them.
 
     A 2-D problem of at least :data:`IOU_KERNEL_MIN_PAIRS` pairs goes
-    through :func:`pairwise_iou` (the kernel on a CUDA tensor; float32, as
-    the JAX package's Pallas kernel casts), a smaller one through
-    :func:`jaccard_iou` in the inputs' dtype, which is what the JAX
-    package runs on the TPU below that gate. ``plain`` is for tests only.
+    through :func:`pairwise_iou` with ``gt_mask`` as its column mask (the
+    kernel on a CUDA tensor; float32, as the JAX package's Pallas kernel
+    casts), a smaller one through :func:`jaccard_iou` in the inputs' dtype,
+    which is what the JAX package runs on the TPU below that gate.
+    ``plain`` is for tests only.
     """
     if boxes.dim() == 2 and boxes.shape[0] * gt.shape[0] >= IOU_KERNEL_MIN_PAIRS:
-        iou = pairwise_iou(boxes, gt, eps=eps, plain=plain)
-    else:
-        iou = jaccard_iou(boxes, gt, eps=eps)
+        return pairwise_iou(boxes, gt, eps=eps, plain=plain, col_mask=gt_mask)
+    iou = jaccard_iou(boxes, gt, eps=eps)
     return torch.where(gt_mask[..., None, :], iou, -1.0)
+
+
+def iou_match_reference(
+    boxes: torch.Tensor,
+    box_valid: torch.Tensor,
+    gt: torch.Tensor,
+    gt_mask: torch.Tensor,
+    eps: float = 1e-5,
+):
+    """Plain twin of the kernel's match mode: ``boxes [..., n, 4]``
+    (``box_valid [..., n]``) against padded ``gt [..., g, 4]`` (``gt_mask
+    [..., g]``) -> ``(max, argmax)`` ``[..., n]`` of each row of
+    :func:`pairwise_iou_reference` with ``gt_mask``, -1 in the rows that
+    ``box_valid`` leaves out: the chain ``masked_iou``, ``where(box_valid)``,
+    ``max`` that ``frcnn_targets`` runs. Ties go to the smallest index; a
+    row with no valid entry gives (-1, 0)."""
+    iou = pairwise_iou_reference(boxes, gt, eps, gt_mask)
+    return torch.where(box_valid[..., :, None], iou, -1.0).max(dim=-1)
+
+
+def iou_match_cuda(
+    boxes: torch.Tensor,
+    box_valid: torch.Tensor,
+    gt: torch.Tensor,
+    gt_mask: torch.Tensor,
+    eps: float = 1e-5,
+):
+    """The hand-written Hopper kernel's match mode (``ops/cuda/iou.cu``):
+    :func:`iou_match_reference` on ``[B, n, 4]`` x ``[B, g, 4]`` (bool masks
+    ``[B, n]``, ``[B, g]``) in one launch; the IoU matrix never reaches
+    device memory. Counts its launches in ``iou_match_cuda.launches``."""
+    if not boxes.is_cuda:
+        raise ValueError("iou_match_cuda needs CUDA tensors")
+    out = extension().iou_match(boxes, gt, box_valid, gt_mask, eps)
+    iou_match_cuda.launches += 1
+    return out
+
+
+iou_match_cuda.launches = 0
+
+
+def iou_match(
+    boxes: torch.Tensor,
+    box_valid: torch.Tensor,
+    gt: torch.Tensor,
+    gt_mask: torch.Tensor,
+    eps: float = 1e-5,
+    plain: bool = False,
+):
+    """Row max and argmax dispatch, batched ``[B, n, 4]`` or one image's
+    ``[n, 4]``: a CUDA tensor runs the match kernel (one launch for the
+    batch), a CPU tensor (or the test-only ``plain``) the plain chain."""
+    if boxes.is_cuda and not plain:
+        if boxes.dim() == 2:
+            best, index = iou_match_cuda(boxes[None], box_valid[None], gt[None], gt_mask[None], eps)
+            return best[0], index[0]
+        return iou_match_cuda(boxes, box_valid, gt, gt_mask, eps)
+    if boxes.device.type != "cpu" and not plain:
+        raise NotImplementedError(f"no IoU kernel for {boxes.device}")
+    return iou_match_reference(boxes, box_valid, gt, gt_mask, eps)
 
 
 def masked_iou_gt_major(

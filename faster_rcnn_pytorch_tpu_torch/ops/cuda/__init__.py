@@ -32,6 +32,8 @@ def extension():
     """The compiled kernel module (builds it on the first call; a build
     failure raises)."""
     global _ext
+    if _ext is not None:  # every launch asks: no lock once it is built
+        return _ext
     with _lock:
         if _ext is None:
             from torch.utils.cpp_extension import load

@@ -1,7 +1,8 @@
 // PyTorch binding of the kernels in roi_pool.cu, roi_align.cu,
 // roi_align_slots.cu and iou.cu. The only source that includes PyTorch's
-// headers; it checks the tensors the Python wrappers allocated and launches
-// on the current CUDA stream.
+// headers; it checks the tensors the Python wrappers allocated (the IoU
+// kernels' outputs it allocates itself) and launches on the current CUDA
+// stream.
 
 #include <torch/extension.h>
 
@@ -10,6 +11,7 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <tuple>
 #include <vector>
 
 int roi_pool_forward_launch(const void* feat, bool feat_is_bf16, const float* rois,
@@ -37,7 +39,12 @@ int roi_align_slots_forward_launch(const void* const* feats, const int* heights,
                                    const float* rois, const int32_t* level, int num_rois,
                                    int rois_per_image, int channels, void* out, void* stream);
 int pairwise_iou_launch(const float* a, const float* b, int n, int m, float eps,
-                        float union_floor, float* out, void* stream);
+                        float union_floor, const bool* col_mask, float* out, void* stream);
+int iou_match_shared_bytes(int m);
+int iou_match_launch(const float* a, const float* b, int batch, int n, int m, float eps,
+                     float union_floor, const bool* row_mask, const bool* col_mask,
+                     float* best_val, int64_t* best_idx, void* stream);
+int empty_kernel_launch(void* stream);
 
 static constexpr float kAlignScales[4] = {1.0f / 4, 1.0f / 8, 1.0f / 16, 1.0f / 32};
 
@@ -207,32 +214,84 @@ void roi_align_slots_forward(const std::vector<at::Tensor>& features, const at::
   roi_align_forward_impl(features, rois, level, out, true);
 }
 
-// a [n, 4] and b [m, 4] float32 (contiguous, one device) -> fills out [n, m]
-// float32 with their pairwise IoU; eps as jaccard_iou, and with eps == 0 the
-// union floored at 1e-12 as box_iou.
-void pairwise_iou(const at::Tensor& a, const at::Tensor& b, double eps, at::Tensor& out) {
-  TORCH_CHECK(a.is_cuda() && b.is_cuda() && out.is_cuda(),
-              "pairwise_iou: tensors must be on a CUDA device");
-  TORCH_CHECK(a.get_device() == out.get_device() && b.get_device() == out.get_device(),
-              "pairwise_iou: tensors must share one device");
-  TORCH_CHECK(a.scalar_type() == at::kFloat && b.scalar_type() == at::kFloat &&
-                  out.scalar_type() == at::kFloat,
-              "pairwise_iou: tensors must be float32");
-  TORCH_CHECK(a.dim() == 2 && a.size(1) == 4 && b.dim() == 2 && b.size(1) == 4,
-              "pairwise_iou: boxes must be [n, 4] and [m, 4]");
-  TORCH_CHECK(a.is_contiguous() && b.is_contiguous() && out.is_contiguous(),
-              "pairwise_iou: tensors must be contiguous");
+// Boxes [..., k, 4] as the IoU kernels read them: float32 (cast, as the
+// TPU kernel casts), contiguous and 16-byte aligned (one float4 a box).
+static at::Tensor iou_boxes(const at::Tensor& boxes, const char* what) {
+  TORCH_CHECK(boxes.is_cuda(), what, ": tensors must be on a CUDA device");
+  TORCH_CHECK(boxes.size(-1) == 4, what, ": boxes must be [..., 4]");
+  at::Tensor t = boxes.to(at::kFloat).contiguous();
+  TORCH_CHECK(reinterpret_cast<uintptr_t>(t.data_ptr()) % 16 == 0, what,
+              ": boxes must start on a 16-byte boundary");
+  return t;
+}
+
+static void check_mask(const at::Tensor& mask, const at::Tensor& like, at::IntArrayRef shape,
+                       const char* what) {
+  TORCH_CHECK(mask.is_cuda() && mask.get_device() == like.get_device(), what,
+              ": masks must be on the boxes' device");
+  TORCH_CHECK(mask.scalar_type() == at::kBool && mask.is_contiguous() && mask.sizes() == shape,
+              what, ": masks must be contiguous bool of the boxes' leading shape");
+}
+
+// a [n, 4], b [m, 4] (cast to float32) -> out [n, m] float32, their pairwise
+// IoU; eps as jaccard_iou, and with eps == 0 the union floored at 1e-12 as
+// box_iou. col_mask [m] (bool, optional): -1 in the columns where False.
+at::Tensor pairwise_iou(const at::Tensor& a_in, const at::Tensor& b_in, double eps,
+                        const c10::optional<at::Tensor>& col_mask) {
+  TORCH_CHECK(a_in.dim() == 2 && b_in.dim() == 2, "pairwise_iou: boxes must be [n, 4] and [m, 4]");
+  const at::Tensor a = iou_boxes(a_in, "pairwise_iou"), b = iou_boxes(b_in, "pairwise_iou");
+  TORCH_CHECK(a.get_device() == b.get_device(), "pairwise_iou: tensors must share one device");
   const int64_t n = a.size(0), m = b.size(0);
-  TORCH_CHECK(out.sizes() == at::IntArrayRef({n, m}), "pairwise_iou: out must be [n, m]");
-  TORCH_CHECK(n <= 64 * 65535 && m < (int64_t{1} << 31), "pairwise_iou: too many boxes");
+  TORCH_CHECK(n < (int64_t{1} << 31) && n * m < (int64_t{1} << 40), "pairwise_iou: too many boxes");
+  if (col_mask) check_mask(*col_mask, a, {m}, "pairwise_iou");
   const c10::cuda::CUDAGuard guard(a.device());
-  const cudaStream_t stream = at::cuda::getCurrentCUDAStream();
+  at::Tensor out = at::empty({n, m}, a.options());
   const float e = static_cast<float>(eps);
-  const int err = pairwise_iou_launch(a.data_ptr<float>(), b.data_ptr<float>(),
-                                      static_cast<int>(n), static_cast<int>(m), e,
-                                      e == 0.0f ? 1e-12f : 0.0f, out.data_ptr<float>(),
-                                      static_cast<void*>(stream));
+  const int err = pairwise_iou_launch(
+      a.data_ptr<float>(), b.data_ptr<float>(), static_cast<int>(n), static_cast<int>(m), e,
+      e == 0.0f ? 1e-12f : 0.0f, col_mask ? col_mask->data_ptr<bool>() : nullptr,
+      out.data_ptr<float>(), static_cast<void*>(at::cuda::getCurrentCUDAStream()));
   TORCH_CHECK(err == 0, "pairwise_iou launch failed: ", roi_pool_error_string(err));
+  return out;
+}
+
+// a [B, n, 4] candidates, b [B, m, 4] gt (cast to float32), row_mask [B, n],
+// col_mask [B, m] bool -> (max [B, n] float32, argmax [B, n] int64) of each
+// row of the masked IoU matrix (-1 where either mask is False), the
+// smallest index among equal maxima, as torch.max(dim=-1).
+std::tuple<at::Tensor, at::Tensor> iou_match(const at::Tensor& a_in, const at::Tensor& b_in,
+                                             const at::Tensor& row_mask,
+                                             const at::Tensor& col_mask, double eps) {
+  TORCH_CHECK(a_in.dim() == 3 && b_in.dim() == 3 && a_in.size(0) == b_in.size(0),
+              "iou_match: boxes must be [B, n, 4] and [B, m, 4]");
+  const at::Tensor a = iou_boxes(a_in, "iou_match"), b = iou_boxes(b_in, "iou_match");
+  TORCH_CHECK(a.get_device() == b.get_device(), "iou_match: tensors must share one device");
+  const int64_t batch = a.size(0), n = a.size(1), m = b.size(1);
+  TORCH_CHECK(m > 0, "iou_match: no columns to reduce");
+  TORCH_CHECK(batch <= 65535 && batch * n < (int64_t{1} << 31) &&
+                  iou_match_shared_bytes(static_cast<int>(std::min<int64_t>(m, 1 << 20))) <=
+                      kMaxSharedBytes,
+              "iou_match: too many boxes");
+  check_mask(row_mask, a, {batch, n}, "iou_match");
+  check_mask(col_mask, a, {batch, m}, "iou_match");
+  const c10::cuda::CUDAGuard guard(a.device());
+  at::Tensor best = at::empty({batch, n}, a.options());
+  at::Tensor index = at::empty({batch, n}, a.options().dtype(at::kLong));
+  const float e = static_cast<float>(eps);
+  const int err = iou_match_launch(
+      a.data_ptr<float>(), b.data_ptr<float>(), static_cast<int>(batch), static_cast<int>(n),
+      static_cast<int>(m), e, e == 0.0f ? 1e-12f : 0.0f, row_mask.data_ptr<bool>(),
+      col_mask.data_ptr<bool>(), best.data_ptr<float>(), index.data_ptr<int64_t>(),
+      static_cast<void*>(at::cuda::getCurrentCUDAStream()));
+  TORCH_CHECK(err == 0, "iou_match launch failed: ", roi_pool_error_string(err));
+  return {best, index};
+}
+
+// An empty kernel on the current stream: the launch floor under the IoU
+// kernels' times (chip_smoke.py phase 2).
+void empty_kernel() {
+  const int err = empty_kernel_launch(static_cast<void*>(at::cuda::getCurrentCUDAStream()));
+  TORCH_CHECK(err == 0, "empty kernel launch failed: ", roi_pool_error_string(err));
 }
 
 // grad [B, n, C, 7, 7] f32/bf16; rois [B, n, 4] f32; level [B, n] int32;
@@ -287,7 +346,11 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "MultiScaleRoIAlign forward over P2..P5 into a preallocated output (CUDA)");
   m.def("roi_align_slots_forward", &roi_align_slots_forward,
         "MultiScaleRoIAlign forward in the slot-lattice kernel's order (CUDA)");
-  m.def("pairwise_iou", &pairwise_iou, "Pairwise IoU [n, 4] x [m, 4] -> [n, m] (CUDA)");
+  m.def("pairwise_iou", &pairwise_iou,
+        "Pairwise IoU [n, 4] x [m, 4] -> [n, m], -1 where a column mask is False (CUDA)");
+  m.def("iou_match", &iou_match,
+        "Row max and first argmax of the masked IoU, [B, n, 4] x [B, m, 4] -> [B, n] (CUDA)");
+  m.def("empty_kernel", &empty_kernel, "An empty kernel: the launch floor (CUDA)");
   m.def("roi_align_backward", &roi_align_backward,
         "MultiScaleRoIAlign features-gradient, atomically added into zeroed float32 maps (CUDA)");
 }

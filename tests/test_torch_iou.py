@@ -73,9 +73,9 @@ def _spy(monkeypatch):
     calls = []
     plain = pb.pairwise_iou_reference
 
-    def spy(a, b, eps=1e-5):
+    def spy(a, b, eps=1e-5, col_mask=None):
         calls.append((tuple(a.shape), tuple(b.shape)))
-        return plain(a, b, eps)
+        return plain(a, b, eps, col_mask)
 
     monkeypatch.setattr(pb, "pairwise_iou_reference", spy)
     return calls

@@ -6,8 +6,8 @@ budgets; ``--generation fpn``: ResNet50-FPN, 91 classes, raw COCO ids,
 ``FPN_CONFIG`` budgets; both with seeded random weights, the 800x1344
 canvas, batch 2 and one repeated synthetic batch; ``--dense``: the smoke's
 dense scene, gt padded to 512 slots with 300-500 boxes an image, where
-the RoI targets' IoU runs through its kernel) and prints, per dtype
-(float32 with TF32 off, bfloat16 autocast):
+the RoI targets' IoU runs through its kernel's match mode, once a step)
+and prints, per dtype (float32 with TF32 off, bfloat16 autocast):
 
 1. rate: ``--repeats`` runs of 20 steps of ``make_train_step``
    from the same weights and generator seed, each step timed to a device
@@ -54,7 +54,6 @@ from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import (  # noqa: E402
     train_losses,
     train_targets,
 )
-from faster_rcnn_pytorch_tpu_torch.ops import boxes as boxes_mod  # noqa: E402
 from faster_rcnn_pytorch_tpu_torch.ops import nms as nms_mod  # noqa: E402
 from faster_rcnn_pytorch_tpu_torch.parallel.train_step import (  # noqa: E402
     apply_gradients,
@@ -131,7 +130,7 @@ def run_stages(model, init, cfg, dtype, device, batch, steps, warmup, determinis
     n_cand = cfg.post_nms_train + batch["gt_boxes"].shape[1]
     gen = epoch_generator(cs.SEED, 0, device)
     autocast = torch.autocast(device.type, dtype=torch.bfloat16, enabled=dtype != torch.float32)
-    rows, sweeps, iou_launches = [], [], [boxes_mod.pairwise_iou_cuda.launches]
+    rows, sweeps, iou_launches = [], [], [cs._iou_launches()]
     for _ in range(steps):
         nms_mod._tile_fixpoint.sweeps = 0
         t0 = _sync(device)
@@ -152,7 +151,7 @@ def run_stages(model, init, cfg, dtype, device, batch, steps, warmup, determinis
         apply_gradients(state, schedule)
         t5 = _sync(device)
         rows.append([t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4, t5 - t0])
-        iou_launches.append(boxes_mod.pairwise_iou_cuda.launches)
+        iou_launches.append(cs._iou_launches())
         sweeps.append(nms_mod._tile_fixpoint.sweeps)
     med = [1000 * statistics.median(r[i] for r in rows[warmup:]) for i in range(6)]
     print(
