@@ -56,20 +56,29 @@ CUDA card, builds the port's kernels from the sources in the checkout
      (one bfloat16 ulp more in bfloat16), bound as the forward's. Its
      count is set to 0 after this check and never reset: phases 3, 6, 9,
      12 and 15 each require it still 0, and its record's ``launches`` is
-     the count read after phase 16;
+     the count read after phase 20;
    * the three align kernels on rois whose footprints stress their
      per-roi geometry (``footprint_rois``: giant rois on P5, rois partly or
      wholly outside the canvas, degenerate rois, 64 rois sharing one cell):
      both forwards bit-exact in float32 and bfloat16, the backward within
      1e-5 * max|ref| and bit-exact on 64 copies of one dyadic roi with
-     integer gradients.
+     integer gradients;
+   * the segmented NMS kernel at every call site of ``ops/nms.py``
+     (``NMS_SITES``: the batch's proposals at each generation's predict and
+     train budgets, the legacy offset pass, the FPN compact and per-class
+     passes as 182 segments) on seeded segments with clumps, duplicates,
+     tied scores, degenerate and zero-area boxes and invalid tails: keep
+     and counts identical with ``nms_segments_reference``; timed one call
+     and back to back beside the launch floor and the plain sweep on the
+     card (what the kernel replaces), bound by the pairs the greedy tests.
 3. main path, predict: full-width legacy VGG16 predict (21 classes, seeded
    random weights, the 800x1344 canvas, batch 1) through the port's
    ``engine.evaluate.evaluate`` on synthetic in-memory VOC batches, in
    float32 (TF32 off) and bfloat16, with the kernels' launch counts reset
-   just before and read just after; the IoU kernel never runs.
-4. predict vs plain: the same float32 predict with RoIPool forced to the
-   plain version must give identical detections.
+   just before and read just after; the NMS kernel runs twice a call
+   (proposals, per-class), the IoU kernel never.
+4. predict vs plain: the same float32 predict with RoIPool and NMS forced
+   to the plain versions must give identical detections.
 5. small-input predict reference: GPU float32 predict against the CPU plain
    path on a 128x192 canvas, greedy-matched (label, IoU >= 0.99, 99%
    matched, score and box |d| <= 1e-4).
@@ -77,11 +86,11 @@ CUDA card, builds the port's kernels from the sources in the checkout
    gt padded to 100 slots) on one repeated synthetic batch through
    ``engine.train.train_one_epoch`` and ``parallel.train_step``, in
    float32 and under bfloat16 autocast, counts reset just before and read
-   just after: the backward kernel runs once per step, the IoU kernel
-   never, every loss is finite and the mean loss of steps 16-20 is below
-   that of steps 1-5.
+   just after: the backward kernel and the NMS kernel (the batch's
+   proposals) run once per step, the IoU kernel never, every loss is
+   finite and the mean loss of steps 16-20 is below that of steps 1-5.
 7. train step vs plain: one float32 step from the same weights and noise
-   through the kernels and through plain RoIPool: identical losses;
+   through the kernels and through plain RoIPool and NMS: identical losses;
    parameter gradients within 1e-5 * max|g| per tensor for the RPN and the
    head, 2e-4 for the backbone convs, whose gradients sum the reordered
    atomics of the RoIPool backward over the whole map (the run-to-run
@@ -99,10 +108,10 @@ CUDA card, builds the port's kernels from the sources in the checkout
    ``engine.evaluate.evaluate`` with ``data_type="coco"`` and a synthetic
    ``CocoIndex`` written under ``build/``, in float32 (TF32 off) and
    bfloat16, counts reset just before and read just after: the align
-   kernel runs once per predict call, RoIPool and IoU never; every image has a
-   detection; the std of P2..P6 is printed.
-10. FPN predict vs plain: the same float32 predict with the plain align
-   must give identical detections.
+   kernel runs once per predict call and NMS twice, RoIPool and IoU never;
+   every image has a detection; the std of P2..P6 is printed.
+10. FPN predict vs plain: the same float32 predict with the plain align and
+   NMS must give identical detections.
 11. small-input FPN reference: GPU float32 FPN predict against the CPU
    plain path at 208x240, greedy-matched as in phase 5.
 12. main path, FPN train: 20 steps of the ResNet50-FPN train step (91
@@ -110,12 +119,12 @@ CUDA card, builds the port's kernels from the sources in the checkout
    image under raw COCO ids, FPN_CONFIG budgets) through
    ``train_one_epoch`` and ``parallel.train_step``, in float32 and under
    bfloat16 autocast, counts reset just before and read just after: the
-   align forward and backward kernels run once per step each, RoIPool and
-   IoU never; every loss is finite and the mean of steps 16-20 is below that
+   align forward and backward kernels and NMS run once per step each,
+   RoIPool and IoU never; every loss is finite and the mean of steps 16-20 is below that
    of steps 1-5.
 13. FPN train step vs plain: one float32 step from the same weights and
-   noise through the align kernels and through the plain align (forward
-   and backward): identical losses; gradients within 1e-5 * max|g| per
+   noise through the align and NMS kernels and through the plain align
+   (forward and backward) and NMS: identical losses; gradients within 1e-5 * max|g| per
    tensor (the backbone and FPN convs sum the reordered atomics of the
    align backward; two kernel runs' spread is printed beside it);
    ``conv1`` and ``layer1`` get no gradient,
@@ -127,34 +136,61 @@ CUDA card, builds the port's kernels from the sources in the checkout
    512 slots (``--max_gt 512``, past the IoU kernel's gate of 432) and
    300-500 small boxes tiled over each image, counts reset just before and
    read just after: the IoU kernel's match mode runs once per step for
-   the batch and its matrix mode never, RoIPool forward and backward once
-   per step each; losses finite and falling as in phase 6; img/s printed
-   as there.
+   the batch and its matrix mode never, RoIPool forward and backward and
+   NMS once per step each; losses finite and falling as in phase 6; img/s
+   printed as there.
 16. dense step vs plain: one float32 dense step from the same weights and
-   noise through the IoU match kernel and with ``plain=True``: identical
-   RPN and RoI targets (rois, labels, is_pos, valid, reg targets) and
-   losses.
-17. imports: jax and flax were never imported.
+   noise through the IoU match and NMS kernels and with ``plain=True``:
+   identical RPN and RoI targets (rois, labels, is_pos, valid, reg
+   targets) and losses.
+17. sync-free predict: full-width bfloat16 predict, legacy at batch 1 and
+   FPN at batch 2, the canvas anchors already on the device, under
+   ``torch.cuda.set_sync_debug_mode("error")``: it must not raise.
+18. export: ``serving.export_predict`` into ``build/chip_smoke_export/``
+   (legacy bfloat16 batch 1 in both buckets of ``canvas_buckets(800,
+   1333)``, FPN bfloat16 batch 2 in the landscape one, one legacy artifact
+   with a params sidecar); each loaded back with ``load_artifact`` gives
+   packed detections bit-identical to direct predict, and its call raises
+   the RoIPool or align count and the NMS count; sizes, export time and
+   ms a call beside direct predict are printed.
+19. serve: ``serve.InferenceServer`` over the FPN export dir
+   (``batch_wait_ms`` 20) behind HTTP on ``127.0.0.1`` port 0, 16
+   concurrent ``POST /detect`` of seeded JPEGs: every dispatch equals direct
+   predict on its batch, every response its row through
+   ``detections_to_pixels``; ``/metrics`` counts fewer dispatches than
+   requests; requests/s and latency p50/p99 are printed.
+20. demo: ``engine.demo.demo`` over 4 seeded JPEGs under
+   ``build/chip_smoke_demo/`` (legacy bfloat16): detections equal direct
+   predict at the demo's /64 bucket; FPS printed.
+21. imports: jax and flax were never imported.
 
-Its last two lines are the kernels' JSON record and
+Its last two lines are the kernels' JSON record (``launches``: phases 3,
+6, 9, 12 and 15; ``serving_launches``: phases 18-20) and
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import functools
+import io
 import json
 import os
 import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 from types import SimpleNamespace
 
 import numpy as np
 import torch
 
+from faster_rcnn_pytorch_tpu_torch import serve, serving
 from faster_rcnn_pytorch_tpu_torch.data.coco import CocoIndex
+from faster_rcnn_pytorch_tpu_torch.data.loader import canvas_buckets, load_image
+from faster_rcnn_pytorch_tpu_torch.engine import demo as demo_mod
 from faster_rcnn_pytorch_tpu_torch.engine.evaluate import evaluate
 from faster_rcnn_pytorch_tpu_torch.engine.train import BATCH_KEYS, train_one_epoch
 from faster_rcnn_pytorch_tpu_torch.evaluation.diff import detections_agree
@@ -172,6 +208,7 @@ from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import (
     train_targets,
 )
 from faster_rcnn_pytorch_tpu_torch.ops import boxes as boxes_mod
+from faster_rcnn_pytorch_tpu_torch.ops import nms as nms_mod
 from faster_rcnn_pytorch_tpu_torch.ops import roi_align as roi_align_mod
 from faster_rcnn_pytorch_tpu_torch.ops import roi_pool as roi_pool_mod
 from faster_rcnn_pytorch_tpu_torch.ops.cuda import extension
@@ -1216,14 +1253,15 @@ def _train_setup(generation: str):
 
 def run_train(
     dtype_name: str, device, generation: str = "legacy", dense: bool = False
-) -> tuple[int, int, int]:
+) -> tuple[int, int, int, int]:
     """20 full-width train steps through ``train_one_epoch``; returns the
     launch counts of the generation's head kernels (forward, backward) and
     of the IoU kernel in the run, and requires the other generation's
     kernels to stay idle. ``dense``: gt padded to ``DENSE_MAX_GT`` slots
     with ``DENSE_BOXES`` boxes per image, past the IoU kernel's gate, so
     its match mode runs once per step for the batch and its matrix mode
-    never; otherwise (100 slots) neither."""
+    never; otherwise (100 slots) neither. The NMS kernel runs once a step
+    (the batch's proposals); its launches are returned last."""
     dtype = set_numerics(dtype_name)
     cfg, labels = _train_setup(generation)
     model = _new_model(generation).to(device)
@@ -1248,13 +1286,14 @@ def run_train(
         seed=SEED, vis_step=1, log_dir=LOG_DIR, name=f"train_{name.replace(' ', '_')}",
         keep_checkpoints=1,
     )
-    kernels = (*_head_kernels("legacy"), *_head_kernels("fpn"), *IOU_KERNELS)
+    kernels = (*_head_kernels("legacy"), *_head_kernels("fpn"), *IOU_KERNELS, NMS_KERNEL)
     for k in kernels:
         k.launches = 0
     train_one_epoch(state, timed_step, loader, 0, opts, schedule, recorder)
     counts = {k.__name__: k.launches for k in kernels}
     shutil.rmtree(LOG_DIR)
     fwd, bwd = (counts.pop(k.__name__) for k in _head_kernels(generation))
+    nms = counts.pop(NMS_KERNEL.__name__)
     iou = counts.pop(boxes_mod.iou_match_cuda.__name__)
     matrix = counts.pop(boxes_mod.pairwise_iou_cuda.__name__)
     losses = recorder.losses
@@ -1264,6 +1303,7 @@ def run_train(
     _require(last < first, f"{name} train: loss did not fall ({first} -> {last})")
     _require(bwd == TRAIN_STEPS, f"{name} train: {bwd} backward launches, want {TRAIN_STEPS}")
     _require(fwd == TRAIN_STEPS, f"{name} train: {fwd} forward launches, want {TRAIN_STEPS}")
+    _require(nms == TRAIN_STEPS, f"{name} train: {nms} NMS launches, want {TRAIN_STEPS} (the batch's proposals)")
     want_iou = TRAIN_STEPS if dense else 0
     _require(iou == want_iou, f"{name} train: {iou} IoU match launches, want {want_iou}")
     _require(matrix == 0, f"{name} train: {matrix} IoU matrix launches, want 0")
@@ -1275,10 +1315,10 @@ def run_train(
         f"{f' gt slots {DENSE_MAX_GT}' if dense else ''}: "
         f"{TRAIN_BATCH * len(steady) / sum(steady):.2f} img/s over steps 6-{TRAIN_STEPS} "
         f"(step p50 {1000 * timer.p50():.1f} ms), mean loss steps 1-5 {first:.4f} -> "
-        f"16-20 {last:.4f}, launches fwd {fwd} bwd {bwd} iou {iou}, other kernels {counts}",
+        f"16-20 {last:.4f}, launches fwd {fwd} bwd {bwd} iou {iou} nms {nms}, other kernels {counts}",
         flush=True,
     )
-    return fwd, bwd, iou
+    return fwd, bwd, iou, nms
 
 
 def check_dense_targets_kernel_vs_plain(device) -> None:
@@ -1303,15 +1343,16 @@ def check_dense_targets_kernel_vs_plain(device) -> None:
         rpn_cls, rpn_reg = model.rpn_out(feats)
     targets = []
     for plain in (False, True):
-        before = iou_k.launches
+        before = (iou_k.launches, NMS_KERNEL.launches)
         targets.append(
             train_targets(
                 cfg, anchors, rpn_cls, rpn_reg, *(batch[k] for k in BATCH_KEYS[1:]), noise, plain=plain
             )
         )
         torch.cuda.synchronize()
-        want = before if plain else before + 1
-        _require(iou_k.launches == want, f"IoU match launches {before} -> {iou_k.launches} (plain={plain})")
+        after = (iou_k.launches, NMS_KERNEL.launches)
+        want = before if plain else tuple(b + 1 for b in before)
+        _require(after == want, f"IoU match and NMS launches {before} -> {after} (plain={plain})")
     (k_rpn, k_roi), (p_rpn, p_roi) = targets
     for field in RoITargets._fields:
         _require(torch.equal(getattr(k_roi, field), getattr(p_roi, field)), f"RoI targets differ in {field}")
@@ -1328,7 +1369,7 @@ def check_dense_targets_kernel_vs_plain(device) -> None:
     n_real = batch["gt_mask"].sum(1).tolist()
     print(
         f"dense train step legacy float32 ({n_real} of {DENSE_MAX_GT} gt slots real): RoI and RPN "
-        f"targets identical with the IoU match kernel and with the plain match ({int(k_roi.is_pos.sum())} "
+        f"targets identical with the IoU match and NMS kernels and with the plain ones ({int(k_roi.is_pos.sum())} "
         f"positive rois), losses identical ({', '.join(f'{v:.5f}' for v in losses[0].tolist())})",
         flush=True,
     )
@@ -1380,12 +1421,12 @@ def check_train_step_kernel_vs_plain(device, generation: str = "legacy") -> None
     runs = []
     for plain in (False, True, False):
         model.zero_grad(set_to_none=True)
-        before = (fwd_k.launches, bwd_k.launches)
+        before = (fwd_k.launches, bwd_k.launches, NMS_KERNEL.launches)
         out = forward_train(model, cfg, *(batch[k] for k in BATCH_KEYS), noise=noise, plain=plain)
         out.losses.total.backward()
         torch.cuda.synchronize()
-        after = (fwd_k.launches, bwd_k.launches)
-        want = before if plain else (before[0] + 1, before[1] + 1)
+        after = (fwd_k.launches, bwd_k.launches, NMS_KERNEL.launches)
+        want = before if plain else tuple(b + 1 for b in before)
         _require(after == want, f"launches {before} -> {after} (plain={plain})")
         runs.append((_loss_vector(out), _grads(model)))
     (k_loss, k_grads), (p_loss, p_grads), (_, k2_grads) = runs
@@ -1403,7 +1444,7 @@ def check_train_step_kernel_vs_plain(device, generation: str = "legacy") -> None
         _require(rel <= tol, f"{name}: max|d| / max|g| = {rel} > {tol} (kernel vs plain)")
     print(
         f"train step {generation} float32 {CANVAS[0]}x{CANVAS[1]}: losses identical with the "
-        f"kernels and with the plain head ops ({', '.join(f'{v:.5f}' for v in k_loss.tolist())})",
+        f"kernels and with the plain head ops and NMS ({', '.join(f'{v:.5f}' for v in k_loss.tolist())})",
         flush=True,
     )
     for label, errs in (("kernel vs plain", vs_plain), ("kernel vs kernel", vs_kernel)):
@@ -1594,12 +1635,13 @@ def _fpn_loader(seed: int, n: int = FPN_IMAGES) -> SyntheticImages:
     return loader
 
 
-def run_fpn_predict(device) -> tuple[int, dict]:
+def run_fpn_predict(device) -> tuple[int, int, dict]:
     """Full-width FPN predict in float32 and bfloat16, counts reset just
-    before and read just after each: one align launch per predict call,
-    no RoIPool launch, at least one detection per image. Returns the align
-    launches of both runs and the float32 detections."""
-    launches = 0
+    before and read just after each: one align launch and two NMS launches
+    (proposals, per-class) per predict call, no RoIPool launch, at least
+    one detection per image. Returns the align and NMS launches of both
+    runs and the float32 detections."""
+    launches = nms_launches = 0
     detections = {}
     for dtype_name in ("float32", "bfloat16"):
         model = _new_model("fpn")
@@ -1608,30 +1650,424 @@ def run_fpn_predict(device) -> tuple[int, dict]:
         loader = _fpn_loader(SEED + 5)
         roi_align_mod.multiscale_roi_align_cuda.launches = 0
         roi_pool_mod.roi_pool_cuda.launches = 0
+        NMS_KERNEL.launches = 0
         for k in IOU_KERNELS:
             k.launches = 0
         result, counts = run_predict(model, dtype_name, device, loader, "fpn")
         align = roi_align_mod.multiscale_roi_align_cuda.launches
         pool = roi_pool_mod.roi_pool_cuda.launches
+        nms = NMS_KERNEL.launches
         calls = len(loader.batches)
+        _require(nms == 2 * calls, f"{dtype_name} FPN predict: {nms} NMS launches for {calls} calls")
         _require(align == calls, f"{dtype_name} FPN predict: {align} align launches for {calls} calls")
         _require(pool == 0, f"{dtype_name} FPN predict launched RoIPool {pool} times")
         _require(_iou_launches() == 0, f"{dtype_name} FPN predict launched the IoU kernel")
         _require_slots_idle(f"{dtype_name} FPN predict")
         _require(min(counts) > 0, f"{dtype_name} FPN predict: an image without detections {counts}")
         launches += align
+        nms_launches += nms
         with torch.no_grad():
             images = torch.from_numpy(loader.batches[0]["image"]).to(device)
             feats = model.features(images.permute(0, 3, 1, 2).to(next(model.parameters()).dtype))
         print(
             f"  P2..P6 std ({dtype_name}): "
             + " ".join(f"{float(f.float().std()):.3f}" for f in feats)
-            + f"; align launches {align} for {calls} predict calls, RoIPool {pool}",
+            + f"; align launches {align} for {calls} predict calls, NMS {nms}, RoIPool {pool}",
             flush=True,
         )
         if dtype_name == "float32":
             detections = result["detections"]
-    return launches, detections
+    return launches, nms_launches, detections
+
+
+# (the call sites of ops/nms.py: what, segments, n, post_k, threshold, the plain sweep's tile)
+NMS_SITES = (
+    ("proposals, legacy predict", 1, LEGACY_CONFIG.pre_nms_test, LEGACY_CONFIG.post_nms_test, 0.7, 512),
+    ("proposals, legacy train", TRAIN_BATCH, LEGACY_CONFIG.pre_nms_train, LEGACY_CONFIG.post_nms_train, 0.7, 1024),
+    ("proposals, FPN predict", FPN_BATCH, FPN_CONFIG.pre_nms_test, FPN_CONFIG.post_nms_test, 0.7, 512),
+    ("proposals, FPN train", TRAIN_BATCH, FPN_CONFIG.pre_nms_train, FPN_CONFIG.post_nms_train, 0.7, 512),
+    ("per-class, legacy (offset pass)", 1, (NUM_CLASSES - 1) * LEGACY_CONFIG.post_nms_test, 100, 0.3, 256),
+    ("per-class, FPN (compact + 90 classes)", FPN_BATCH * FPN_CLASSES, FPN_CONFIG.post_nms_test, 100, 0.3, 256),
+)
+NMS_KERNEL = nms_mod.nms_segments_cuda
+
+
+def nms_segments_inputs(seed: int, s: int, n: int, shift_classes: int = 0, fpn_passes: bool = False):
+    """``s`` score-sorted segments of ``n`` boxes in canvas [0, 1] units:
+    RPN-like clumps around a few centres, exact duplicates of a neighbour
+    (tied scores at equal boxes), degenerate and zero-area boxes, scattered
+    boxes, scattered invalid entries and an invalid tail. ``shift_classes``:
+    each box shifted into its class's cell, ``class * (max + 1)``, as the
+    offset pass shifts them. ``fpn_passes``: segments are images' compact
+    segment then their ``FPN_CLASSES - 1`` class segments, and image 0 takes
+    the compact pass, the others the per-class one (the pass not taken is
+    all invalid, as ``multiclass_nms_batch`` masks it)."""
+    rs = np.random.RandomState(seed)
+    boxes = np.zeros((s, n, 4), np.float32)
+    valid = np.zeros((s, n), bool)
+    for i in range(s):
+        centres = rs.uniform(0.2, 0.8, size=(6, 2))
+        c = centres[rs.randint(0, 6, size=n)] + rs.normal(0, 0.03, size=(n, 2))
+        wh = rs.uniform(0.02, 0.3, size=(n, 2))
+        b = np.concatenate([c - wh / 2, c + wh / 2], 1).clip(0, 1)
+        m = len(b[::7])
+        xy = rs.uniform(0, 0.8, size=(m, 2))
+        b[::7] = np.concatenate([xy, np.minimum(xy + rs.uniform(0.02, 0.4, size=(m, 2)), 1)], 1)
+        b[5::11] = b[4::11][: len(b[5::11])]  # exact duplicates
+        b[3::13, 2:] = b[3::13, :2]  # zero area
+        b[9::17, 2] = b[9::17, 0]  # zero width
+        b[0] = b[1]
+        if shift_classes:
+            b = b + (rs.randint(0, shift_classes, size=n) * (b.max() + 1.0))[:, None]
+        boxes[i] = b
+        tail = n - rs.randint(0, n // 4 + 1)
+        valid[i, :tail] = rs.uniform(size=tail) > 0.1
+    if fpn_passes:
+        per_image = valid.reshape(-1, FPN_CLASSES, n)
+        per_image[0, 1:] = False  # image 0: the compact pass
+        per_image[1:, 0] = False  # the others: the per-class pass
+    return boxes, valid
+
+
+def _greedy_pairs(boxes, valid, keep, count, thr: float, post_k: int) -> int:
+    """IoU pairs the sequential greedy tests on these inputs: each valid box
+    it reaches meets the kept boxes before it, in order, until the first one
+    that suppresses it (all of them if it is kept); it stops at the
+    ``post_k``-th kept box."""
+    total = 0
+    for s in range(boxes.shape[0]):
+        k = keep[s, : int(count[s])].long()
+        if k.numel() == 0:
+            continue
+        last = int(k[-1]) if int(count[s]) == post_k else boxes.shape[1] - 1
+        cand = boxes[s, : last + 1]
+        before = k[None, :] < torch.arange(last + 1, device=boxes.device)[:, None]
+        hit = (boxes_mod.box_iou(cand, boxes[s, k])[0] > thr) & before
+        tests = torch.where(hit.any(1), hit.int().argmax(1) + 1, before.sum(1))
+        total += int(tests[valid[s, : last + 1]].sum())
+    return total
+
+
+def check_nms_kernel(device) -> dict:
+    """The segmented NMS kernel at every call site of ``ops/nms.py`` (the
+    batch's proposals of either generation at predict and train budgets, the
+    legacy offset pass, the FPN compact and per-class passes) against
+    ``nms_segments_reference`` on ``nms_segments_inputs``: ``keep`` and the
+    counts identical. Timed one call and back to back, beside the launch
+    floor and the plain version on the card (the host-synchronised sweep it
+    replaces, at the call site's tile). Bound: the boxes, flags and outputs
+    at 3.35 TB/s, or the pairs the greedy tests on these inputs
+    (``_greedy_pairs``) at 14 operations each, at 67 TFLOP/s. The record's
+    numbers are the FPN per-class row's, the call that was 73.7 ms of an
+    FPN image's predict before the kernel."""
+    empty = extension().empty_kernel
+    floor_ms, floor_burst_ms = _median_ms(empty), _median_ms(empty, burst=BURST)
+    rows = []
+    for i, (what, s, n, post_k, thr, tile) in enumerate(NMS_SITES):
+        shift = NUM_CLASSES - 1 if "offset" in what else 0
+        boxes, valid = nms_segments_inputs(SEED + 20 + i, s, n, shift, "compact" in what)
+        tb, tv = torch.from_numpy(boxes).to(device), torch.from_numpy(valid).to(device)
+        keep, count = NMS_KERNEL(tb, tv, thr, post_k)
+        torch.cuda.synchronize()
+        want_keep, want_count = nms_mod.nms_segments_reference(tb, tv, thr, post_k, tile)
+        _require(
+            torch.equal(keep, want_keep) and torch.equal(count, want_count),
+            f"nms {what}: {int((keep != want_keep).any(1).sum())} segments differ from the plain sweep",
+        )
+        call = lambda: NMS_KERNEL(tb, tv, thr, post_k)  # noqa: E731
+        ms, burst_ms = _median_ms(call), _median_ms(call, burst=BURST)
+        plain_ms = _median_ms(lambda: nms_mod.nms_segments_reference(tb, tv, thr, post_k, tile), runs=5, warmup=1)
+        pairs = _greedy_pairs(tb, tv, keep, count, thr, post_k)
+        n_bytes = s * n * 17 + s * post_k * 4 + s * 4
+        bound_ms, bound_by = _bound(n_bytes, 14 * pairs)
+        rows.append(
+            dict(site=what, segments=s, n=n, post_k=post_k, ms=ms, burst_ms=burst_ms, plain_ms=plain_ms,
+                 bound_ms=bound_ms, bound_by=bound_by, pairs=pairs, kept=int(count.sum()))
+        )
+        print(
+            f"nms {what}: [{s}, {n}, 4] -> [{s}, {post_k}] thr {thr}, keep and counts identical with the "
+            f"plain sweep ({int(count.sum())} kept, {int(tv.sum())} valid), kernel {ms:.4f} ms "
+            f"({burst_ms:.4f} back to back), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
+            f"({n_bytes / 1e6:.3f} MB, {pairs} pairs tested, {bound_by})",
+            flush=True,
+        )
+    print(f"nms launch floor (empty kernel): {floor_ms:.4f} ms one call, {floor_burst_ms:.4f} back to back", flush=True)
+    main = rows[-1]
+    return {
+        "name": "nms",
+        "route": "cuda",
+        "source": "faster_rcnn_pytorch_tpu_torch/ops/cuda/nms.cu",
+        "replaces": "faster_rcnn_pytorch_tpu/ops/nms.py:84 (no Pallas kernel: an XLA lax.while_loop)",
+        "max_abs_err": 0.0,  # keep and counts are held identical
+        "library_ms": None,  # PyTorch has no NMS call (torchvision is not a dependency)
+        **{k: main[k] for k in ("ms", "burst_ms", "plain_ms", "bound_ms", "bound_by")},
+        "floor_ms": floor_ms,
+        "floor_burst_ms": floor_burst_ms,
+        "sites": rows,
+    }
+
+
+def _serving_counts() -> tuple[int, int, int]:
+    return (
+        roi_pool_mod.roi_pool_cuda.launches,
+        roi_align_mod.multiscale_roi_align_cuda.launches,
+        NMS_KERNEL.launches,
+    )
+
+
+def _seeded_canvases(seed: int, b: int, canvas, device):
+    g = np.random.default_rng(seed)
+    images = np.zeros((b, *canvas, 3), np.float32)
+    extents = np.zeros((b, 2), np.float32)
+    for i in range(b):
+        rh, rw = int(canvas[0] * (1.0 - 0.15 * i)), int(canvas[1] * (0.9 - 0.1 * i))
+        images[i, :rh, :rw] = g.standard_normal((rh, rw, 3), dtype=np.float32)
+        extents[i] = (rw / canvas[1], rh / canvas[0])
+    return torch.from_numpy(images).to(device), torch.from_numpy(extents).to(device)
+
+
+def _serving_model(generation: str, device):
+    set_numerics("bfloat16")
+    cfg = LEGACY_CONFIG if generation == "legacy" else FPN_CONFIG
+    return prepare_for_inference(_new_model(generation), device, torch.bfloat16), cfg
+
+
+def check_sync_free_predict(device) -> None:
+    """Full-width bfloat16 predict, legacy at batch 1 and FPN at batch 2,
+    with the canvas anchors already on the device (one call before), under
+    ``torch.cuda.set_sync_debug_mode("error")``: no operation synchronises
+    with the host."""
+    for generation, batch in (("legacy", 1), ("fpn", FPN_BATCH)):
+        model, cfg = _serving_model(generation, device)
+        images, extents = _seeded_canvases(SEED + 30, batch, CANVAS, device)
+        predict(model, cfg, images, extents, THRESHOLD)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            det = predict(model, cfg, images, extents, THRESHOLD)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        print(
+            f"sync-free predict {generation} bfloat16 batch {batch}: no host synchronisation under "
+            f"set_sync_debug_mode('error'), {int(det.valid.sum())} detections",
+            flush=True,
+        )
+
+
+def run_export(device) -> tuple[str, dict]:
+    """``serving.export_predict`` into ``build/chip_smoke_export/``: legacy
+    bfloat16 at batch 1 in both buckets of ``canvas_buckets(800, 1333)``,
+    FPN bfloat16 at batch 2 in the landscape bucket, and a legacy artifact
+    whose weights are a params sidecar. Each, loaded back with
+    ``load_artifact``, gives packed detections bit-identical to direct
+    ``predict`` on seeded canvases, and the call raises the RoIPool or align
+    count and the NMS count. Returns the FPN export dir (for the server)
+    and the launches of the loaded artifacts' calls."""
+    out = os.path.join(BUILD, "chip_smoke_export")
+    shutil.rmtree(out, ignore_errors=True)
+    launches = [0, 0, 0]
+    jobs = [("legacy", 1, c, False) for c in canvas_buckets(800, 1333)]
+    jobs += [("fpn", FPN_BATCH, CANVAS, False), ("legacy", 1, CANVAS, True)]
+    models = {g: _serving_model(g, device) for g in ("legacy", "fpn")}
+    for generation, batch, canvas, sidecar in jobs:
+        model, cfg = models[generation]
+        sub = os.path.join(out, f"{generation}{'_sidecar' if sidecar else ''}")
+        os.makedirs(sub, exist_ok=True)
+        t0 = time.time()
+        exported = serving.export_predict(model, cfg, canvas, batch, THRESHOLD, params_as_args=sidecar)
+        name = serving.artifact_name(canvas, batch)
+        path = os.path.join(sub, name)
+        serving.save_artifact(exported, path)
+        export_s = time.time() - t0
+        entry = {"file": name, "canvas_hw": list(canvas), "batch": batch, "platforms": [device.type]}
+        extra = {
+            "model_generation": generation,
+            "data_type": "voc" if generation == "legacy" else "coco",
+            "num_classes": cfg.num_classes,
+            "score_threshold": THRESHOLD,
+        }
+        if sidecar:
+            entry["params_as_args"] = True
+            serving.save_params_sidecar(model, os.path.join(sub, serving.PARAMS_SIDECAR))
+            extra["params_file"] = serving.PARAMS_SIDECAR
+        serving.write_manifest(sub, [entry], extra=extra)
+        call = serving.load_artifact(path)
+        if sidecar:
+            params = serving.load_params_sidecar(os.path.join(sub, serving.PARAMS_SIDECAR), device)
+            call = functools.partial(call, params)
+        images, extents = _seeded_canvases(SEED + 31, batch, canvas, device)
+        want = serving.pack_detections(predict(model, cfg, images, extents, THRESHOLD))
+        before = _serving_counts()
+        with torch.no_grad():
+            got = call(images, extents)
+        torch.cuda.synchronize()
+        after = _serving_counts()
+        rose = [a - b for a, b in zip(after, before)]
+        head = 0 if generation == "legacy" else 1
+        _require(rose[head] > 0 and rose[2] > 0, f"{name}: the artifact's call launched {rose}")
+        _require(torch.equal(got, want), f"{generation} {name}: the artifact differs from direct predict")
+        launches = [x + r for x, r in zip(launches, rose)]
+        with torch.no_grad():
+            ms = _median_ms(lambda: call(images, extents), runs=10)
+        direct_ms = _median_ms(lambda: predict(model, cfg, images, extents, THRESHOLD), runs=10)
+        size = os.path.getsize(path) / 1e6
+        side_mb = os.path.getsize(os.path.join(sub, serving.PARAMS_SIDECAR)) / 1e6 if sidecar else 0.0
+        print(
+            f"export {generation} bfloat16 {name}{' (params sidecar, ' + f'{side_mb:.1f} MB)' if sidecar else ''}: "
+            f"{size:.1f} MB, exported in {export_s:.1f} s, packed detections bit-identical to direct "
+            f"predict ({int(got[..., 6].sum())} detections), launches RoIPool/align/NMS {rose}, "
+            f"{ms:.2f} ms a call against direct predict {direct_ms:.2f} ms",
+            flush=True,
+        )
+    return os.path.join(out, "fpn"), dict(zip(("roi_pool", "align", "nms"), launches))
+
+
+def _jpeg(seed: int, h: int, w: int) -> bytes:
+    from PIL import Image
+
+    g = np.random.default_rng(seed)
+    img = g.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    img[h // 4 : h // 2, w // 3 : w // 2] = (220, 40, 40)
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="JPEG", quality=90)
+    return buf.getvalue()
+
+
+def run_serve(device, export_dir: str, requests: int = 16) -> dict:
+    """``serve.InferenceServer`` over the FPN export dir (batch 2), with
+    ``batch_wait_ms`` 20, behind its HTTP handler on ``127.0.0.1`` port 0:
+    ``requests`` concurrent ``POST /detect`` of seeded synthetic JPEGs. Every
+    dispatch's packed output equals direct ``predict`` on the same batch,
+    every response equals its row of that output through
+    ``detections_to_pixels``, and ``/metrics`` counts every request and
+    fewer dispatches. Returns the launches of the run."""
+    server = serve.InferenceServer(export_dir, batch_wait_ms=20, device=device)
+    server.warmup()
+    dispatched = []
+    dispatch = server._batcher._dispatch
+
+    def recording(bucket, images, extents):
+        out = dispatch(bucket, images, extents)
+        dispatched.append((bucket, images.copy(), extents.copy(), out))
+        return out
+
+    server._batcher._dispatch = recording
+    httpd = serve.make_http_server(server, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    sizes = [(480 + 8 * i, 640 + 16 * i) for i in range(requests)]
+    bodies = [_jpeg(SEED + 40 + i, *sizes[i]) for i in range(requests)]
+    outs, lat = {}, {}
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def fire(i):
+        t0 = time.perf_counter()
+        req = urllib.request.Request(f"{base}/detect", data=bodies[i], method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            outs[i] = json.load(r)
+        lat[i] = time.perf_counter() - t0
+
+    before = _serving_counts()
+    threads = [threading.Thread(target=fire, args=(i,)) for i in range(requests)]
+    t0 = time.perf_counter()
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+        with urllib.request.urlopen(f"{base}/metrics", timeout=60) as r:
+            metrics = json.load(r)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    rose = [a - b for a, b in zip(_serving_counts(), before)]
+    _require(len(outs) == requests, f"{len(outs)} of {requests} responses")
+    _require(metrics["requests"] == requests and metrics["errors"] == 0, f"metrics {metrics}")
+    _require(metrics["dispatches"] < requests, f"{metrics['dispatches']} dispatches for {requests} requests")
+    _require(rose[1] > 0 and rose[2] > 0, f"the server's dispatches launched {rose}")
+    model, cfg = _serving_model("fpn", device)
+    for bucket, images, extents, out in dispatched:
+        want = serving.pack_detections(
+            predict(model, cfg, torch.from_numpy(images).to(device), torch.from_numpy(extents).to(device), THRESHOLD)
+        ).cpu().numpy()
+        _require(np.array_equal(out, want), "a dispatch differs from direct predict on its batch")
+    n_dets = 0
+    for i in range(requests):
+        raw = serve.decode_image_bytes(bodies[i])
+        canvas_hw = tuple(outs[i]["bucket"][1:])
+        canvas, _, scale = serve.preprocess(raw, canvas_hw)
+        rows = [
+            out[slot] for _, images, _, out in dispatched for slot in range(len(images))
+            if np.array_equal(images[slot], canvas)
+        ]
+        _require(len(rows) == 1, f"request {i}: its canvas is in {len(rows)} dispatches")
+        want = serve.detections_to_pixels(rows[0], canvas_hw, scale, (raw.shape[1], raw.shape[0]), None)
+        got = [{k: d[k] for k in ("box", "label", "score")} for d in outs[i]["detections"]]
+        _require(got == want, f"request {i}: the response differs from direct predict")
+        n_dets += len(got)
+    ms = sorted(1e3 * v for v in lat.values())
+    print(
+        f"serve FPN bfloat16 batch 2 (batch_wait_ms 20): {requests} concurrent requests in {wall:.2f} s, "
+        f"{requests / wall:.2f} requests/s, client p50 {ms[len(ms) // 2]:.1f} ms p99 "
+        f"{ms[min(len(ms) - 1, int(0.99 * len(ms)))]:.1f} ms, server p50 {metrics['latency_ms']['p50']} ms "
+        f"p99 {metrics['latency_ms']['p99']} ms, {metrics['dispatches']} dispatches "
+        f"(groups {metrics['batch_hist']}), every response equal to direct predict ({n_dets} detections), "
+        f"launches RoIPool/align/NMS {rose}",
+        flush=True,
+    )
+    return dict(zip(("roi_pool", "align", "nms"), rose))
+
+
+def run_demo(device) -> dict:
+    """``engine.demo.demo`` over 4 seeded JPEGs under
+    ``build/chip_smoke_demo/`` with the legacy bfloat16 model: each image's
+    pixel detections equal direct ``predict`` at the demo's /64 bucket,
+    mapped as the demo maps them. Returns the launches of the demo."""
+    from PIL import Image
+
+    root = os.path.join(BUILD, "chip_smoke_demo")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    sizes = ((480, 640), (600, 800), (375, 500), (640, 480))
+    for i, (h, w) in enumerate(sizes):
+        Image.open(io.BytesIO(_jpeg(SEED + 60 + i, h, w))).save(os.path.join(root, f"demo{i}.jpg"))
+    model, cfg = _serving_model("legacy", device)
+    opts = SimpleNamespace(
+        demo_root=root, demo_image_type="jpg", data_type="voc", model_generation="legacy",
+        thres=THRESHOLD, demo_vis=True,
+    )
+    before = _serving_counts()
+    t0 = time.time()
+    results = demo_mod.demo(model, cfg, opts)
+    fps = len(results) / (time.time() - t0)
+    rose = [a - b for a, b in zip(_serving_counts(), before)]
+    _require(len(results) == len(sizes) and rose[0] > 0 and rose[2] > 0, f"demo: {len(results)} images, launches {rose}")
+    for r in results:
+        raw = load_image(r["path"])
+        h, w = raw.shape[:2]
+        canvas, extent = demo_mod.pad_to_bucket(raw)
+        det = predict(
+            model, cfg, torch.from_numpy(canvas[None]).to(device), torch.from_numpy(extent[None]).to(device), THRESHOLD
+        )
+        ok = det.valid[0].cpu().numpy()
+        boxes = det.boxes[0].cpu().numpy()[ok] * np.array([canvas.shape[1], canvas.shape[0]] * 2, np.float32)
+        boxes[:, [0, 2]] = boxes[:, [0, 2]].clip(0, w)
+        boxes[:, [1, 3]] = boxes[:, [1, 3]].clip(0, h)
+        same = (
+            np.array_equal(r["boxes"], boxes)
+            and np.array_equal(r["labels"], det.labels[0].cpu().numpy()[ok])
+            and np.array_equal(r["scores"], det.scores[0].cpu().numpy()[ok])
+        )
+        _require(same, f"demo {r['path']}: detections differ from direct predict")
+    print(
+        f"demo legacy bfloat16: {len(results)} images ({', '.join(f'{h}x{w}' for h, w in sizes)}), "
+        f"{fps:.2f} FPS including each canvas's first call, detections equal to direct predict "
+        f"({sum(len(r['scores']) for r in results)}), launches RoIPool/align/NMS {rose}",
+        flush=True,
+    )
+    return dict(zip(("roi_pool", "align", "nms"), rose))
 
 
 def main() -> int:
@@ -1662,8 +2098,9 @@ def main() -> int:
     slots_record = check_roi_align_slots_kernel(device, align_record)
     check_align_footprint_edges(device)
     roi_align_mod.multiscale_roi_align_slots_cuda.launches = 0
+    nms_record = check_nms_kernel(device)
 
-    launches = 0
+    launches = nms_launches = 0
     detections = {}
     for dtype_name in ("float32", "bfloat16"):
         model = _new_model()
@@ -1671,11 +2108,15 @@ def main() -> int:
         run_predict(model, dtype_name, device, SyntheticImages(1, CANVAS, SEED))
         loader = SyntheticImages(N_IMAGES, CANVAS, SEED)
         roi_pool_mod.roi_pool_cuda.launches = 0
+        NMS_KERNEL.launches = 0
         for k in IOU_KERNELS:
             k.launches = 0
         result, counts = run_predict(model, dtype_name, device, loader)
         count = roi_pool_mod.roi_pool_cuda.launches
+        nms = NMS_KERNEL.launches
         _require(count > 0, f"{dtype_name} predict never launched the RoIPool kernel")
+        _require(nms == 2 * N_IMAGES, f"{dtype_name} predict: {nms} NMS launches for {N_IMAGES} calls")
+        nms_launches += nms
         _require(_iou_launches() == 0, f"{dtype_name} predict launched the IoU kernel")
         _require_slots_idle(f"{dtype_name} predict")
         if dtype_name == "float32":
@@ -1684,58 +2125,74 @@ def main() -> int:
         launches += count
 
     roi_pool_mod.roi_pool_cuda.launches = 0
+    NMS_KERNEL.launches = 0
     plain, _ = run_predict(
         _new_model(), "float32", device, SyntheticImages(N_IMAGES, CANVAS, SEED), plain=True
     )
     _require(roi_pool_mod.roi_pool_cuda.launches == 0, "the plain-RoIPool run launched the kernel")
+    _require(NMS_KERNEL.launches == 0, "the plain run launched the NMS kernel")
     _require(
         _detections_equal(plain["detections"], detections),
-        "float32 detections differ between kernel and plain RoIPool",
+        "float32 detections differ between the kernels and plain RoIPool and NMS",
     )
-    print("float32 detections identical with the kernel and with plain RoIPool", flush=True)
+    print("float32 detections identical with the kernels and with plain RoIPool and NMS", flush=True)
 
     check_small_input_reference(device)
 
     bwd_launches = 0
     for dtype_name in ("float32", "bfloat16"):
-        fwd, bwd, _ = run_train(dtype_name, device)
+        fwd, bwd, _, nms = run_train(dtype_name, device)
         launches += fwd
         bwd_launches += bwd
+        nms_launches += nms
     record["launches"] = launches
     bwd_record["launches"] = bwd_launches
 
     check_train_step_kernel_vs_plain(device)
     check_small_input_train_reference(device)
 
-    align_record["launches"], fpn_detections = run_fpn_predict(device)
+    align_record["launches"], nms, fpn_detections = run_fpn_predict(device)
+    nms_launches += nms
     fpn_loader = _fpn_loader(SEED + 5)
     roi_align_mod.multiscale_roi_align_cuda.launches = 0
+    NMS_KERNEL.launches = 0
     plain, _ = run_predict(_new_model("fpn"), "float32", device, fpn_loader, "fpn", plain=True)
     _require(
         roi_align_mod.multiscale_roi_align_cuda.launches == 0, "the plain-align run launched the kernel"
     )
+    _require(NMS_KERNEL.launches == 0, "the plain FPN run launched the NMS kernel")
     _require(
         _detections_equal(plain["detections"], fpn_detections),
-        "float32 FPN detections differ between the align kernel and the plain align",
+        "float32 FPN detections differ between the kernels and the plain align and NMS",
     )
-    print("float32 FPN detections identical with the kernel and with the plain align", flush=True)
+    print("float32 FPN detections identical with the kernels and with the plain align and NMS", flush=True)
     check_small_input_reference(device, "fpn", FPN_SMALL_CANVAS)
 
     align_bwd_record["launches"] = 0
     for dtype_name in ("float32", "bfloat16"):
-        fwd, bwd, _ = run_train(dtype_name, device, "fpn")
+        fwd, bwd, _, nms = run_train(dtype_name, device, "fpn")
         align_record["launches"] += fwd
         align_bwd_record["launches"] += bwd
+        nms_launches += nms
     check_train_step_kernel_vs_plain(device, "fpn")
     check_small_input_train_reference(device, "fpn", FPN_SMALL_CANVAS)
 
     iou_record["launches"] = 0
     for dtype_name in ("float32", "bfloat16"):
-        fwd, bwd, iou = run_train(dtype_name, device, dense=True)
+        fwd, bwd, iou, nms = run_train(dtype_name, device, dense=True)
         record["launches"] += fwd
         bwd_record["launches"] += bwd
         iou_record["launches"] += iou
+        nms_launches += nms
     check_dense_targets_kernel_vs_plain(device)
+    nms_record["launches"] = nms_launches
+
+    check_sync_free_predict(device)
+    fpn_export_dir, exported = run_export(device)
+    served = run_serve(device, fpn_export_dir)
+    demoed = run_demo(device)
+    for rec, key in ((record, "roi_pool"), (align_record, "align"), (nms_record, "nms")):
+        rec["serving_launches"] = exported[key] + served[key] + demoed[key]
     slots_record["launches"] = roi_align_mod.multiscale_roi_align_slots_cuda.launches
     _require_slots_idle("the main paths")
 
@@ -1747,7 +2204,8 @@ def main() -> int:
         json.dumps(
             {
                 "kernels": [
-                    record, bwd_record, align_record, align_bwd_record, iou_record, slots_record
+                    record, bwd_record, align_record, align_bwd_record, iou_record, slots_record,
+                    nms_record,
                 ]
             }
         ),

@@ -21,6 +21,7 @@ the shared classifier twice (``classifier.*`` and
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 from typing import Callable, NamedTuple
@@ -30,7 +31,7 @@ from torch import nn
 
 from faster_rcnn_pytorch_tpu_torch.models.anchors import fpn_anchors, legacy_anchors
 from faster_rcnn_pytorch_tpu_torch.models.losses import LossBreakdown, frcnn_loss
-from faster_rcnn_pytorch_tpu_torch.models.rpn import RPNHead, propose, softmax
+from faster_rcnn_pytorch_tpu_torch.models.rpn import RPNHead, propose_batch, softmax
 from faster_rcnn_pytorch_tpu_torch.models.targets import (
     REG_STD,
     RoITargets,
@@ -42,7 +43,7 @@ from faster_rcnn_pytorch_tpu_torch.models.targets import (
 from faster_rcnn_pytorch_tpu_torch.models.resnet import Bottleneck, ResNet50FPN
 from faster_rcnn_pytorch_tpu_torch.models.vgg import VGG16Features
 from faster_rcnn_pytorch_tpu_torch.ops.boxes import cxcy_to_xy, decode, xy_to_cxcy
-from faster_rcnn_pytorch_tpu_torch.ops.nms import multiclass_nms
+from faster_rcnn_pytorch_tpu_torch.ops.nms import multiclass_nms_batch
 from faster_rcnn_pytorch_tpu_torch.ops.roi_align import multiscale_roi_align_batch
 from faster_rcnn_pytorch_tpu_torch.ops.roi_pool import roi_pool_batch
 
@@ -91,6 +92,38 @@ FPN_CONFIG = DetectorConfig(
     rpn_allow_ties=True,
     rpn_boundary_filter=False,
 )
+
+
+def scale_columns(x: torch.Tensor, factors) -> torch.Tensor:
+    """``x [..., k]`` with column ``i`` multiplied by the Python number
+    ``factors[i]`` (in ``x``'s dtype, as a tensor of them would multiply):
+    no constant tensor is copied to the device, so no host sync."""
+    return torch.stack([x[..., i] * f for i, f in enumerate(factors)], dim=-1)
+
+
+# Canvases whose device anchors a model keeps: train, eval and serve use
+# a few fixed buckets; the demo pads each image to its own canvas.
+ANCHOR_CACHE_SIZE = 4
+
+
+def device_anchors(model, height: int, width: int, device) -> torch.Tensor:
+    """The model's canvas anchors as a float32 tensor on ``device``, kept
+    on the model for the last ``ANCHOR_CACHE_SIZE`` canvases and devices
+    used: a copy from the host on every call would synchronise with it.
+    (Under ``torch.export`` a missing entry is made but not kept: the
+    program holds it as a constant.)"""
+    cache = model.__dict__.setdefault("_device_anchors", collections.OrderedDict())
+    key = (height, width, str(torch.device(device)))
+    anchors = cache.get(key)
+    if anchors is not None:
+        cache.move_to_end(key)
+        return anchors
+    anchors = torch.from_numpy(model.canvas_anchors(height, width)).to(device)
+    if not torch.compiler.is_exporting():
+        cache[key] = anchors
+        if len(cache) > ANCHOR_CACHE_SIZE:
+            cache.popitem(last=False)
+    return anchors
 
 
 def _trunk(in_features: int, width: int) -> nn.Sequential:
@@ -146,8 +179,8 @@ class LegacyFRCNN(nn.Module):
         cells before RoIPool. ``plain`` is for tests only: the plain
         RoIPool in place of the kernel."""
         _, _, fh, fw = feats.shape
-        scale = torch.tensor([fw, fh, fw, fh], dtype=torch.float32, device=feats.device)
-        pooled = roi_pool_batch(feats, rois * scale, 1.0, output_size=7, plain=plain)
+        scaled = scale_columns(rois, (fw, fh, fw, fh))
+        pooled = roi_pool_batch(feats, scaled, 1.0, output_size=7, plain=plain)
         return self.fast_rcnn_head(pooled)
 
     def canvas_anchors(self, height: int, width: int):
@@ -195,8 +228,8 @@ class FPNFRCNN(nn.Module):
         the canvas (w, h, w, h) to pixels for MultiScaleRoIAlign. ``plain``
         is for tests only: the plain align in place of the kernel."""
         h, w = canvas_hw
-        scale = torch.tensor([w, h, w, h], dtype=torch.float32, device=rois.device)
-        pooled = multiscale_roi_align_batch(feats[:4], rois * scale, plain=plain)
+        scaled = scale_columns(rois, (w, h, w, h))
+        pooled = multiscale_roi_align_batch(feats[:4], scaled, plain=plain)
         return self.frcnn_head(pooled)
 
     def canvas_anchors(self, height: int, width: int):
@@ -303,28 +336,28 @@ def train_targets(
     plain: bool = False,
 ) -> tuple[RPNTargets, RoITargets]:
     """The JAX package's ``vmap`` of proposals, RPN and RoI targets, written
-    out: per image the train-budget proposals and RPN targets; then one
+    out: the train-budget proposals of the batch (one NMS launch), per
+    image the RPN targets; then one
     :func:`roi_match` for the batch (each image's ``[post_nms_train + G,
     4]`` candidates against its gt: the IoU kernel's match mode, one
     launch, where an image's problem passes the JAX package's gate); then
     per image the sampling. Returns both batched, ``[B, A]`` and ``[B, S]``.
     No gradient flows through them. ``plain`` (tests only) keeps the plain
-    match above the gate."""
-    rpn_tg, rois, roi_valid = [], [], []
+    NMS sweep, and the plain match above the gate."""
+    props = propose_batch(
+        rpn_cls,
+        rpn_reg,
+        anchors,
+        extents,
+        pre_k=cfg.pre_nms_train,
+        post_k=cfg.post_nms_train,
+        nms_iou=cfg.rpn_nms_iou,
+        min_size=cfg.proposal_min_size,
+        nms_tile=cfg.rpn_nms_tile_train or cfg.rpn_nms_tile,
+        plain=plain,
+    )
+    rpn_tg = []
     for i in range(rpn_cls.shape[0]):
-        props = propose(
-            rpn_cls[i],
-            rpn_reg[i],
-            anchors,
-            extents[i],
-            pre_k=cfg.pre_nms_train,
-            post_k=cfg.post_nms_train,
-            nms_iou=cfg.rpn_nms_iou,
-            min_size=cfg.proposal_min_size,
-            nms_tile=cfg.rpn_nms_tile_train or cfg.rpn_nms_tile,
-        )
-        rois.append(props.rois)
-        roi_valid.append(props.valid)
         rpn_tg.append(
             rpn_targets(
                 anchors,
@@ -341,8 +374,8 @@ def train_targets(
                 boundary_filter=cfg.rpn_boundary_filter,
             )
         )
-    cand = torch.cat([torch.stack(rois), gt_boxes], dim=1)
-    cand_valid = torch.cat([torch.stack(roi_valid), gt_mask], dim=1)
+    cand = torch.cat([props.rois, gt_boxes], dim=1)
+    cand_valid = torch.cat([props.valid, gt_mask], dim=1)
     iou_max, iou_argmax = roi_match(cand, cand_valid, gt_boxes, gt_mask, plain=plain)
     roi_tg = [
         sample_roi_targets(
@@ -419,15 +452,15 @@ def forward_train(
         noise is sized by the model's anchors on this canvas and
         ``post_nms_train + G`` candidate rois.
       plain: tests only: the plain RoIPool or MultiScaleRoIAlign (forward
-        and backward) and the plain IoU of the RoI targets in place of the
-        kernels.
+        and backward), the plain NMS sweep and the plain IoU of the RoI
+        targets in place of the kernels.
 
     The JAX package's slab-batched VGG stem (``train=True``) is a TPU
     layout with the same numbers; this is the plain stack.
     """
     b, canvas_h, canvas_w = images.shape[:3]
     dev = images.device
-    anchors = torch.from_numpy(model.canvas_anchors(canvas_h, canvas_w)).to(dev)
+    anchors = device_anchors(model, canvas_h, canvas_w, dev)
     feats = model.features(images.permute(0, 3, 1, 2).contiguous())
     rpn_cls, rpn_reg = model.rpn_out(feats)
     if noise is None:
@@ -477,8 +510,8 @@ def predict(
       images: ``[B, H, W, 3]`` normalised canvas batch (the JAX package's
         layout; the network runs NCHW).
       extents: ``[B, 2]`` (w_frac, h_frac).
-      plain: tests only; hold the kernel's path against the plain RoIPool
-        or MultiScaleRoIAlign.
+      plain: tests only; hold the kernels' path against the plain RoIPool
+        or MultiScaleRoIAlign and the plain NMS sweep.
       on_stage: called as ``on_stage(name, result)`` as each of
         :data:`PREDICT_STAGES` ends (``h2d`` is the anchors' copy;
         ``decode`` hands over the class probabilities), so a timer can
@@ -488,7 +521,7 @@ def predict(
     b, canvas_h, canvas_w = images.shape[:3]
     dev = images.device
     dtype = next(model.parameters()).dtype
-    anchors = torch.from_numpy(model.canvas_anchors(canvas_h, canvas_w)).to(dev)
+    anchors = device_anchors(model, canvas_h, canvas_w, dev)
     thres = cfg.score_threshold if score_threshold is None else score_threshold
     mark("h2d", anchors)
 
@@ -496,22 +529,19 @@ def predict(
     mark("backbone", feats)
     rpn_cls, rpn_reg = model.rpn_out(feats)
     mark("rpn_head", rpn_cls)
-    props = [
-        propose(
-            rpn_cls[i],
-            rpn_reg[i],
-            anchors,
-            extents[i],
-            pre_k=cfg.pre_nms_test,
-            post_k=cfg.post_nms_test,
-            nms_iou=cfg.rpn_nms_iou,
-            min_size=cfg.proposal_min_size,
-            nms_tile=cfg.rpn_nms_tile,
-        )
-        for i in range(b)
-    ]
-    rois = torch.stack([p.rois for p in props])
-    valid = torch.stack([p.valid for p in props])
+    props = propose_batch(
+        rpn_cls,
+        rpn_reg,
+        anchors,
+        extents,
+        pre_k=cfg.pre_nms_test,
+        post_k=cfg.post_nms_test,
+        nms_iou=cfg.rpn_nms_iou,
+        min_size=cfg.proposal_min_size,
+        nms_tile=cfg.rpn_nms_tile,
+        plain=plain,
+    )
+    rois, valid = props.rois, props.valid
     mark("propose", rois)
 
     head_cls, head_reg = _head_apply(model, feats, rois, (canvas_h, canvas_w), plain)
@@ -519,25 +549,23 @@ def predict(
     s = cfg.post_nms_test
     probs = softmax(head_cls)
     probs = torch.where(valid[:, :, None], probs, 0.0)
-    reg_std = torch.tensor(REG_STD, dtype=torch.float32, device=dev)
-    reg = head_reg.reshape(b, s, cfg.num_classes, 4) * reg_std
+    reg = scale_columns(head_reg.reshape(b, s, cfg.num_classes, 4), REG_STD)
     rois_c = xy_to_cxcy(rois)[:, :, None, :]
     boxes = cxcy_to_xy(decode(reg, rois_c)).clamp(0.0, 1.0)
     mark("decode", probs)
 
-    outs = [
-        multiclass_nms(
-            boxes[i],
-            probs[i],
+    dets = Detections(
+        *multiclass_nms_batch(
+            boxes,
+            probs,
             thres,
             cfg.nms_iou,
             num_classes=cfg.num_classes,
             per_class_k=cfg.max_detections,
             max_det=cfg.max_detections,
+            plain=plain,
         )
-        for i in range(b)
-    ]
-    dets = Detections(*(torch.stack(t) for t in zip(*outs)))
+    )
     mark("class_nms", dets)
     return dets
 

@@ -1,8 +1,8 @@
 // PyTorch binding of the kernels in roi_pool.cu, roi_align.cu,
-// roi_align_slots.cu and iou.cu. The only source that includes PyTorch's
-// headers; it checks the tensors the Python wrappers allocated (the IoU
-// kernels' outputs it allocates itself) and launches on the current CUDA
-// stream.
+// roi_align_slots.cu, iou.cu and nms.cu. The only source that includes
+// PyTorch's headers; it checks the tensors the Python wrappers allocated (the
+// IoU and NMS kernels' outputs it allocates itself) and launches on the
+// current CUDA stream.
 
 #include <torch/extension.h>
 
@@ -45,6 +45,9 @@ int iou_match_launch(const float* a, const float* b, int batch, int n, int m, fl
                      float union_floor, const bool* row_mask, const bool* col_mask,
                      float* best_val, int64_t* best_idx, void* stream);
 int empty_kernel_launch(void* stream);
+int nms_segments_shared_bytes(int post_k);
+int nms_segments_launch(const float* boxes, const bool* valid, int segments, int n, float thr,
+                        int post_k, int32_t* keep, int32_t* count, void* stream);
 
 static constexpr float kAlignScales[4] = {1.0f / 4, 1.0f / 8, 1.0f / 16, 1.0f / 32};
 
@@ -287,6 +290,33 @@ std::tuple<at::Tensor, at::Tensor> iou_match(const at::Tensor& a_in, const at::T
   return {best, index};
 }
 
+// boxes [S, n, 4] (cast to float32), each segment sorted by descending score;
+// valid [S, n] bool -> (keep [S, post_k] int32, count [S] int32): the sorted
+// positions of each segment's first post_k greedy survivors of iou > thr,
+// -1 padded, and how many there are.
+std::tuple<at::Tensor, at::Tensor> nms_segments(const at::Tensor& boxes_in,
+                                                const at::Tensor& valid, double thr,
+                                                int64_t post_k) {
+  TORCH_CHECK(boxes_in.dim() == 3, "nms_segments: boxes must be [S, n, 4]");
+  const at::Tensor boxes = iou_boxes(boxes_in, "nms_segments");
+  const int64_t s = boxes.size(0), n = boxes.size(1);
+  check_mask(valid, boxes, {s, n}, "nms_segments");
+  TORCH_CHECK(post_k >= 0 && s < (int64_t{1} << 31) && s * n < (int64_t{1} << 40) &&
+                  n < (int64_t{1} << 31) &&
+                  nms_segments_shared_bytes(static_cast<int>(std::min<int64_t>(post_k, 1 << 20))) <=
+                      kMaxSharedBytes,
+              "nms_segments: ", post_k, " kept boxes do not fit a block's shared memory");
+  const c10::cuda::CUDAGuard guard(boxes.device());
+  at::Tensor keep = at::empty({s, post_k}, boxes.options().dtype(at::kInt));
+  at::Tensor count = at::empty({s}, boxes.options().dtype(at::kInt));
+  const int err = nms_segments_launch(
+      boxes.data_ptr<float>(), valid.data_ptr<bool>(), static_cast<int>(s), static_cast<int>(n),
+      static_cast<float>(thr), static_cast<int>(post_k), keep.data_ptr<int32_t>(),
+      count.data_ptr<int32_t>(), static_cast<void*>(at::cuda::getCurrentCUDAStream()));
+  TORCH_CHECK(err == 0, "nms_segments launch failed: ", roi_pool_error_string(err));
+  return {keep, count};
+}
+
 // An empty kernel on the current stream: the launch floor under the IoU
 // kernels' times (chip_smoke.py phase 2).
 void empty_kernel() {
@@ -350,6 +380,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "Pairwise IoU [n, 4] x [m, 4] -> [n, m], -1 where a column mask is False (CUDA)");
   m.def("iou_match", &iou_match,
         "Row max and first argmax of the masked IoU, [B, n, 4] x [B, m, 4] -> [B, n] (CUDA)");
+  m.def("nms_segments", &nms_segments,
+        "Segmented exact greedy NMS, [S, n, 4] sorted boxes -> [S, post_k] kept positions (CUDA)");
   m.def("empty_kernel", &empty_kernel, "An empty kernel: the launch floor (CUDA)");
   m.def("roi_align_backward", &roi_align_backward,
         "MultiScaleRoIAlign features-gradient, atomically added into zeroed float32 maps (CUDA)");

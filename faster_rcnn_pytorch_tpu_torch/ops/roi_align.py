@@ -21,8 +21,9 @@ upstream gradient times ``0.25 * wy * wx`` added at each of its 16
 corners, summed in float32 and cast once to the features' dtype (the JAX
 package's ``_msra_batch_bwd``). Rois get no gradient.
 
-:func:`multiscale_roi_align_batch` goes through an autograd function on
-every device: a CUDA tensor runs the hand-written kernels
+:func:`multiscale_roi_align_batch` goes through an autograd function
+when the features need a gradient (through the ``frcnn::multiscale_roi_align``
+op otherwise): a CUDA tensor runs the hand-written kernels
 (``ops/cuda/roi_align.cu``, forward and backward), a CPU tensor the plain
 versions :func:`multiscale_roi_align_reference` (which adds the samples
 in the kernel's order, so the two agree bit for bit) and
@@ -42,6 +43,8 @@ the JAX package, no model calls it.
 from __future__ import annotations
 
 import torch
+
+from faster_rcnn_pytorch_tpu_torch.ops import library  # noqa: F401  (registers frcnn::*)
 
 STRIDES = (4, 8, 16, 32)
 OUTPUT_SIZE = 7
@@ -439,10 +442,14 @@ def multiscale_roi_align_batch(features, rois: torch.Tensor, plain: bool = False
     dtype, differentiable in the features.
 
     A CUDA tensor runs the hand kernels (forward, and backward when the
-    features need a gradient), a CPU tensor the plain versions.
+    features need a gradient), a CPU tensor the plain versions. Without a
+    gradient (predict) the forward is the ``frcnn::multiscale_roi_align``
+    op (``ops/library.py``), which an exported program calls too.
     ``plain=True`` is for tests only: it runs the plain versions on any
     device, so a caller can hold the kernels' path against them.
     """
     rois = rois.float()
     level = fpn_level_assignment(rois)
-    return _MultiScaleRoIAlign.apply(rois, level, plain, *features)
+    if torch.is_grad_enabled() and any(f.requires_grad for f in features):
+        return _MultiScaleRoIAlign.apply(rois, level, plain, *features)
+    return torch.ops.frcnn.multiscale_roi_align(list(features), rois, level, plain)

@@ -33,6 +33,8 @@ import functools
 
 import torch
 
+from faster_rcnn_pytorch_tpu_torch.ops import library  # noqa: F401  (registers frcnn::*)
+
 # Rois gathered per step by the plain version (bounds its transient memory).
 _ROI_CHUNK = 32
 
@@ -436,10 +438,13 @@ def roi_pool_batch(
     When ``features`` needs a gradient the call goes through an autograd
     function whose forward also writes the argmax and whose backward is
     :func:`roi_pool_backward`; otherwise (predict, ``no_grad``) it is the
-    forward alone. ``plain=True`` is for tests only: it runs the plain
+    forward alone, the ``frcnn::roi_pool`` op (``ops/library.py``), which
+    an exported program calls too. ``plain=True`` is for tests only: it runs the plain
     versions on any device, so a caller can hold the kernels' path
     against them.
     """
     if torch.is_grad_enabled() and features.requires_grad and not with_argmax:
         return _RoIPool.apply(features, rois, spatial_scale, output_size, plain)
-    return _roi_pool_forward(features, rois, spatial_scale, output_size, with_argmax, plain)
+    if with_argmax:
+        return _roi_pool_forward(features, rois, spatial_scale, output_size, True, plain)
+    return torch.ops.frcnn.roi_pool(features, rois, float(spatial_scale), int(output_size), plain)

@@ -108,3 +108,41 @@ def prune_checkpoints(log_dir: str, name: str, keep_last: int) -> list[str]:
         os.remove(path)
         removed.append(path)
     return removed
+
+
+def load_detector(opts):
+    """The demo and export CLIs' detector: ``opts.num_classes`` set by data
+    type (VOC 21; COCO 81 legacy, 91 FPN), the model built with the
+    dataset's label offset, and its weights as
+    :func:`resolve_and_load_params` resolves them. Returns ``(model, cfg,
+    note)``, the model float32 on the CPU."""
+    from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import build_model, label_offset_for
+
+    if opts.data_type == "voc":
+        opts.num_classes = 21
+    elif opts.model_generation == "legacy":
+        opts.num_classes = 81
+    else:
+        opts.num_classes = 91
+    model, cfg = build_model(
+        opts.model_generation,
+        opts.num_classes,
+        label_offset=label_offset_for(opts.model_generation, opts.data_type),
+    )
+    note = resolve_and_load_params(opts, model)
+    return model, cfg, note
+
+
+def save_torch_checkpoint(path: str, model: torch.nn.Module, epoch: int = 0) -> None:
+    """Write the reference-format ``.pth.tar`` blob ``{"epoch",
+    "model_state_dict"}`` (the JAX package's ``save_torch_checkpoint``):
+    the model's state dict is already in the reference layout, so the
+    reference's resume path loads it. Float32 CPU tensors, atomic write."""
+    blob = {
+        "epoch": epoch,
+        "model_state_dict": {k: v.detach().float().cpu().clone() for k, v in model.state_dict().items()},
+    }
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(blob, tmp)
+    os.replace(tmp, path)

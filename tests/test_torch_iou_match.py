@@ -35,6 +35,7 @@ from faster_rcnn_pytorch_tpu_torch.models import faster_rcnn as pfr
 from faster_rcnn_pytorch_tpu_torch.models import targets as pt
 from faster_rcnn_pytorch_tpu_torch.models.anchors import legacy_anchors
 from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import LEGACY_CONFIG
+from faster_rcnn_pytorch_tpu_torch.models.rpn import propose
 from faster_rcnn_pytorch_tpu_torch.ops import boxes as pb
 from tests.conftest import boxes_fixture
 
@@ -145,7 +146,7 @@ def test_train_targets_match_once_for_the_batch_as_frcnn_targets_per_image(monke
     assert calls == [(b, n_cand, 4)]
     assert int(roi_tg.is_pos.sum()) > 0
     for i in range(b):
-        props = pfr.propose(
+        props = propose(
             rpn_cls[i], rpn_reg[i], anchors, extents[i], pre_k=cfg.pre_nms_train,
             post_k=cfg.post_nms_train, nms_iou=cfg.rpn_nms_iou, min_size=cfg.proposal_min_size,
             nms_tile=cfg.rpn_nms_tile_train or cfg.rpn_nms_tile,

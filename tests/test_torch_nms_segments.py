@@ -1,0 +1,235 @@
+"""The segmented NMS (``ops/nms.py::nms_segments*``, ``frcnn::nms_segments``)
+and the sync-free ``nms`` / ``batched_nms`` / ``multiclass_nms`` against
+the JAX package's fixed-shape NMS, and the ``torch.library`` ops' fake
+implementations against their real ones.
+
+Same inputs into both sides give identical keep positions, counts, valid
+flags and labels; kept boxes and scores are gathered copies of the inputs,
+so they agree exactly too (atol 1e-6 as ``tests/test_torch_nms.py``
+states it). The CUDA case (kernel against the plain version, bit for bit)
+skips without a card.
+"""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from faster_rcnn_pytorch_tpu_torch.ops import library  # noqa: F401
+from faster_rcnn_pytorch_tpu_torch.ops import nms as pnms
+from faster_rcnn_pytorch_tpu_torch.ops import roi_align as pra
+from tests.conftest import boxes_fixture
+
+# ops/__init__ re-exports the function `nms`, which shadows the module
+jnms = importlib.import_module("faster_rcnn_pytorch_tpu.ops.nms")
+
+ATOL = 1e-6
+
+
+def _t(x):
+    return torch.tensor(np.asarray(x))
+
+
+def _j(x):
+    return jnp.asarray(np.asarray(x))
+
+
+def hard_segments(rs, s, n, scale=1.0):
+    """``s`` score-sorted segments of ``n`` boxes: RPN-like clumps around a
+    few centres, exact duplicates, tied scores, degenerate and zero-area
+    boxes, and an invalid tail (plus scattered invalid entries)."""
+    boxes = np.zeros((s, n, 4), np.float32)
+    valid = np.zeros((s, n), bool)
+    for i in range(s):
+        centres = rs.uniform(0.2, 0.8, size=(4, 2)) * scale
+        c = centres[rs.randint(0, 4, size=n)] + rs.normal(0, 0.03 * scale, size=(n, 2))
+        wh = rs.uniform(0.05, 0.3, size=(n, 2)) * scale
+        b = np.concatenate([c - wh / 2, c + wh / 2], 1)
+        b[::7] = boxes_fixture(rs, len(b[::7]), scale)  # scattered ones
+        b[5::11] = b[4::11][: len(b[5::11])]  # exact duplicates of a neighbour
+        b[3::13, 2:] = b[3::13, :2]  # degenerate: zero area
+        b[9::17, 2] = b[9::17, 0]  # zero width only
+        b[0] = b[1]  # a tie at the very start
+        boxes[i] = b
+        tail = n - rs.randint(0, n // 4 + 1)
+        valid[i, :tail] = rs.uniform(size=tail) > 0.1
+    return boxes, valid
+
+
+def jax_segment(boxes, valid, thr, post_k):
+    """JAX ``nms`` over one sorted segment -> (positions, count)."""
+    n = boxes.shape[0]
+    scores = np.linspace(1.0, 0.0, n, dtype=np.float32)  # sorted; ignored under assume_sorted
+    idx, ok = jnms.nms(
+        _j(boxes), _j(scores), thr, post_k=post_k, valid=_j(valid), tile=64, assume_sorted=True
+    )
+    return np.asarray(idx), int(np.asarray(ok).sum())
+
+
+@pytest.mark.parametrize(
+    "s,n,thr,post_k,tile",
+    [
+        (3, 300, 0.7, 300, 64),  # proposals: keep everything that survives
+        (4, 257, 0.3, 40, 128),  # post_k cuts the greedy short
+        (2, 130, 0.5, 200, 32),  # post_k beyond n
+        (5, 64, 0.0, 64, 256),  # any overlap suppresses
+    ],
+)
+def test_reference_equals_jax_segment_by_segment(s, n, thr, post_k, tile):
+    rs = np.random.RandomState(n + s)
+    boxes, valid = hard_segments(rs, s, n)
+    keep, count = pnms.nms_segments_reference(_t(boxes), _t(valid), thr, post_k, tile)
+    assert keep.dtype == torch.int32 and keep.shape == (s, post_k)
+    assert count.dtype == torch.int32 and count.shape == (s,)
+    for i in range(s):
+        want, want_count = jax_segment(boxes[i], valid[i], thr, post_k)
+        np.testing.assert_array_equal(keep[i].numpy(), want, err_msg=f"segment {i}")
+        assert int(count[i]) == want_count
+    # the op gives the plain version on the CPU, and tile does not matter
+    op_keep, op_count = pnms.nms_segments(_t(boxes), _t(valid), thr, post_k, tile=7)
+    assert torch.equal(op_keep, keep) and torch.equal(op_count, count)
+
+
+def test_all_invalid_and_empty_segments_keep_nothing():
+    rs = np.random.RandomState(1)
+    boxes, valid = hard_segments(rs, 3, 50)
+    valid[1] = False
+    keep, count = pnms.nms_segments_reference(_t(boxes), _t(valid), 0.5, 10)
+    assert count[1] == 0 and (keep[1] == -1).all()
+    assert count[0] > 0 and count[2] > 0
+    keep, count = pnms.nms_segments_reference(torch.zeros(2, 0, 4), torch.zeros(2, 0, dtype=torch.bool), 0.5, 4)
+    assert keep.shape == (2, 4) and (keep == -1).all() and (count == 0).all()
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_sync_free_nms_and_batched_nms_match_jax(ties):
+    rs = np.random.RandomState(11 + ties)
+    n = 400
+    boxes, valid = hard_segments(rs, 1, n, scale=37.0)
+    boxes, valid = boxes[0], valid[0]
+    scores = rs.uniform(size=n).astype(np.float32)
+    if ties:
+        scores = (np.round(scores * 8) / 8).astype(np.float32)
+    j = jnms.nms(_j(boxes), _j(scores), 0.5, post_k=150, valid=_j(valid), tile=64, return_boxes=True)
+    p = pnms.nms(_t(boxes), _t(scores), 0.5, post_k=150, valid=_t(valid), tile=64, return_boxes=True)
+    np.testing.assert_array_equal(p[0].numpy(), np.asarray(j[0]))
+    np.testing.assert_array_equal(p[1].numpy(), np.asarray(j[1]))
+    np.testing.assert_allclose(p[2].numpy(), np.asarray(j[2]), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(p[3].numpy(), np.asarray(j[3]), rtol=0, atol=ATOL)
+    cls = rs.randint(0, 6, size=n).astype(np.int32)
+    j = jnms.batched_nms(_j(boxes), _j(scores), _j(cls), 0.4, post_k=n, valid=_j(valid), tile=64)
+    p = pnms.batched_nms(_t(boxes), _t(scores), _t(cls), 0.4, post_k=n, valid=_t(valid), tile=64)
+    np.testing.assert_array_equal(p[0].numpy(), np.asarray(j[0]))
+    np.testing.assert_array_equal(p[1].numpy(), np.asarray(j[1]))
+
+
+def _head_outputs(rs, n, num_classes, scale_logits):
+    rois = boxes_fixture(rs, n)
+    jitter = rs.normal(scale=0.02, size=(n, num_classes, 4)).astype(np.float32)
+    cls_boxes = np.clip(rois[:, None, :] + jitter, 0, 1)
+    cls_boxes = np.concatenate(
+        [np.minimum(cls_boxes[..., :2], cls_boxes[..., 2:]), np.maximum(cls_boxes[..., :2], cls_boxes[..., 2:])],
+        -1,
+    ).astype(np.float32)
+    logits = np.round(rs.normal(scale=scale_logits, size=(n, num_classes)) * 4) / 4  # ties
+    probs = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+    return cls_boxes, probs.astype(np.float32)
+
+
+def _assert_matches_jax(p, j, i):
+    j_boxes, j_labels, j_scores, j_valid = (np.asarray(x) for x in j)
+    np.testing.assert_array_equal(p[3][i].numpy(), j_valid)
+    np.testing.assert_array_equal(p[1][i].numpy(), j_labels)
+    np.testing.assert_allclose(p[0][i].numpy(), j_boxes, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(p[2][i].numpy(), j_scores, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize(
+    "regime,n,num_classes,thres,candidate_k,scales",
+    [
+        ("offset", 150, 21, 0.05, None, (3.0, 1.0)),
+        ("compact and per-class", 200, 91, 0.05, 500, (1.0, 2.0)),
+        ("compact only", 40, 91, 0.02, 40 * 90, (1.0, 2.0)),
+        ("per-class, k_cand above n", 200, 91, 0.01, 512, (0.3, 0.2)),
+    ],
+)
+def test_multiclass_nms_batch_matches_jax_per_image(regime, n, num_classes, thres, candidate_k, scales):
+    """A batch of images, each held against the JAX package's
+    ``multiclass_nms`` of that image; in the mixed case one image takes the
+    compact pass and the other the per-class pass, in one launch."""
+    rs = np.random.RandomState(n + num_classes)
+    heads = [_head_outputs(rs, n, num_classes, s) for s in scales]
+    cls_boxes = np.stack([h[0] for h in heads])
+    probs = np.stack([h[1] for h in heads])
+    n_valid = (probs[:, :, 1:] > thres).sum(axis=(1, 2))
+    k = candidate_k or max(512, 200)
+    if regime == "offset":
+        assert (num_classes - 1) * n <= 16384
+    elif regime == "compact and per-class":
+        assert n_valid[0] <= k < n_valid[1], n_valid
+    elif regime == "compact only":
+        assert k == (num_classes - 1) * n
+    else:
+        assert (n_valid > k).all() and k > n, n_valid
+    kw = dict(num_classes=num_classes, per_class_k=60, max_det=100, tile=128, candidate_k=candidate_k)
+    p = pnms.multiclass_nms_batch(_t(cls_boxes), _t(probs), thres, 0.3, **kw)
+    assert p[0].shape == (2, 100, 4) and p[1].dtype == torch.int32
+    for i in range(2):
+        j = jnms.multiclass_nms(_j(cls_boxes[i]), _j(probs[i]), thres, 0.3, **kw)
+        _assert_matches_jax(p, j, i)
+        assert np.asarray(j[3]).sum() > 0
+
+
+def _opcheck(op, args):
+    # test_aot_dispatch_dynamic needs a compiler toolchain this host may not
+    # have; the schema, the fake implementation and the autograd
+    # registration are what an exported program relies on.
+    torch.library.opcheck(
+        op, args, test_utils=("test_schema", "test_autograd_registration", "test_faketensor")
+    )
+
+
+def test_ops_fake_implementations_match_real_shapes_and_dtypes():
+    rs = np.random.RandomState(5)
+    boxes, valid = hard_segments(rs, 3, 90)
+    nms_args = (_t(boxes), _t(valid), 0.5, 20, 32, False)
+    _opcheck(torch.ops.frcnn.nms_segments.default, nms_args)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        feats = torch.tensor(rs.normal(size=(2, 3, 9, 11)).astype(np.float32)).to(dtype)
+        rois = torch.tensor(np.stack([boxes_fixture(rs, 5, 10.0) for _ in range(2)]))
+        _opcheck(torch.ops.frcnn.roi_pool.default, (feats, rois, 1.0, 7, False))
+        levels = [
+            torch.tensor(rs.normal(size=(2, 4, 64 // s, 96 // s)).astype(np.float32)).to(dtype)
+            for s in pra.STRIDES
+        ]
+        px = torch.tensor(np.stack([boxes_fixture(rs, 6, 64.0) for _ in range(2)]))
+        level = pra.fpn_level_assignment(px)
+        _opcheck(torch.ops.frcnn.multiscale_roi_align.default, (levels, px, level, False))
+
+    # the fakes alone: shapes and dtypes without running anything
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode() as mode:
+        fb = mode.from_tensor(_t(boxes))
+        fv = mode.from_tensor(_t(valid))
+        keep, count = torch.ops.frcnn.nms_segments(fb, fv, 0.5, 20, 32, False)
+    assert keep.shape == (3, 20) and keep.dtype == torch.int32
+    assert count.shape == (3,) and count.dtype == torch.int32
+
+
+def test_cuda_kernel_matches_reference_at_call_site_shapes():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    rs = np.random.RandomState(2)
+    for s, n, post_k, thr in ((2, 12000, 2000, 0.7), (1, 6000, 100, 0.3), (182, 1000, 100, 0.3)):
+        boxes, valid = hard_segments(rs, s, n)
+        tb, tv = _t(boxes).cuda(), _t(valid).cuda()
+        before = pnms.nms_segments_cuda.launches
+        keep, count = pnms.nms_segments(tb, tv, thr, post_k)
+        torch.cuda.synchronize()
+        assert pnms.nms_segments_cuda.launches == before + 1
+        want_keep, want_count = pnms.nms_segments(tb, tv, thr, post_k, plain=True)
+        assert torch.equal(keep, want_keep) and torch.equal(count, want_count)

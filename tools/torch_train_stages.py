@@ -13,7 +13,8 @@ and prints, per dtype (float32 with TF32 off, bfloat16 autocast):
    from the same weights and generator seed, each step timed to a device
    sync as ``chip_smoke.py`` times it: img/s over the steps after the
    ``--warmup`` (5; steps 6 on, as the smoke counts them), step p50,
-   and the number of NMS tile-fixpoint sweeps (each one a host sync) in
+   and the number of NMS kernel launches (``ops/cuda/nms.cu``, one a step
+   for the batch's proposals; 0 on the CPU, which runs the plain sweep) in
    those steps, with both per step;
 2. stages: the same steps with a device sync between backbone + RPN
    forward, propose + targets, head + loss forward, backward and the SGD
@@ -50,6 +51,7 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from faster_rcnn_pytorch_tpu_torch.engine.train import epoch_generator  # noqa: E402
 from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import (  # noqa: E402
+    device_anchors,
     draw_train_noise,
     train_losses,
     train_targets,
@@ -81,12 +83,12 @@ def _sync(device) -> float:
     return time.perf_counter()
 
 
-def _steady_summary(times, sweeps, batch_size, skip) -> str:
-    t, s = times[skip:], sweeps[skip:]
+def _steady_summary(times, launches, batch_size, skip) -> str:
+    t, s = times[skip:], launches[skip:]
     return (
         f"{batch_size * len(t) / sum(t):.2f} img/s over steps {skip + 1}-{len(times)} "
         f"(step p50 {1000 * statistics.median(t):.1f} ms, min {1000 * min(t):.1f}, "
-        f"max {1000 * max(t):.1f}), NMS sweeps {sum(s)} (per step {min(s)}-{max(s)})"
+        f"max {1000 * max(t):.1f}), NMS launches {sum(s)} (per step {min(s)}-{max(s)})"
     )
 
 
@@ -98,23 +100,23 @@ def run_rate(model, init, cfg, dtype, device, batch, steps, repeats, warmup) -> 
         model.load_state_dict(init)
         state = init_train_state(model, make_optimizer(model))
         gen = epoch_generator(cs.SEED, 0, device)
-        times, sweeps, losses = [], [], []
+        times, launches, losses = [], [], []
         for _ in range(steps):
-            nms_mod._tile_fixpoint.sweeps = 0
+            nms_mod.nms_segments_cuda.launches = 0
             t0 = _sync(device)
             metrics = step_fn(state, batch, gen)
             times.append(_sync(device) - t0)
-            sweeps.append(nms_mod._tile_fixpoint.sweeps)
+            launches.append(nms_mod.nms_segments_cuda.launches)
             losses.append(float(metrics["loss"]))
         print(
             f"rate {name} run {r + 1}/{repeats}: "
-            f"{_steady_summary(times, sweeps, cs.TRAIN_BATCH, warmup)}, "
+            f"{_steady_summary(times, launches, cs.TRAIN_BATCH, warmup)}, "
             f"loss step 1 {losses[0]:.4f} -> step {steps} {losses[-1]:.4f}",
             flush=True,
         )
         print(
             f"  per step ms: {' '.join(f'{1000 * t:.0f}' for t in times)}\n"
-            f"  per step sweeps: {' '.join(str(s) for s in sweeps)}",
+            f"  per step NMS launches: {' '.join(str(s) for s in launches)}",
             flush=True,
         )
 
@@ -126,13 +128,13 @@ def run_stages(model, init, cfg, dtype, device, batch, steps, warmup, determinis
     state = init_train_state(model, make_optimizer(model))
     schedule = make_lr_schedule("constant", cs.TRAIN_LR, 1, steps)
     canvas_hw = tuple(batch["image"].shape[1:3])
-    anchors = torch.from_numpy(model.canvas_anchors(*canvas_hw)).to(device)
+    anchors = device_anchors(model, *canvas_hw, device)
     n_cand = cfg.post_nms_train + batch["gt_boxes"].shape[1]
     gen = epoch_generator(cs.SEED, 0, device)
     autocast = torch.autocast(device.type, dtype=torch.bfloat16, enabled=dtype != torch.float32)
-    rows, sweeps, iou_launches = [], [], [cs._iou_launches()]
+    rows, launches, iou_launches = [], [], [cs._iou_launches()]
     for _ in range(steps):
-        nms_mod._tile_fixpoint.sweeps = 0
+        nms_mod.nms_segments_cuda.launches = 0
         t0 = _sync(device)
         state.optimizer.zero_grad(set_to_none=True)
         with autocast:
@@ -152,13 +154,13 @@ def run_stages(model, init, cfg, dtype, device, batch, steps, warmup, determinis
         t5 = _sync(device)
         rows.append([t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4, t5 - t0])
         iou_launches.append(cs._iou_launches())
-        sweeps.append(nms_mod._tile_fixpoint.sweeps)
+        launches.append(nms_mod.nms_segments_cuda.launches)
     med = [1000 * statistics.median(r[i] for r in rows[warmup:]) for i in range(6)]
     print(
         f"stages {name} cudnn deterministic={deterministic}, ms per step (median of steps "
         f"{warmup + 1}-{steps}): backbone+rpn fwd {med[0]:.2f}, propose+targets {med[1]:.2f}, "
         f"head+loss fwd {med[2]:.2f}, backward {med[3]:.2f}, sgd {med[4]:.2f}, total {med[5]:.2f}; "
-        f"NMS sweeps per step {min(sweeps[warmup:])}-{max(sweeps[warmup:])}; "
+        f"NMS launches per step {min(launches[warmup:])}-{max(launches[warmup:])}; "
         f"IoU kernel launches {iou_launches[-1] - iou_launches[0]} in {steps} steps",
         flush=True,
     )
