@@ -29,27 +29,6 @@ import sys
 
 import torch
 
-# What this slice refuses, and where each lands (ROADMAP.md Queue A).
-_NOT_PORTED = (
-    (lambda o: o.model_parallel > 1, "--model_parallel > 1", "item 14"),
-    (lambda o: o.num_hosts > 1, "--num_hosts > 1", "item 14"),
-    (lambda o: bool(o.coordinator), "--coordinator", "item 14"),
-    (lambda o: o.num_devices > 1, "--num_devices > 1", "item 14"),
-    (lambda o: o.remat_backbone, "--remat_backbone", "item 14"),
-    (lambda o: bool(o.pretrained_backbone), "--pretrained_backbone", "item 15"),
-    (lambda o: o.checkpoint == "pretrained", "--checkpoint pretrained", "item 15"),
-    (lambda o: o.ckpt_backend == "orbax", "--ckpt_backend orbax", "item 14"),
-    (lambda o: o.async_checkpoint, "--async_checkpoint", "item 14"),
-)
-
-
-def refuse_unported(opts) -> None:
-    for test, flag, item in _NOT_PORTED:
-        if test(opts):
-            raise NotImplementedError(
-                f"{flag} is not ported to PyTorch yet; see ROADMAP.md Queue A {item}"
-            )
-
 
 def _preflight(model, train_loader, opts) -> None:
     """Warn when the legacy boundary filter leaves under 1% of the anchors
@@ -94,12 +73,13 @@ def main(argv=None) -> int:
     from faster_rcnn_pytorch_tpu_torch.utils.logging import ScalarWriter, trace_context
     from faster_rcnn_pytorch_tpu_torch.utils.runtime import (
         apply_matmul_precision,
+        refuse_unported,
         select_device,
         set_numerics,
     )
 
     opts = load_options(argv)
-    refuse_unported(opts)
+    refuse_unported(opts, "main")
     dtype = set_numerics(opts.dtype)
     apply_matmul_precision(opts.matmul_precision)
     device = select_device()

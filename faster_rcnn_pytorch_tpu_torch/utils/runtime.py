@@ -11,6 +11,36 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # The port's counterpart of JAX_PLATFORMS=cpu: the CPU is an explicit choice.
 DEVICE_ENV = "FRT_TORCH_DEVICE"
 
+_EVAL = ("main", "test")  # the SPMD eval flags: train, and the JAX test CLI's mesh
+_WEIGHTS = ("main", "test", "demo", "export")  # the JAX CLIs that call main.init_params
+
+# Flags the port does not honour yet: the test on the options, the flag, the
+# ROADMAP.md Queue A item that ports it, and the CLIs whose JAX counterparts
+# honour it (each of those refuses it here rather than drop it unseen).
+NOT_PORTED = (
+    (lambda o: o.model_parallel > 1, "--model_parallel > 1", "item 14", _EVAL),
+    (lambda o: o.num_hosts > 1, "--num_hosts > 1", "item 14", ("main",)),
+    (lambda o: bool(o.coordinator), "--coordinator", "item 14", ("main",)),
+    (lambda o: o.num_devices > 1, "--num_devices > 1", "item 14", _EVAL),
+    (lambda o: o.remat_backbone, "--remat_backbone", "item 14", ("main",)),
+    (lambda o: bool(o.pretrained_backbone), "--pretrained_backbone", "item 15", _WEIGHTS),
+    (lambda o: o.checkpoint == "pretrained", "--checkpoint pretrained", "item 15", _WEIGHTS),
+    (lambda o: o.ckpt_backend == "orbax", "--ckpt_backend orbax", "item 14", ("main",)),
+    (lambda o: o.async_checkpoint, "--async_checkpoint", "item 14", ("main",)),
+)
+
+
+def refuse_unported(opts, cli: str) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP.md item for the
+    first flag in ``opts`` that ``cli`` (``main``, ``test``, ``demo`` or
+    ``export``) would have to honour and cannot yet. Each CLI calls it
+    right after ``load_options``, before it reads data or weights."""
+    for test, flag, item, clis in NOT_PORTED:
+        if cli in clis and test(opts):
+            raise NotImplementedError(
+                f"{flag} is not ported to PyTorch yet; see ROADMAP.md Queue A {item}"
+            )
+
 
 def select_device() -> torch.device:
     """The CLIs' device: the first CUDA card, or the CPU when
