@@ -70,7 +70,12 @@ CUDA card, builds the port's kernels from the sources in the checkout
      tied scores, degenerate and zero-area boxes and invalid tails: keep
      and counts identical with ``nms_segments_reference``; timed one call
      and back to back beside the launch floor and the plain sweep on the
-     card (what the kernel replaces), bound by the pairs the greedy tests.
+     card (what the kernel replaces), bound by the pairs the greedy tests;
+     each site's cluster width (``ops/nms.py::launch_plan``) and the pairs
+     the cluster design covers are printed beside the greedy's. Then the
+     legacy train proposals with ``post_k`` cut inside a tile (the next
+     survivor in the same tile of 64), at 8 and 16 CTAs a segment: keep and
+     counts identical with the plain sweep.
 3. main path, predict: full-width legacy VGG16 predict (21 classes, seeded
    random weights, the 800x1344 canvas, batch 1) through the port's
    ``engine.evaluate.evaluate`` on synthetic in-memory VOC batches, in
@@ -1748,6 +1753,56 @@ def _greedy_pairs(boxes, valid, keep, count, thr: float, post_k: int) -> int:
     return total
 
 
+def _cluster_pairs(valid, keep, count, post_k: int) -> int:
+    """Pairs the cluster design covers on these inputs: in each tile of 64
+    that the kernel works on, every valid candidate against every box kept
+    before the tile (no CTA stops another's test, so this bounds what the
+    CTAs test; a thread stops at its first hit), plus the candidates' pairs
+    within the tile."""
+    tile = nms_mod.KERNEL_TILE
+    n = valid.shape[1]
+    n_tiles = -(-n // tile)
+    total = 0
+    for s in range(valid.shape[0]):
+        cand = torch.nn.functional.pad(valid[s], (0, n_tiles * tile - n)).view(n_tiles, tile).sum(1)
+        kept = torch.bincount(keep[s, : int(count[s])].long() // tile, minlength=n_tiles)
+        before = kept.cumsum(0) - kept
+        c, b = cand[before < post_k], before[before < post_k]
+        total += int((c * b + c * (c - 1) // 2).sum())
+    return total
+
+
+def check_nms_mid_tile_cut(device) -> None:
+    """The legacy train proposals (``NMS_SITES`` row 2's shape and inputs)
+    with ``post_k`` cut inside a kernel tile: the smallest ``post_k`` from
+    1000 whose next survivor lies in the same tile of 64 as the
+    ``post_k``-th in every segment. At 8 and 16 CTAs a segment (16 where the
+    card runs such clusters), keep and counts identical with the plain
+    sweep."""
+    what, s, n, _, thr, tile = NMS_SITES[1]
+    boxes, valid = nms_segments_inputs(SEED + 21, s, n)
+    tb, tv = torch.from_numpy(boxes).to(device), torch.from_numpy(valid).to(device)
+    full, full_count = nms_mod.nms_segments_reference(tb, tv, thr, n, tile)
+    t = full.long() // nms_mod.KERNEL_TILE
+    same = (t[:, :-1] == t[:, 1:]) & (t[:, 1:] >= 0)
+    cut = next((k for k in range(1000, int(full_count.min())) if bool(same[:, k - 1].all())), None)
+    _require(cut is not None, f"nms {what}: no post_k from 1000 cuts every segment inside a tile")
+    want_keep, want_count = nms_mod.nms_segments_reference(tb, tv, thr, cut, tile)
+    wide = nms_mod.launch_plan(device, s, cut).width == nms_mod.WIDE
+    for width in (nms_mod.PORTABLE_WIDTH, nms_mod.WIDE)[: 1 + wide]:
+        keep, count = NMS_KERNEL(tb, tv, thr, cut, width=width)
+        torch.cuda.synchronize()
+        _require(
+            torch.equal(keep, want_keep) and torch.equal(count, want_count),
+            f"nms {what} cut at post_k {cut} mid-tile: the kernel at {width} CTAs differs from the plain sweep",
+        )
+        print(
+            f"nms {what} cut mid-tile at post_k {cut} (tiles {t[:, cut - 1].tolist()}): keep and counts "
+            f"identical with the plain sweep at {width} CTAs a segment",
+            flush=True,
+        )
+
+
 def check_nms_kernel(device) -> dict:
     """The segmented NMS kernel at every call site of ``ops/nms.py`` (the
     batch's proposals of either generation at predict and train budgets, the
@@ -1778,19 +1833,24 @@ def check_nms_kernel(device) -> dict:
         ms, burst_ms = _median_ms(call), _median_ms(call, burst=BURST)
         plain_ms = _median_ms(lambda: nms_mod.nms_segments_reference(tb, tv, thr, post_k, tile), runs=5, warmup=1)
         pairs = _greedy_pairs(tb, tv, keep, count, thr, post_k)
+        covered = _cluster_pairs(tv, keep, count, post_k)
+        width = nms_mod.launch_plan(device, s, post_k).width
         n_bytes = s * n * 17 + s * post_k * 4 + s * 4
         bound_ms, bound_by = _bound(n_bytes, 14 * pairs)
         rows.append(
             dict(site=what, segments=s, n=n, post_k=post_k, ms=ms, burst_ms=burst_ms, plain_ms=plain_ms,
-                 bound_ms=bound_ms, bound_by=bound_by, pairs=pairs, kept=int(count.sum()))
+                 bound_ms=bound_ms, bound_by=bound_by, pairs=pairs, kept=int(count.sum()), width=width,
+                 covered_pairs=covered)
         )
         print(
             f"nms {what}: [{s}, {n}, 4] -> [{s}, {post_k}] thr {thr}, keep and counts identical with the "
-            f"plain sweep ({int(count.sum())} kept, {int(tv.sum())} valid), kernel {ms:.4f} ms "
-            f"({burst_ms:.4f} back to back), plain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
-            f"({n_bytes / 1e6:.3f} MB, {pairs} pairs tested, {bound_by})",
+            f"plain sweep ({int(count.sum())} kept, {int(tv.sum())} valid), clusters of {width} CTAs, "
+            f"kernel {ms:.4f} ms ({burst_ms:.4f} back to back), plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.5f} ms ({n_bytes / 1e6:.3f} MB, {pairs} pairs tested by the greedy, {covered} "
+            f"covered by the clusters, {bound_by})",
             flush=True,
         )
+    check_nms_mid_tile_cut(device)
     print(f"nms launch floor (empty kernel): {floor_ms:.4f} ms one call, {floor_burst_ms:.4f} back to back", flush=True)
     main = rows[-1]
     return {

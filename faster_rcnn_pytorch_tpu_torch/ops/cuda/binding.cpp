@@ -45,9 +45,10 @@ int iou_match_launch(const float* a, const float* b, int batch, int n, int m, fl
                      float union_floor, const bool* row_mask, const bool* col_mask,
                      float* best_val, int64_t* best_idx, void* stream);
 int empty_kernel_launch(void* stream);
-int nms_segments_shared_bytes(int post_k);
+int nms_segments_shared_bytes(int share);
+int nms_segments_max_active_clusters(int width, int share);
 int nms_segments_launch(const float* boxes, const bool* valid, int segments, int n, float thr,
-                        int post_k, int32_t* keep, int32_t* count, void* stream);
+                        int post_k, int width, int32_t* keep, int32_t* count, void* stream);
 
 static constexpr float kAlignScales[4] = {1.0f / 4, 1.0f / 8, 1.0f / 16, 1.0f / 32};
 
@@ -293,28 +294,47 @@ std::tuple<at::Tensor, at::Tensor> iou_match(const at::Tensor& a_in, const at::T
 // boxes [S, n, 4] (cast to float32), each segment sorted by descending score;
 // valid [S, n] bool -> (keep [S, post_k] int32, count [S] int32): the sorted
 // positions of each segment's first post_k greedy survivors of iou > thr,
-// -1 padded, and how many there are.
+// -1 padded, and how many there are. width: the CTAs of a segment's cluster
+// (ops/nms.py::nms_plan).
 std::tuple<at::Tensor, at::Tensor> nms_segments(const at::Tensor& boxes_in,
                                                 const at::Tensor& valid, double thr,
-                                                int64_t post_k) {
+                                                int64_t post_k, int64_t width) {
   TORCH_CHECK(boxes_in.dim() == 3, "nms_segments: boxes must be [S, n, 4]");
   const at::Tensor boxes = iou_boxes(boxes_in, "nms_segments");
   const int64_t s = boxes.size(0), n = boxes.size(1);
   check_mask(valid, boxes, {s, n}, "nms_segments");
-  TORCH_CHECK(post_k >= 0 && s < (int64_t{1} << 31) && s * n < (int64_t{1} << 40) &&
+  TORCH_CHECK(width >= 1 && width <= 16, "nms_segments: a cluster of ", width,
+              " CTAs (1 to 16)");
+  const int64_t share = (post_k + width - 1) / width;
+  TORCH_CHECK(post_k >= 0 && s * width < (int64_t{1} << 31) && s * n < (int64_t{1} << 40) &&
                   n < (int64_t{1} << 31) &&
-                  nms_segments_shared_bytes(static_cast<int>(std::min<int64_t>(post_k, 1 << 20))) <=
+                  nms_segments_shared_bytes(static_cast<int>(std::min<int64_t>(share, 1 << 20))) <=
                       kMaxSharedBytes,
-              "nms_segments: ", post_k, " kept boxes do not fit a block's shared memory");
+              "nms_segments: ", post_k, " kept boxes over ", width,
+              " CTAs do not fit their shared memory");
   const c10::cuda::CUDAGuard guard(boxes.device());
   at::Tensor keep = at::empty({s, post_k}, boxes.options().dtype(at::kInt));
   at::Tensor count = at::empty({s}, boxes.options().dtype(at::kInt));
   const int err = nms_segments_launch(
       boxes.data_ptr<float>(), valid.data_ptr<bool>(), static_cast<int>(s), static_cast<int>(n),
-      static_cast<float>(thr), static_cast<int>(post_k), keep.data_ptr<int32_t>(),
-      count.data_ptr<int32_t>(), static_cast<void*>(at::cuda::getCurrentCUDAStream()));
-  TORCH_CHECK(err == 0, "nms_segments launch failed: ", roi_pool_error_string(err));
+      static_cast<float>(thr), static_cast<int>(post_k), static_cast<int>(width),
+      keep.data_ptr<int32_t>(), count.data_ptr<int32_t>(),
+      static_cast<void*>(at::cuda::getCurrentCUDAStream()));
+  TORCH_CHECK(err == 0, "nms_segments launch of ", s, " clusters of ", width,
+              " CTAs failed: ", roi_pool_error_string(err));
   return {keep, count};
+}
+
+// How many clusters of `width` NMS CTAs, each holding `share` kept boxes,
+// device `device` runs at once (cudaOccupancyMaxActiveClusters; 0 where it
+// runs none or refuses the width).
+int64_t nms_max_active_clusters(int64_t device, int64_t width, int64_t share) {
+  TORCH_CHECK(width >= 1 && width <= 16 && share >= 0 && share < (1 << 20),
+              "nms_max_active_clusters: width 1 to 16 and a share under 2^20");
+  const c10::cuda::CUDAGuard guard(static_cast<c10::DeviceIndex>(device));
+  const int clusters =
+      nms_segments_max_active_clusters(static_cast<int>(width), static_cast<int>(share));
+  return clusters < 0 ? 0 : clusters;
 }
 
 // An empty kernel on the current stream: the launch floor under the IoU
@@ -381,7 +401,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("iou_match", &iou_match,
         "Row max and first argmax of the masked IoU, [B, n, 4] x [B, m, 4] -> [B, n] (CUDA)");
   m.def("nms_segments", &nms_segments,
-        "Segmented exact greedy NMS, [S, n, 4] sorted boxes -> [S, post_k] kept positions (CUDA)");
+        "Segmented exact greedy NMS, [S, n, 4] sorted boxes -> [S, post_k] kept positions, "
+        "a cluster of CTAs a segment (CUDA)");
+  m.def("nms_max_active_clusters", &nms_max_active_clusters,
+        "Clusters of NMS CTAs the device runs at once (CUDA occupancy query)");
   m.def("empty_kernel", &empty_kernel, "An empty kernel: the launch floor (CUDA)");
   m.def("roi_align_backward", &roi_align_backward,
         "MultiScaleRoIAlign features-gradient, atomically added into zeroed float32 maps (CUDA)");

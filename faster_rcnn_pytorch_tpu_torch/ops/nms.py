@@ -18,7 +18,8 @@ are tensor operations, and the greedy sweep itself is
 :func:`nms_segments`, the ``frcnn::nms_segments`` op (``ops/library.py``)
 over a batch of score-sorted segments. On a CUDA tensor it launches the
 hand-written kernel (``ops/cuda/nms.cu``, :func:`nms_segments_cuda`), one
-launch for every segment of the call; on the CPU (or with the test-only
+launch for every segment of the call, a thread-block cluster of
+:func:`nms_plan`'s width a segment; on the CPU (or with the test-only
 ``plain``) it runs :func:`nms_segments_reference`, the tiled sweep below,
 which synchronises with the host a few times a tile. ``tile`` sizes only
 that sweep: the result does not depend on it.
@@ -32,12 +33,89 @@ the greedy answer because the dependencies run one way, in score order.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from faster_rcnn_pytorch_tpu_torch.ops import library  # noqa: F401  (registers frcnn::*)
 from faster_rcnn_pytorch_tpu_torch.ops.boxes import box_iou
+from faster_rcnn_pytorch_tpu_torch.ops.roi_pool import H100_SMS, SHARED_MEMORY_BYTES
 
 _NEG_INF = float("-inf")
+
+# The kernel's launch plan (ops/cuda/nms.cu).
+KERNEL_TILE = 64  # boxes a tile of the kernel
+STATIC_SHARED_BYTES = 272  # the kernel's 2 x 16 hit words and two more 64-bit words
+PORTABLE_WIDTH = 8  # the widest cluster every Hopper part schedules
+WIDE = 16  # a non-portable cluster, where the card runs enough of them at once
+MIN_SHARE = 32  # kept boxes a CTA should own before the kept list is split
+
+
+class NmsPlan(NamedTuple):
+    """A launch of the NMS kernel: ``width`` CTAs a segment's cluster, each
+    holding ``share`` kept boxes in ``shared_bytes`` of dynamic shared
+    memory."""
+
+    width: int
+    share: int
+    shared_bytes: int
+
+
+def nms_shared_bytes(share: int) -> int:
+    """Dynamic shared memory of a CTA holding ``share`` kept boxes: each a
+    float4 and its area; the tile's 64 boxes, areas, overlap rows (uint64)
+    and candidate slots (one byte)."""
+    return share * (16 + 4) + KERNEL_TILE * (16 + 8 + 4 + 1)
+
+
+def nms_plan(segments: int, post_k: int, sms: int = H100_SMS, wide_clusters: int = 0) -> NmsPlan:
+    """The cluster width for ``segments`` segments of at most ``post_k``
+    kept boxes on a card of ``sms`` SMs that runs ``wide_clusters``
+    16-wide clusters at once (``cudaOccupancyMaxActiveClusters``; 0 where
+    it refuses them).
+
+    The kept list is split over a cluster only where the segments leave SMs
+    idle (``segments * width <= sms``) and every CTA still owns at least
+    ``MIN_SHARE`` boxes (else the cluster barrier costs more than the pairs
+    it spreads): 16 where every segment's cluster runs at once, else 8,
+    else 1 (the per-class sites: 182 segments fill the card; the offset
+    pass: 100 kept boxes). Raises where a CTA's share does not fit its
+    shared memory."""
+    width = 1
+    for w, fits in ((WIDE, wide_clusters >= segments), (PORTABLE_WIDTH, True)):
+        if fits and segments * w <= sms and post_k >= w * MIN_SHARE:
+            width = w
+            break
+    share = -(-post_k // width)
+    shared = nms_shared_bytes(share)
+    if shared + STATIC_SHARED_BYTES > SHARED_MEMORY_BYTES:
+        raise ValueError(
+            f"nms: {post_k} kept boxes over {width} CTAs take {shared} bytes of shared memory a CTA"
+        )
+    return NmsPlan(width, share, shared)
+
+
+@functools.lru_cache(maxsize=64)
+def _card(index: int, post_k: int) -> tuple[int, int]:
+    """Device ``index``'s SM count, and how many 16-wide clusters of
+    ``post_k``'s share it runs at once (0 where the share does not fit)."""
+    from faster_rcnn_pytorch_tpu_torch.ops.cuda import extension
+
+    share = -(-post_k // WIDE)
+    fits = nms_shared_bytes(share) + STATIC_SHARED_BYTES <= SHARED_MEMORY_BYTES
+    return (
+        torch.cuda.get_device_properties(index).multi_processor_count,
+        extension().nms_max_active_clusters(index, WIDE, share) if fits else 0,
+    )
+
+
+def launch_plan(device: torch.device, segments: int, post_k: int) -> NmsPlan:
+    """:func:`nms_plan` on ``device``: its SM count, and how many 16-wide
+    clusters of ``post_k``'s share it runs at once (asked once a device and
+    ``post_k``; the query does not synchronise)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return nms_plan(segments, post_k, *_card(index, post_k))
 
 
 def _tile_fixpoint(active0: torch.Tensor, over: torch.Tensor) -> torch.Tensor:
@@ -120,11 +198,16 @@ def nms_segments_reference(
 
 
 def nms_segments_cuda(
-    boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float, post_k: int
+    boxes: torch.Tensor,
+    valid: torch.Tensor,
+    iou_threshold: float,
+    post_k: int,
+    width: int | None = None,
 ):
     """The hand-written Hopper kernel (``ops/cuda/nms.cu``), same arguments
     and results as :func:`nms_segments_reference`: every segment in one
-    launch, no host sync. Counts its launches in
+    launch, a cluster of :func:`launch_plan`'s width a segment (``width``:
+    another, for tests and timings), no host sync. Counts its launches in
     ``nms_segments_cuda.launches``."""
     if not (boxes.is_cuda and valid.is_cuda):
         raise ValueError("nms_segments_cuda needs CUDA tensors")
@@ -135,8 +218,10 @@ def nms_segments_cuda(
         )
     from faster_rcnn_pytorch_tpu_torch.ops.cuda import extension
 
+    if width is None:
+        width = launch_plan(boxes.device, boxes.shape[0], int(post_k)).width
     keep, count = extension().nms_segments(
-        boxes.float().contiguous(), valid.contiguous(), float(iou_threshold), int(post_k)
+        boxes.float().contiguous(), valid.contiguous(), float(iou_threshold), int(post_k), int(width)
     )
     nms_segments_cuda.launches += 1
     return keep, count

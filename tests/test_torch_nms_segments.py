@@ -6,17 +6,25 @@ implementations against their real ones.
 Same inputs into both sides give identical keep positions, counts, valid
 flags and labels; kept boxes and scores are gathered copies of the inputs,
 so they agree exactly too (atol 1e-6 as ``tests/test_torch_nms.py``
-states it). The CUDA case (kernel against the plain version, bit for bit)
-skips without a card.
+states it). The plain version is held against the JAX ``nms`` up to the
+kernel's depths too: thousands of boxes in many tiles, ``post_k`` cut
+inside a tile of the kernel, and pairs whose IoU lies within 2 ulps of the
+threshold. The kernel's launch plan (``nms_plan``: the cluster width at
+each call site and the shared memory a CTA takes) is checked here; the
+CUDA case (the kernel against the plain version at every call site and
+width, bit for bit) skips without a card.
 """
 
+import contextlib
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke as smoke
 from faster_rcnn_pytorch_tpu_torch.ops import library  # noqa: F401
 from faster_rcnn_pytorch_tpu_torch.ops import nms as pnms
 from faster_rcnn_pytorch_tpu_torch.ops import roi_align as pra
@@ -26,6 +34,7 @@ from tests.conftest import boxes_fixture
 jnms = importlib.import_module("faster_rcnn_pytorch_tpu.ops.nms")
 
 ATOL = 1e-6
+NMS_SITES = smoke.NMS_SITES
 
 
 def _t(x):
@@ -68,28 +77,103 @@ def jax_segment(boxes, valid, thr, post_k):
     return np.asarray(idx), int(np.asarray(ok).sum())
 
 
+def _iou32(a, b):
+    """``box_iou``'s float32 arithmetic, in its order: ``a [4]`` against
+    ``b [m, 4]``."""
+    w = np.maximum(np.minimum(a[2], b[:, 2]) - np.maximum(a[0], b[:, 0]), np.float32(0))
+    h = np.maximum(np.minimum(a[3], b[:, 3]) - np.maximum(a[1], b[:, 1]), np.float32(0))
+    inter = w * h
+    area_b = (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
+    union = np.maximum((a[2] - a[0]) * (a[3] - a[1]) + area_b - inter, np.float32(1e-12))
+    return inter / union
+
+
+def threshold_segments(rs, s, n, thr):
+    """``s`` segments of ``n // 2`` isolated pairs (one box and a copy
+    shifted along x), each pair's float32 IoU 2 ulps below to 2 ulps above
+    float32(``thr``), exactly on it where the float grid allows: the later
+    box is kept iff its IoU does not exceed the threshold. The first half
+    of the pairs sit side by side; in the second half all first boxes come
+    before all partners, so each partner meets its box across tiles."""
+    t = np.float32(thr)
+    boxes = np.zeros((s, n, 4), np.float32)
+    for i in range(s):
+        pairs = []
+        side = int(np.ceil(np.sqrt(n // 2)))
+        for j in range(n // 2):
+            origin = np.float32(0.5) * np.array(divmod(j, side), np.float32)
+            near = []
+            while not len(near):  # far from 0 the float grid may miss the band: draw again
+                xy = origin + rs.uniform(0, 0.05, 2).astype(np.float32)
+                a = np.concatenate([xy, xy + rs.uniform(0.05, 0.1, 2).astype(np.float32)])
+                dx = np.float32((a[2] - a[0]) * (1 - thr) / (1 + thr))
+                d = (dx.view(np.int32) + np.arange(-4096, 4096, dtype=np.int32)).view(np.float32)
+                b = np.stack([a[0] + d, np.full_like(d, a[1]), a[2] + d, np.full_like(d, a[3])], 1)
+                ulps = _iou32(a, b).view(np.int32) - t.view(np.int32)
+                near = np.flatnonzero(np.abs(ulps) <= 2)
+            pairs.append((a, b[near[rs.randint(len(near))]]))
+        half = len(pairs) // 2
+        order = [x for a, b in pairs[:half] for x in (a, b)]
+        order += [a for a, _ in pairs[half:]] + [b for _, b in pairs[half:]]
+        boxes[i, : len(order)] = order
+    valid = np.zeros((s, n), bool)
+    valid[:, : 2 * (n // 2)] = True
+    return boxes, valid
+
+
+SEGMENTS = {"hard": hard_segments, "threshold": threshold_segments}
+
+# (data, segments, n, threshold, post_k, the plain sweep's tile, whether post_k
+# must cut the greedy inside a tile of the kernel's 64 boxes)
+REFERENCE_CASES = [
+    ("hard", 3, 300, 0.7, 300, 64, False),  # proposals: keep everything that survives
+    ("hard", 4, 257, 0.3, 40, 128, False),  # post_k cuts the greedy short
+    ("hard", 2, 130, 0.5, 200, 32, False),  # post_k beyond n
+    ("hard", 5, 64, 0.0, 64, 256, False),  # any overlap suppresses
+    # proposal depth: many tiles, kept lists in the hundreds
+    ("hard", 1, 3000, 0.7, 2000, 256, False),
+    ("hard", 2, 2500, 0.7, 1021, 512, True),
+    ("hard", 2, 2000, 0.3, 201, 128, True),
+    # IoUs within 2 ulps of the threshold, inside tiles and across them
+    ("threshold", 1, 2000, 0.7, 2000, 256, False),
+    ("threshold", 2, 1200, 0.3, 1200, 64, False),
+]
+
+
+def _case_id(data, s, n, thr, post_k, tile, mid):
+    return f"{s}-{n}-{thr}-{post_k}-{tile}" + ("" if data == "hard" and n < 1000 else f"-{data}")
+
+
 @pytest.mark.parametrize(
-    "s,n,thr,post_k,tile",
-    [
-        (3, 300, 0.7, 300, 64),  # proposals: keep everything that survives
-        (4, 257, 0.3, 40, 128),  # post_k cuts the greedy short
-        (2, 130, 0.5, 200, 32),  # post_k beyond n
-        (5, 64, 0.0, 64, 256),  # any overlap suppresses
-    ],
+    "data,s,n,thr,post_k,tile,mid", REFERENCE_CASES, ids=[_case_id(*c) for c in REFERENCE_CASES]
 )
-def test_reference_equals_jax_segment_by_segment(s, n, thr, post_k, tile):
+def test_reference_equals_jax_segment_by_segment(data, s, n, thr, post_k, tile, mid):
     rs = np.random.RandomState(n + s)
-    boxes, valid = hard_segments(rs, s, n)
+    boxes, valid = SEGMENTS[data](rs, s, n) if data == "hard" else SEGMENTS[data](rs, s, n, thr)
     keep, count = pnms.nms_segments_reference(_t(boxes), _t(valid), thr, post_k, tile)
     assert keep.dtype == torch.int32 and keep.shape == (s, post_k)
     assert count.dtype == torch.int32 and count.shape == (s,)
+    # On these boxes the JAX side runs op by op, as box_iou is written: XLA's
+    # fused CPU program contracts an area product into the union's addition
+    # (an FMA), which moves about 8% of these IoUs by an ulp or more.
     for i in range(s):
-        want, want_count = jax_segment(boxes[i], valid[i], thr, post_k)
+        with jax.disable_jit() if data == "threshold" else contextlib.nullcontext():
+            want, want_count = jax_segment(boxes[i], valid[i], thr, post_k)
         np.testing.assert_array_equal(keep[i].numpy(), want, err_msg=f"segment {i}")
         assert int(count[i]) == want_count
     # the op gives the plain version on the CPU, and tile does not matter
     op_keep, op_count = pnms.nms_segments(_t(boxes), _t(valid), thr, post_k, tile=7)
     assert torch.equal(op_keep, keep) and torch.equal(op_count, count)
+    if mid:  # the post_k-th kept box and the next survivor share a kernel tile
+        full, _ = pnms.nms_segments_reference(_t(boxes), _t(valid), thr, n, tile)
+        assert (count == post_k).all()
+        tiles = full[:, post_k - 1 : post_k + 1] // pnms.KERNEL_TILE
+        assert (tiles[:, 0] == tiles[:, 1]).all(), tiles
+    if data == "threshold":  # each partner kept iff its IoU does not exceed thr
+        kept = np.zeros((s, n), bool)
+        for i in range(s):
+            kept[i, keep[i, : int(count[i])].numpy()] = True
+        assert kept.any() and (~kept & valid).any()
 
 
 def test_all_invalid_and_empty_segments_keep_nothing():
@@ -220,16 +304,86 @@ def test_ops_fake_implementations_match_real_shapes_and_dtypes():
     assert count.shape == (3,) and count.dtype == torch.int32
 
 
+# The cluster width of every call site (chip_smoke.NMS_SITES) on an H100's
+# 132 SMs: where the card runs 21 clusters of 16 CTAs at once (an H100 80GB
+# HBM3 at these shares), and where it runs none.
+SITE_WIDTHS = {
+    "proposals, legacy predict": (8, 8),  # 300 kept: a share of 19 at 16 is under MIN_SHARE
+    "proposals, legacy train": (16, 8),
+    "proposals, FPN predict": (16, 8),
+    "proposals, FPN train": (16, 8),
+    "per-class, legacy (offset pass)": (1, 1),  # 100 kept
+    "per-class, FPN (compact + 90 classes)": (1, 1),  # 182 segments fill the card
+}
+
+
+@pytest.mark.parametrize("site", NMS_SITES, ids=[row[0] for row in NMS_SITES])
+def test_cluster_plan_at_every_call_site(site):
+    """``nms_plan`` at each call site: the width, a share that holds
+    ``post_k`` kept boxes spread ``k mod W`` over the CTAs, and a CTA's
+    shared memory under an H100 block's 232,448 bytes."""
+    what, s, _, post_k, _, _ = site
+    wide, portable = SITE_WIDTHS[what]
+    for clusters, want in ((21, wide), (0, portable), (s, wide), (s - 1, portable)):
+        plan = pnms.nms_plan(s, post_k, sms=132, wide_clusters=clusters)
+        assert plan.width == want, (clusters, plan)
+        assert s * plan.width <= 132 or plan.width == 1
+        assert plan.share == -(-post_k // plan.width)
+        k = np.arange(post_k)
+        assert (k // plan.width < plan.share).all()  # CTA k % W's slot k // W
+        assert plan.shared_bytes == pnms.nms_shared_bytes(plan.share)
+        assert plan.shared_bytes + pnms.STATIC_SHARED_BYTES <= pnms.SHARED_MEMORY_BYTES == 232_448
+
+
+@pytest.mark.parametrize(
+    "segments,post_k,clusters,width",
+    [
+        (16, 2000, 21, 8),  # 16 x 16 CTAs exceed 132 SMs; 16 x 8 do not
+        (17, 2000, 21, 1),  # 17 x 8 exceed them too
+        (1, 511, 21, 8),  # a 16-wide share of 32 needs post_k 512
+        (1, 512, 21, 16),
+        (1, 255, 21, 1),  # an 8-wide share of 32 needs 256
+        (3, 4000, 2, 8),  # 16-wide clusters, but not 3 of them at once
+        (1, 11000, 0, 8),
+        (200, 11000, 0, 1),  # 220 KB of shared memory a CTA: still fits
+        (0, 100, 0, 1),
+    ],
+)
+def test_cluster_plan_rules(segments, post_k, clusters, width):
+    plan = pnms.nms_plan(segments, post_k, sms=132, wide_clusters=clusters)
+    assert plan.width == width
+    assert plan.shared_bytes + pnms.STATIC_SHARED_BYTES <= pnms.SHARED_MEMORY_BYTES
+
+
+def test_cluster_plan_refuses_a_share_over_shared_memory():
+    with pytest.raises(ValueError, match="shared memory"):
+        pnms.nms_plan(200, 12000, sms=132)  # W = 1: 240 KB a CTA
+    assert pnms.nms_plan(2, 12000, sms=132).width == 8  # the same list over 8 CTAs fits
+
+
 def test_cuda_kernel_matches_reference_at_call_site_shapes():
+    """The kernel against the plain sweep at every call site, at the planned
+    width and at 1, 8 and 16 CTAs a segment, and on near-threshold pairs at
+    W > 1: keep and counts identical, one launch a call."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
-    rs = np.random.RandomState(2)
-    for s, n, post_k, thr in ((2, 12000, 2000, 0.7), (1, 6000, 100, 0.3), (182, 1000, 100, 0.3)):
-        boxes, valid = hard_segments(rs, s, n)
-        tb, tv = _t(boxes).cuda(), _t(valid).cuda()
-        before = pnms.nms_segments_cuda.launches
-        keep, count = pnms.nms_segments(tb, tv, thr, post_k)
-        torch.cuda.synchronize()
-        assert pnms.nms_segments_cuda.launches == before + 1
+    dev = torch.device("cuda", 0)
+    cases = [
+        (what, smoke.nms_segments_inputs(smoke.SEED + 20 + i, s, n, smoke.NUM_CLASSES - 1 if "offset" in what else 0,
+                                         "compact" in what), thr, post_k)
+        for i, (what, s, n, post_k, thr, _) in enumerate(NMS_SITES)
+    ]
+    rs = np.random.RandomState(3)
+    cases.append(("near-threshold pairs", threshold_segments(rs, 2, 2000, 0.7), 0.7, 1000))
+    for what, (boxes, valid), thr, post_k in cases:
+        tb, tv = _t(boxes).to(dev), _t(valid).to(dev)
         want_keep, want_count = pnms.nms_segments(tb, tv, thr, post_k, plain=True)
-        assert torch.equal(keep, want_keep) and torch.equal(count, want_count)
+        for width in (None, 1, 8, 16):
+            before = pnms.nms_segments_cuda.launches
+            if width is None:
+                keep, count = pnms.nms_segments(tb, tv, thr, post_k)
+            else:
+                keep, count = pnms.nms_segments_cuda(tb, tv, thr, post_k, width=width)
+            torch.cuda.synchronize()
+            assert pnms.nms_segments_cuda.launches == before + 1
+            assert torch.equal(keep, want_keep) and torch.equal(count, want_count), (what, width)

@@ -22,7 +22,8 @@ and prints, per dtype (float32 with TF32 off, bfloat16 autocast):
    its defaults (as the CLIs run; once only on the CPU): the median per
    stage over the steps after the warm-up;
 3. busy share: ``torch.profiler`` over 3 whole steps, device kernel time
-   (user annotations excluded) over wall time, and the top kernels.
+   (user annotations excluded) over wall time, the proposal NMS kernel's
+   time and share of the step, and the top kernels.
 
 The phases run in that order, every rate before the first profiler
 session. Run from the root of a checkout on a GPU host:
@@ -197,6 +198,11 @@ def run_profile(model, init, cfg, dtype, device, batch) -> None:
         f"profile {name} cudnn deterministic={torch.backends.cudnn.deterministic}: wall "
         f"{1000 * wall / 3:.2f} ms/step (profiler on), device kernel time {busy_us / 3000:.2f} "
         f"ms/step, busy share {busy_us / 1e6 / wall:.3f}",
+        flush=True,
+    )
+    nms_us = sum(device_us(e) for e in kernels if "nms_segments_kernel" in e.key)
+    print(
+        f"  proposal NMS kernel {nms_us / 3000:.3f} ms/step, {nms_us / 1e6 / wall:.4f} of the step's wall time",
         flush=True,
     )
     for e in sorted(kernels, key=lambda e: -device_us(e))[:10]:
