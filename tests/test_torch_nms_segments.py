@@ -169,11 +169,14 @@ def test_reference_equals_jax_segment_by_segment(data, s, n, thr, post_k, tile, 
         assert (count == post_k).all()
         tiles = full[:, post_k - 1 : post_k + 1] // pnms.KERNEL_TILE
         assert (tiles[:, 0] == tiles[:, 1]).all(), tiles
-    if data == "threshold":  # each partner kept iff its IoU does not exceed thr
-        kept = np.zeros((s, n), bool)
+    if data == "threshold":  # isolated pairs: a partner is kept iff its IoU <= thr
+        t = np.float32(thr)
         for i in range(s):
-            kept[i, keep[i, : int(count[i])].numpy()] = True
-        assert kept.any() and (~kept & valid).any()
+            want = [
+                j < 2 * (n // 2) and not (_iou32(boxes[i, j], boxes[i, :j]) > t).any() for j in range(n)
+            ]
+            np.testing.assert_array_equal(np.isin(np.arange(n), keep[i, : int(count[i])]), want)
+            assert 0 < int(count[i]) < n // 2 * 2
 
 
 def test_all_invalid_and_empty_segments_keep_nothing():
