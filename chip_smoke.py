@@ -167,11 +167,42 @@ CUDA card, builds the port's kernels from the sources in the checkout
 20. demo: ``engine.demo.demo`` over 4 seeded JPEGs under
    ``build/chip_smoke_demo/`` (legacy bfloat16): detections equal direct
    predict at the demo's /64 bucket; FPS printed.
-21. imports: jax and flax were never imported.
+21. DDP at world size 1 over NCCL: a spawned process joins a one-rank
+   NCCL group (``parallel/mesh.py``) and runs phases 6 and 12's train
+   (the same weights, batch, LR and epoch generator) through the DDP step,
+   8 steps a generation and dtype: in float32 the first step's losses
+   equal the single process's bit for bit, and steps 2-3 agree within
+   1e-4 relative (the backward's atomics leave the weights apart by
+   rounding run to run, in one process too); bfloat16's are printed;
+   img/s and step p50 over the last 5 are printed beside phases 6 and
+   12's (the wrapper's cost on one card).
+22. two ranks on the one card over gloo (``backend="gloo"``, named here:
+   gloo's collectives take CUDA tensors, checked on this machine before
+   the phase was written), both on ``cuda:0``: the legacy float32 step at
+   data 2 (one image a rank) and at data 1 x model 2 (fc6/fc7 split)
+   against one process's step on the two images: losses within 1e-5
+   relative, gradients within phase 7's gate (2e-4 backbone, 1e-5 RPN
+   and head, of max|g|; the data-2 ranks against one process taking an
+   image at a time with the batch's counts, since a batch of one rounds
+   otherwise than a batch of two, and their distance to the two-image
+   step printed), every replica bit-identical after the step; then
+   the VOC eval of 8 images at one image a rank: detections identical to
+   one process's at batch 1, and the same mAP.
+23. ``--remat_backbone``: legacy and FPN, float32 then bfloat16, one step
+   with and without the checkpointed backbone (losses bit for bit and
+   gradients within the gate in float32), then peak
+   ``max_memory_allocated`` and step p50 over 5 steps each.
+24. the directory backend with ``--async_checkpoint``, inside phase 21's
+   NCCL process: legacy float32 steps with no save in flight, then an
+   asynchronous directory save of the legacy train state (about 1.1 GB)
+   and the steps taken while it is written (p50 of each printed); the
+   state loaded back equals the saved one.
+25. imports: jax and flax were never imported.
 
-Its last two lines are the kernels' JSON record (``launches``: phases 3,
-6, 9, 12 and 15; ``serving_launches``: phases 18-20) and
-``{"ok": true, "device": {...}}``.
+The ranks of phases 21, 22 and 24 send their kernel launch counts back
+(the slot-lattice align kernel's must stay 0). Its last two lines are the
+kernels' JSON record (``launches``: phases 3, 6, 9, 12, 15 and 21-24;
+``serving_launches``: phases 18-20) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -251,6 +282,12 @@ WEIGHT_DECAY = 5e-4  # make_optimizer's default
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BURST = 10  # calls between two events for the RoIPool kernels' back-to-back times
+DIST_DIR = os.path.join(BUILD, "chip_smoke_dist")
+DDP_CHECKED_STEPS = 3  # phase 21: these steps' losses equal the single process's
+DDP_STEPS = 8  # phase 21's steps a generation and dtype; p50 over the last 5
+REMAT_STEPS = 5  # phase 23's timed steps a configuration
+SAVE_STEPS = 6  # phase 24's steps without a save in flight
+SINGLE_PROCESS: dict = {}  # (generation, dtype) -> phases 6 and 12's first losses, p50, img/s
 
 
 class SyntheticImages:
@@ -1315,6 +1352,12 @@ def run_train(
     _require(not any(counts.values()), f"{name} train launched another head's kernels: {counts}")
     _require_slots_idle(f"{name} train")
     steady = timer.times[5:]
+    if not dense:  # phase 21 holds its DDP steps against these
+        SINGLE_PROCESS[(generation, dtype_name)] = {
+            "losses": losses[:DDP_CHECKED_STEPS],
+            "p50_ms": 1000 * timer.p50(),
+            "img_s": TRAIN_BATCH * len(steady) / sum(steady),
+        }
     print(
         f"train {name} {CANVAS[0]}x{CANVAS[1]} batch {TRAIN_BATCH}"
         f"{f' gt slots {DENSE_MAX_GT}' if dense else ''}: "
@@ -2130,6 +2173,454 @@ def run_demo(device) -> dict:
     return dict(zip(("roi_pool", "align", "nms"), rose))
 
 
+ALL_KERNELS = (
+    roi_pool_mod.roi_pool_cuda,
+    roi_pool_mod.roi_pool_backward_cuda,
+    roi_align_mod.multiscale_roi_align_cuda,
+    roi_align_mod.multiscale_roi_align_backward_cuda,
+    *IOU_KERNELS,
+    roi_align_mod.multiscale_roi_align_slots_cuda,
+    NMS_KERNEL,
+)
+
+
+def _launch_counts() -> dict:
+    return {k.__name__: k.launches for k in ALL_KERNELS}
+
+
+def _rank_entry(phase: str, rank: int, world: int, backend: str, model_parallel: int, args) -> None:
+    """One rank of a multi-process phase: joins the process group (every
+    rank on ``cuda:0``), runs ``phase(rank, *args)`` with the kernels'
+    counts set to 0, and leaves its result and those counts, or its
+    traceback, under ``DIST_DIR``."""
+    import traceback
+
+    from faster_rcnn_pytorch_tpu_torch.parallel import mesh
+
+    out = os.path.join(DIST_DIR, f"{phase}.rank{rank}")
+    try:
+        torch.backends.cudnn.benchmark = False
+        torch.backends.cudnn.deterministic = True
+        mesh.init_distributed(
+            rank, world, torch.device("cuda", 0),
+            init_method=f"file://{os.path.join(DIST_DIR, phase)}.rendezvous",
+            model_parallel=model_parallel, backend=backend, timeout_s=300,
+        )
+        for k in ALL_KERNELS:
+            k.launches = 0
+        result = globals()[phase](rank, *args)
+        torch.cuda.synchronize()
+        result["launches"] = _launch_counts()
+        torch.save(result, out + ".pt")
+        mesh.shutdown()
+    except BaseException:
+        with open(out + ".err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def run_ranks(phase: str, world: int, backend: str, *args, model_parallel: int = 1,
+              timeout: float = 400.0) -> list:
+    """``phase`` in ``world`` spawned processes; their results. A rank that
+    fails or hangs past ``timeout`` fails the phase (the hung one killed)."""
+    import multiprocessing
+
+    os.makedirs(DIST_DIR, exist_ok=True)
+    for f in os.listdir(DIST_DIR):
+        if f.startswith(phase + "."):
+            os.remove(os.path.join(DIST_DIR, f))
+    ctx = multiprocessing.get_context("spawn")
+    procs = [
+        ctx.Process(target=_rank_entry, args=(phase, r, world, backend, model_parallel, args))
+        for r in range(world)
+    ]
+    for p in procs:
+        p.start()
+    deadline = time.time() + timeout
+    for p in procs:
+        p.join(max(deadline - time.time(), 1.0))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    errors = []
+    for r in range(world):
+        err = os.path.join(DIST_DIR, f"{phase}.rank{r}.err")
+        if os.path.exists(err):
+            with open(err) as f:
+                errors.append(f"rank {r}: {f.read()}")
+    _require(
+        not hung and not errors and not any(p.exitcode for p in procs),
+        f"{phase}: ranks {hung} hung, exit codes {[p.exitcode for p in procs]}\n" + "\n".join(errors),
+    )
+    return [torch.load(os.path.join(DIST_DIR, f"{phase}.rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def _ddp_train(generation: str, dtype_name: str, steps: int, name: str):
+    """``steps`` full-width train steps of phase 6 (legacy) or 12 (FPN)
+    through ``train_one_epoch`` on this process's layout: the same
+    weights, batch, LR and epoch generator. Returns the state, the losses
+    and the step times."""
+    dtype = set_numerics(dtype_name)
+    cfg, labels = _train_setup(generation)
+    model = _new_model(generation).to("cuda")
+    state = init_train_state(model, make_optimizer(model))
+    schedule = make_lr_schedule("constant", TRAIN_LR, 1, TRAIN_STEPS)
+    step_fn = make_train_step(cfg, schedule, autocast_dtype=dtype if dtype != torch.float32 else None)
+    timer = StepTimer()
+
+    def timed_step(state, batch, generator):
+        timer.start()
+        metrics = step_fn(state, batch, generator)
+        torch.cuda.synchronize()
+        timer.stop()
+        return metrics
+
+    seed = SEED + (4 if generation == "legacy" else 6)
+    loader = RepeatedBatch(synthetic_train_batch(CANVAS, seed, labels=labels), steps)
+    recorder = LossRecorder()
+    opts = SimpleNamespace(seed=SEED, vis_step=1, log_dir=os.path.join(DIST_DIR, "logs"),
+                           name=name, keep_checkpoints=1)
+    train_one_epoch(state, timed_step, loader, 0, opts, schedule, recorder)
+    shutil.rmtree(opts.log_dir, ignore_errors=True)
+    return state, step_fn, recorder.losses, timer.times
+
+
+def phase21_ddp_nccl(rank: int) -> dict:
+    """Phase 21 (world 1, NCCL) and phase 24 (the directory backend's
+    asynchronous save beside a NCCL group) in one process."""
+    import torch.distributed as dist
+
+    from faster_rcnn_pytorch_tpu_torch.utils import checkpoint as ck
+
+    out = {"backend": dist.get_backend()}
+    for generation in ("legacy", "fpn"):
+        for dtype_name in ("float32", "bfloat16"):
+            state, step_fn, losses, times = _ddp_train(generation, dtype_name, DDP_STEPS, "ddp")
+            steady = times[DDP_STEPS - 5:]
+            out[(generation, dtype_name)] = {
+                "losses": losses[:DDP_CHECKED_STEPS],
+                "p50_ms": 1000 * float(np.percentile(steady, 50)),
+                "img_s": TRAIN_BATCH * len(steady) / sum(steady),
+            }
+            if generation == "legacy" and dtype_name == "float32":
+                out["save"] = _async_save_steps(state, step_fn, ck)
+            del state, step_fn
+    return out
+
+
+def _async_save_steps(state, step_fn, ck) -> dict:
+    """Phase 24: legacy float32 steps with no save in flight, then an
+    asynchronous directory save of the train state and the steps taken
+    while it is written; the loaded state must equal the saved one."""
+    batch = _to_device(synthetic_train_batch(CANVAS, SEED + 4, labels=(0, NUM_CLASSES - 1)), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def step():
+        t0 = time.perf_counter()
+        step_fn(state, batch, gen)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    quiet = [step() for _ in range(SAVE_STEPS)][1:]
+    saved_model = {k: v.clone() for k, v in state.model.state_dict().items()}
+    saved_momentum = {i: s["momentum_buffer"].clone() for i, s in state.optimizer.state_dict()["state"].items()}
+    path = os.path.join(DIST_DIR, "async_save", "legacy.0.pt")
+    t0 = time.perf_counter()
+    ck.save_checkpoint(path, state, {"epoch": 0}, backend="orbax", async_save=True)
+    call_s = time.perf_counter() - t0
+    during = []
+    while ck.saving() and len(during) < 40:
+        during.append(step())
+    ck.wait_for_checkpoints()
+    total_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+    fresh = _new_model("legacy").to("cuda")
+    loaded = init_train_state(fresh, make_optimizer(fresh))
+    ck.load_checkpoint(path, loaded)
+    same = all(torch.equal(loaded.model.state_dict()[k], v) for k, v in saved_model.items())
+    got = loaded.optimizer.state_dict()["state"]
+    same = same and got.keys() == saved_momentum.keys() and all(
+        torch.equal(got[i]["momentum_buffer"], v) for i, v in saved_momentum.items()
+    )
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    return {
+        "bytes": size, "call_s": call_s, "total_s": total_s, "equal": same,
+        "quiet_p50_ms": 1000 * float(np.percentile(quiet, 50)),
+        "during_p50_ms": 1000 * float(np.percentile(during, 50)) if during else None,
+        "during_steps": len(during),
+    }
+
+
+def check_ddp_nccl() -> dict:
+    """Phase 21 (with 24 inside it); returns the child's launch counts."""
+    (out,) = run_ranks("phase21_ddp_nccl", 1, "nccl")
+    _require(out["backend"] == "nccl", f"phase 21 ran over {out['backend']}")
+    for generation in ("legacy", "fpn"):
+        for dtype_name in ("float32", "bfloat16"):
+            got, want = out[(generation, dtype_name)], SINGLE_PROCESS[(generation, dtype_name)]
+            rel = [abs(g - w) / abs(w) for g, w in zip(got["losses"], want["losses"])]
+            if dtype_name == "float32":
+                # Step 1 starts from the same weights: bit for bit. Its
+                # backward's atomics (RoIPool, align) leave the weights apart
+                # by rounding run to run (phases 7 and 13's kernel-vs-kernel
+                # spread), in one process as under DDP, and the steps after
+                # it amplify that: up to 1.9e-5 relative at step 3 between
+                # runs on an H100, so steps 2-3 are held within 1e-4.
+                _require(got["losses"][0] == want["losses"][0] and max(rel) <= 1e-4,
+                         f"DDP {generation} float32 losses {got['losses']} vs {want['losses']}")
+            print(
+                f"ddp nccl world 1 {generation} {dtype_name}: losses of steps 1-{DDP_CHECKED_STEPS} "
+                f"against the single process's: relative differences "
+                f"{', '.join(f'{r:.2g}' for r in rel)}; "
+                f"{got['img_s']:.2f} img/s (step p50 {got['p50_ms']:.1f} ms) against "
+                f"{want['img_s']:.2f} img/s ({want['p50_ms']:.1f} ms) in one process",
+                flush=True,
+            )
+    save = out["save"]
+    _require(save["equal"], "the state loaded from the asynchronous save differs from the saved one")
+    _require(save["during_steps"] > 0, "no step ran while the asynchronous save was in flight")
+    print(
+        f"async directory save of the legacy train state ({save['bytes'] / 1e9:.2f} GB) beside a "
+        f"NCCL group: call {save['call_s']:.3f} s, written in {save['total_s']:.2f} s; step p50 "
+        f"{save['during_p50_ms']:.1f} ms over {save['during_steps']} steps while in flight against "
+        f"{save['quiet_p50_ms']:.1f} ms with none; loaded state identical",
+        flush=True,
+    )
+    return out["launches"]
+
+
+def _step_reference(model, cfg, batch, seed: int) -> tuple[dict, dict]:
+    """One float32 ``make_train_step`` step of ``model`` in this process
+    (metrics, gradients on the CPU)."""
+    state = init_train_state(model, make_optimizer(model))
+    step_fn = make_train_step(cfg, make_lr_schedule("constant", TRAIN_LR, 1, TRAIN_STEPS))
+    metrics = step_fn(state, batch, torch.Generator(device="cuda").manual_seed(seed))
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    return {k: float(v) for k, v in metrics.items()}, grads
+
+
+def _gate(name: str, generation: str) -> float:
+    return 2e-4 if generation == "legacy" and name.startswith("extractor.") else 1e-5
+
+
+def phase22_gloo(rank: int, refs: dict, eval_want: dict | None) -> dict:
+    """Phase 22 in one rank: the legacy float32 step on this rank's rows
+    (one image a rank at data 2; both images, fc6/fc7 split, at model 2),
+    its gradients held against each of ``refs`` (name -> a one-process
+    gradient file) on rank 0, and with ``eval_want`` the VOC eval of 8
+    images at one image a rank."""
+    import hashlib
+
+    from faster_rcnn_pytorch_tpu_torch.parallel import tensor_parallel as tp
+    from faster_rcnn_pytorch_tpu_torch.parallel.mesh import layout
+
+    set_numerics("float32")
+    lay = layout()
+    full = _to_device(synthetic_train_batch(CANVAS, SEED + 2), "cuda")
+    b = TRAIN_BATCH // lay.data_size
+    batch = {k: v[lay.data_rank * b:(lay.data_rank + 1) * b] for k, v in full.items()}
+    model = tp.apply_tensor_parallel(_new_model(), lay.model_group, lay.model_rank, lay.model_parallel)
+    model = model.to("cuda")
+    metrics, grads = _step_reference(model, LEGACY_CONFIG, batch, SEED)
+    out = {"metrics": metrics, "digests": {
+        n: hashlib.sha1(p.detach().cpu().numpy().tobytes()).hexdigest()
+        for n, p in model.named_parameters()
+    }}
+    grads = tp.gather_state_dict(model, lay.model_group, state={n: g.cuda() for n, g in grads.items()})
+    if rank == 0:
+        out["grad_errors"] = {}
+        for name, path in refs.items():
+            want = torch.load(path, weights_only=True)
+            out["grad_errors"][name] = {
+                n: float((g.cpu() - want[n]).abs().max() / want[n].abs().max().clamp(min=1e-30))
+                for n, g in grads.items()
+            }
+    del model, grads
+    if eval_want is not None:
+        model = prepare_for_inference(_new_model(), torch.device("cuda"), torch.float32)
+        result = evaluate(model, LEGACY_CONFIG, SyntheticImages(N_IMAGES, CANVAS, SEED, batch_size=2),
+                          score_threshold=THRESHOLD, verbose=False)
+        out["eval_equal"] = _detections_equal(result["detections"], eval_want["detections"])
+        out["eval_map"] = result["map"]
+    return out
+
+
+def _per_image_grads(batch: dict) -> dict:
+    """One process's gradients of the two-image batch's loss taken an
+    image at a time, each image's terms over the batch's counts: what two
+    data-parallel ranks sum, with the cuDNN and cuBLAS algorithms of a
+    batch of one."""
+    model = _new_model().to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    noise = draw_train_noise(gen, TRAIN_BATCH, model.canvas_anchors(*CANVAS).shape[0],
+                             LEGACY_CONFIG.post_nms_train + MAX_GT, "cuda")
+    counts = []
+    forward_train(model, LEGACY_CONFIG, *(batch[k] for k in BATCH_KEYS), noise=noise,
+                  count_reduce=lambda c: (counts.append(c) or c, 1))
+    model.zero_grad(set_to_none=True)
+    for i in range(TRAIN_BATCH):
+        out = forward_train(
+            model, LEGACY_CONFIG, *(batch[k][i:i + 1] for k in BATCH_KEYS),
+            noise=type(noise)(*(t[i:i + 1] for t in noise)), count_reduce=lambda c: (counts[0], 1),
+        )
+        out.losses.total.backward()
+    return {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+
+
+class _SplitFC(torch.nn.Module):
+    """fc6/fc7 of one process computed with the products of phase 22's
+    two model ranks: fc6 as two column halves, fc7 as the sum of two
+    row-half products (in rank order), then its bias; the weights stay
+    whole, so the gradients are in the one-process layout."""
+
+    def __init__(self, classifier):
+        super().__init__()
+        self.fc6, self.fc7 = classifier[0], classifier[2]
+
+    def forward(self, x):
+        halves = zip(self.fc6.weight.chunk(2, 0), self.fc6.bias.chunk(2, 0))
+        h = [torch.relu(torch.nn.functional.linear(x, w.contiguous(), b.contiguous())) for w, b in halves]
+        w7 = [w.contiguous() for w in self.fc7.weight.chunk(2, 1)]
+        y = torch.nn.functional.linear(h[0], w7[0]) + torch.nn.functional.linear(h[1], w7[1])
+        return torch.relu(y + self.fc7.bias)
+
+
+def _split_fc_grads(batch: dict) -> dict:
+    """One process's gradients of the two-image step with fc6/fc7 as
+    :class:`_SplitFC` computes them."""
+    model = _new_model().to("cuda")
+    model.classifier = model.fast_rcnn_head.classifier = _SplitFC(model.classifier)
+    _step_reference(model, LEGACY_CONFIG, batch, SEED)
+    return {n.replace("fc6", "0").replace("fc7", "2"): p.grad.detach().cpu()
+            for n, p in model.named_parameters()}
+
+
+def check_two_ranks_gloo() -> list[dict]:
+    """Phase 22: two ranks on the one card over gloo (``backend="gloo"``
+    named here; CUDA tensors go through gloo's own collectives), DP and
+    TP legacy steps against one process's, and the VOC eval at world 2
+    against one process's at batch 1. cuDNN and cuBLAS round a product
+    by its shape, and a rounding change flips near-zero ReLUs after fc6
+    and near-tied pools (1e-3 of max|g| at conv1 and fc6/fc7, in one
+    process on an H100). So each layout's gradients are gated against one
+    process computing the same shapes (DP: an image at a time with the
+    batch's counts; TP: fc6/fc7 as the two ranks' halves,
+    :class:`_SplitFC`), and their distance to the plain two-image step
+    is printed. Returns the ranks' launch counts."""
+    set_numerics("float32")
+    full = _to_device(synthetic_train_batch(CANVAS, SEED + 2), "cuda")
+    os.makedirs(DIST_DIR, exist_ok=True)
+    model = _new_model().to("cuda")
+    want_metrics, grads = _step_reference(model, LEGACY_CONFIG, full, SEED)
+    del model
+    refs = {name: os.path.join(DIST_DIR, f"phase22_{name}.pt")
+            for name in ("batch", "per_image", "split_fc")}
+    torch.save(grads, refs["batch"])
+    torch.save(_per_image_grads(full), refs["per_image"])
+    torch.save(_split_fc_grads(full), refs["split_fc"])
+    del grads
+    eval_model = prepare_for_inference(_new_model(), torch.device("cuda"), torch.float32)
+    eval_want = evaluate(eval_model, LEGACY_CONFIG, SyntheticImages(N_IMAGES, CANVAS, SEED),
+                         score_threshold=THRESHOLD, verbose=False)
+    del eval_model
+    torch.cuda.empty_cache()
+    eval_want = {"detections": eval_want["detections"], "map": eval_want["map"]}
+    launches = []
+    for label, args, mp, gated in (
+        ("data 2 x model 1", ({k: refs[k] for k in ("batch", "per_image")}, eval_want), 1, "per_image"),
+        ("data 1 x model 2", ({k: refs[k] for k in ("batch", "split_fc")}, None), 2, "split_fc"),
+    ):
+        outs = run_ranks("phase22_gloo", 2, "gloo", *args, model_parallel=mp)
+        for key in ("rpn_cls", "rpn_reg", "roi_cls", "roi_reg"):
+            got, want = outs[0]["metrics"][key], want_metrics[key]
+            _require(abs(got - want) <= 1e-5 * abs(want), f"{label} {key}: {got} vs {want}")
+        notes = []
+        for name, errs in outs[0]["grad_errors"].items():
+            worst, over = {}, []
+            for param, rel in errs.items():
+                kind = "backbone" if param.startswith("extractor.") else "rpn+head"
+                worst[kind] = max(worst.get(kind, 0.0), rel)
+                if rel > _gate(param, "legacy"):
+                    over.append(f"{param} {rel:.2g}")
+            _require(name != gated or not over, f"{label} vs {name}: over the gate: {over}")
+            notes.append(
+                f"vs one process {name.replace('_', ' ')} max|d| / max|g| "
+                + ", ".join(f"{k} {v:.2g}" for k, v in worst.items())
+                + (" (gated)" if name == gated else f" ({len(over)} tensors over the gate)")
+            )
+        a, b = (o["digests"] for o in outs)
+        split = {n for n in a if n.startswith("classifier.") and n != "classifier.2.bias"} if mp > 1 else set()
+        differ = [n for n in a if n not in split and a[n] != b[n]]
+        _require(not differ, f"{label}: replicas differ after the step: {differ[:4]}")
+        print(
+            f"gloo on cuda:0, 2 ranks, {label}, legacy float32 step: losses within 1e-5 of one "
+            f"process's; {'; '.join(notes)}; replicas identical",
+            flush=True,
+        )
+        if "eval_equal" in outs[0]:
+            for o in outs:
+                _require(o["eval_equal"], f"{label}: eval detections differ from one process's")
+                _require(o["eval_map"] == eval_want["map"], f"{label}: mAP {o['eval_map']} vs {eval_want['map']}")
+            print(f"gloo, 2 ranks: VOC eval of {N_IMAGES} images one a rank: detections and mAP "
+                  f"({eval_want['map']:.4f}) identical with one process's at batch 1", flush=True)
+        launches += [o["launches"] for o in outs]
+    for path in refs.values():
+        os.remove(path)
+    return launches
+
+
+def check_remat(device) -> None:
+    """Phase 23: ``--remat_backbone`` against none, legacy and FPN, float32
+    then bfloat16: one step's losses bit for bit and gradients within the
+    gate (float32), then peak memory and step p50 over ``REMAT_STEPS``."""
+    for generation in ("legacy", "fpn"):
+        cfg, labels = _train_setup(generation)
+        batch = _to_device(synthetic_train_batch(CANVAS, SEED + 2, labels=labels), device)
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = set_numerics(dtype_name)
+            autocast = dtype if dtype != torch.float32 else None
+            runs = {}
+            for remat in (False, True):
+                model, _ = build_model(generation, FPN_CLASSES if generation == "fpn" else NUM_CLASSES,
+                                       remat=remat)
+                model = init_weights(model, torch.Generator().manual_seed(SEED)).to(device)
+                state = init_train_state(model, make_optimizer(model))
+                step_fn = make_train_step(cfg, make_lr_schedule("constant", TRAIN_LR, 1, TRAIN_STEPS),
+                                          autocast_dtype=autocast)
+                gen = torch.Generator(device=device).manual_seed(SEED)
+                metrics = step_fn(state, batch, gen)
+                losses = torch.stack([metrics[k] for k in ("rpn_cls", "rpn_reg", "roi_cls", "roi_reg")])
+                grads = _grads(model)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                times = []
+                for _ in range(REMAT_STEPS):
+                    t0 = time.perf_counter()
+                    step_fn(state, batch, gen)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                runs[remat] = (losses, grads, torch.cuda.max_memory_allocated(),
+                               1000 * float(np.percentile(times, 50)))
+                del state, model, step_fn
+                torch.cuda.empty_cache()
+            (l0, g0, m0, t0), (l1, g1, m1, t1) = runs[False], runs[True]
+            if dtype_name == "float32":
+                _require(torch.equal(l0, l1), f"remat {generation}: losses {l1.tolist()} vs {l0.tolist()}")
+                for name, g in g0.items():
+                    scale = float(g.abs().max())
+                    rel = float((g1[name] - g).abs().max()) / scale if scale else float((g1[name] != g).any())
+                    _require(rel <= _gate(name, generation), f"remat {generation} {name}: {rel}")
+            print(
+                f"remat {generation} {dtype_name} {CANVAS[0]}x{CANVAS[1]} batch {TRAIN_BATCH}: peak "
+                f"{m1 / 2**30:.2f} GiB against {m0 / 2**30:.2f} without, step p50 {t1:.1f} ms against "
+                f"{t0:.1f}; losses {'identical' if torch.equal(l0, l1) else 'differ'}",
+                flush=True,
+            )
+
+
 def main() -> int:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -2255,6 +2746,29 @@ def main() -> int:
         rec["serving_launches"] = exported[key] + served[key] + demoed[key]
     slots_record["launches"] = roi_align_mod.multiscale_roi_align_slots_cuda.launches
     _require_slots_idle("the main paths")
+
+    # Phases 21-24, the parallel paths: the ranks' launch counts come back
+    # from their processes; the parent's phase 23 counts its own.
+    phase21 = check_ddp_nccl()
+    for kernel in (*_head_kernels("legacy"), *_head_kernels("fpn"), NMS_KERNEL):
+        _require(phase21[kernel.__name__] > 0, f"phase 21 never launched {kernel.__name__}")
+    phase22 = check_two_ranks_gloo()
+    before = _launch_counts()
+    check_remat(device)
+    phase23 = {k: v - before[k] for k, v in _launch_counts().items()}
+    for counts in (phase21, *phase22, phase23):
+        for rec, kernels in (
+            (record, (roi_pool_mod.roi_pool_cuda,)),
+            (bwd_record, (roi_pool_mod.roi_pool_backward_cuda,)),
+            (align_record, (roi_align_mod.multiscale_roi_align_cuda,)),
+            (align_bwd_record, (roi_align_mod.multiscale_roi_align_backward_cuda,)),
+            (iou_record, IOU_KERNELS),
+            (slots_record, (roi_align_mod.multiscale_roi_align_slots_cuda,)),
+            (nms_record, (NMS_KERNEL,)),
+        ):
+            rec["launches"] += sum(counts[k.__name__] for k in kernels)
+    _require(slots_record["launches"] == 0, "a parallel phase launched the slot-lattice align kernel")
+    print(f"ranks' launches: phase 21 {phase21}; phase 22 {phase22}; phase 23 {phase23}", flush=True)
 
     leaked = [m for m in ("jax", "flax") if m in sys.modules]
     _require(not leaked, f"imported {leaked}")

@@ -97,8 +97,13 @@ class DetectionLoader:
         drop_last: bool = True,
         seed: int = 0,
         align: int = 16,
+        rows: tuple[int, int] | None = None,
     ):
         self.records = list(records)
+        # This rank's rows [lo, hi) of every host batch (data parallelism:
+        # the host batch is the JAX loader's; augmentation is seeded per
+        # record and the canvas per batch, so a slice changes neither).
+        self.rows = rows
         self.transform = transform
         self.batch_size = batch_size
         self.size = size
@@ -198,6 +203,9 @@ class DetectionLoader:
                 batches.append((b, is_land))
         if self.shuffle:
             rs.shuffle(batches)
+        if self.rows is not None:
+            lo, hi = self.rows
+            batches = [(b[lo:hi], is_land) for b, is_land in batches]
         return batches
 
     def _make_batch(self, batch_spec, epoch):
@@ -504,10 +512,12 @@ def _rescale(image, boxes, scale):
     return im, boxes
 
 
-def build_dataloader(opts) -> tuple[DetectionLoader, DetectionLoader]:
+def build_dataloader(opts, train_rows: bool = True) -> tuple[DetectionLoader, DetectionLoader]:
     """Config -> (train_loader, test_loader); counterpart of
     datasets/build.py:8 / new_datasets/build.py:9. ``opts`` is a
-    :class:`..config.Options`."""
+    :class:`..config.Options`. With several data ranks each loader yields
+    this rank's rows of the host batch (``train_rows=False``: the train
+    loader does not, for an eval CLI that never iterates it)."""
     from faster_rcnn_pytorch_tpu_torch.data.transforms import (
         EvalTransform,
         TrainAugment,
@@ -554,6 +564,10 @@ def build_dataloader(opts) -> tuple[DetectionLoader, DetectionLoader]:
     train_tf = TrainAugment(size=opts.resize, max_size=opts.max_size)
     test_tf = EvalTransform(size=opts.resize, max_size=opts.max_size)
     per_host_batch = max(opts.batch_size // opts.num_hosts, 1)
+    from faster_rcnn_pytorch_tpu_torch.parallel.mesh import layout
+
+    eval_batch = max(getattr(opts, "eval_batch_size", 1), 1)
+    lay = layout()
     train = DetectionLoader(
         train_recs,
         train_tf,
@@ -567,11 +581,12 @@ def build_dataloader(opts) -> tuple[DetectionLoader, DetectionLoader]:
         shard_id=opts.host_id,
         num_shards=opts.num_hosts,
         seed=opts.seed,
+        rows=_rank_rows(per_host_batch, lay) if train_rows else None,
     )
     test = DetectionLoader(
         test_recs,
         test_tf,
-        batch_size=max(getattr(opts, "eval_batch_size", 1), 1),
+        batch_size=eval_batch,
         size=opts.resize,
         max_size=opts.max_size,
         shuffle=False,
@@ -580,5 +595,22 @@ def build_dataloader(opts) -> tuple[DetectionLoader, DetectionLoader]:
         num_shards=opts.num_hosts,
         drop_last=False,
         seed=opts.seed,
+        rows=_rank_rows(eval_batch, lay),
     )
     return train, test
+
+
+def _rank_rows(host_batch: int, lay) -> tuple[int, int] | None:
+    """This rank's rows of a host batch: ``[r * b, (r + 1) * b)`` for its
+    local data rank ``r`` and ``b = host_batch / local data size``; the
+    ranks of a model group share theirs. None for one process."""
+    n = lay.local_data_size
+    if n == 1:
+        return None
+    if host_batch % n:
+        raise ValueError(
+            f"the host batch ({host_batch}) must be divisible by the host's {n} "
+            "data ranks; set --batch_size or --eval_batch_size"
+        )
+    b = host_batch // n
+    return lay.local_data_rank * b, (lay.local_data_rank + 1) * b

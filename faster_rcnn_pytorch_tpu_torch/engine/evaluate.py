@@ -4,6 +4,14 @@ Per batch: ``predict`` on the padded canvas -> fixed ``[B, D, 7]`` packed
 detections, copied to the host once -> rescaled from canvas-normalised
 to original pixel coords -> labels mapped to the dataset's ids -> the VOC
 or the COCO evaluator.
+
+Under data parallelism (``parallel/mesh.py``) each rank predicts its rows
+of every host batch, and the ranks' predictions (and VOC ground truths)
+are merged before scoring, so every rank returns the whole set's
+detections and mAP (the JAX package's SPMD eval and its cross-host merge).
+With ``dtype`` the weights are cast for the pass, as the JAX ``evaluate``
+casts them (``cast_inference_params``): one bfloat16 recipe for ``main``'s
+per-epoch eval and the eval CLIs.
 """
 
 from __future__ import annotations
@@ -18,7 +26,10 @@ import torch
 from faster_rcnn_pytorch_tpu_torch.evaluation.coco_eval import CocoEvaluator
 from faster_rcnn_pytorch_tpu_torch.evaluation.voc_eval import VOC_CLASSES, voc_eval
 from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import predict
+from faster_rcnn_pytorch_tpu_torch.parallel.mesh import allgather_pyobj, layout
 from faster_rcnn_pytorch_tpu_torch.serving import pack_detections
+from faster_rcnn_pytorch_tpu_torch.utils.logging import print0
+from faster_rcnn_pytorch_tpu_torch.utils.runtime import inference_weights
 
 
 def detections_to_original_coords(packed, batch, i):
@@ -61,6 +72,7 @@ def evaluate(
     dump_path: str | None = None,
     plain: bool = False,
     verbose: bool = True,
+    dtype: torch.dtype | None = None,
 ) -> dict:
     """Run the eval pass over ``loader`` (any object with ``.epoch(0)``
     yielding the loader's batch dicts, ``.batch_size`` and, for VOC,
@@ -71,7 +83,13 @@ def evaluate(
     COCO keeps the protocol's ``cfg.max_detections`` (100) and scores
     against ``coco_index`` (a ``data.coco.CocoIndex``). ``label_map`` maps
     a 0-based foreground label to the dataset's id (identity when None).
-    ``plain`` is for tests only (see :func:`predict`).
+    ``plain`` is for tests only (see :func:`predict`). ``dtype``: the
+    weights are cast to it for the pass and restored after it (the
+    float32 master weights of a train run stay as they were).
+
+    Under data parallelism the loader's host batch (``.batch_size``
+    rows; ``loader.rows`` when it already yields this rank's rows) must
+    divide over the host's data ranks; each rank predicts its rows.
 
     Returns ``{"map", "stats", "detections", "n_images", "seconds"}``;
     ``detections`` maps image id to its original-pixel boxes, labels (in
@@ -86,12 +104,24 @@ def evaluate(
     label_map = label_map or (lambda x: x)
     label_table = np.asarray([label_map(i) for i in range(cfg.num_classes - 1)], np.int64)
     device = next(model.parameters()).device
+    lay = layout()
+    n_ranks = lay.local_data_size
+    if loader.batch_size % n_ranks:
+        raise ValueError(
+            f"SPMD eval needs the host's eval batch ({loader.batch_size}) divisible "
+            f"by its {n_ranks} data ranks; set --eval_batch_size"
+        )
+    # This rank's rows, unless the loader already yields only them.
+    rows = None
+    if n_ranks > 1 and getattr(loader, "rows", None) is None:
+        b = loader.batch_size // n_ranks
+        rows = slice(lay.local_data_rank * b, (lay.local_data_rank + 1) * b)
 
     predictions: dict[int, dict] = {}
     gts: dict[int, dict] = {}
     t0 = time.time()
     n_img = 0
-    for batch in loader.epoch(0):
+    for batch in _batches(loader, rows, inference_weights(model, dtype)):
         images = torch.from_numpy(np.ascontiguousarray(batch["image"])).to(device)
         extents = torch.from_numpy(batch["extent"].astype(np.float32)).to(device)
         det = predict(model, cfg, images, extents, score_threshold, plain=plain)
@@ -113,14 +143,22 @@ def evaluate(
                 }
             n_img += 1
     infer_time = time.time() - t0
+    if lay.distributed:
+        # Merge the data ranks' shards (JAX evaluate's cross-host merge).
+        shards = allgather_pyobj((predictions, gts, n_img))
+        n_img = 0
+        for p, g, n in shards:
+            predictions.update(p)
+            gts.update(g)
+            n_img += n
     n_det = sum(len(p["scores"]) for p in predictions.values())
-    print(
+    print0(
         f"eval inference: {n_img} images in {infer_time:.1f}s "
         f"({n_img / max(infer_time, 1e-9):.2f} img/s), "
         f"{n_det} detections above threshold",
         flush=True,
     )
-    if dump_path:
+    if dump_path and lay.rank == 0:
         with open(dump_path, "wb") as f:
             pickle.dump({"predictions": predictions, "gts": gts}, f)
         print(f"dumped {len(predictions)} images' detections to {dump_path}", flush=True)
@@ -131,7 +169,7 @@ def evaluate(
             gts,
             num_classes=len(VOC_CLASSES),
             class_names=VOC_CLASSES,
-            verbose=verbose,
+            verbose=verbose and lay.rank == 0,
         )
         mean_ap = stats["map"]
     else:
@@ -139,7 +177,7 @@ def evaluate(
         evaluator.update(predictions)
         evaluator.accumulate()
         stats = evaluator.summarize()
-        if verbose:
+        if verbose and lay.rank == 0:
             evaluator.print_summary()
         mean_ap = float(stats[0])
     return {
@@ -149,3 +187,11 @@ def evaluate(
         "n_images": n_img,
         "seconds": infer_time,
     }
+
+
+def _batches(loader, rows: slice | None, weights):
+    """The loader's batches (this rank's ``rows`` of each) inside the
+    ``weights`` context: the cast weights live as long as the pass."""
+    with weights:
+        for batch in loader.epoch(0):
+            yield batch if rows is None else {k: v[rows] for k, v in batch.items()}

@@ -4,6 +4,13 @@ Per step: copy the host batch to the model's device and run the train
 step (forward, four-part loss, backward, SGD update); every ``vis_step``
 steps read the metrics back and log them to the console and the scalar
 writer. After the epoch: save its checkpoint, then prune old ones.
+
+Under data parallelism every rank runs this loop over its rows of each
+batch with the same epoch generator (the step slices the global batch's
+noise); the metrics it reads are the global batch's, and only global
+rank 0 prints and writes scalars (``utils/logging.py``). Every rank calls
+the checkpoint save, which gathers the tensor-parallel shards; rank 0
+writes the single-device layout (``utils/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -16,7 +23,7 @@ from faster_rcnn_pytorch_tpu_torch.utils.checkpoint import (
     prune_checkpoints,
     save_checkpoint,
 )
-from faster_rcnn_pytorch_tpu_torch.utils.logging import MetricLogger, ScalarWriter
+from faster_rcnn_pytorch_tpu_torch.utils.logging import MetricLogger, ScalarWriter, print0
 
 BATCH_KEYS = ("image", "extent", "gt_boxes", "gt_labels", "gt_mask")
 
@@ -64,7 +71,13 @@ def train_one_epoch(
                 writer.scalar("train/lr", lr, step)
 
     path = checkpoint_path(opts.log_dir, opts.name, epoch)
-    save_checkpoint(path, state, metadata={"epoch": epoch})
-    print(f"saved checkpoint {path}", flush=True)
+    save_checkpoint(
+        path,
+        state,
+        metadata={"epoch": epoch},
+        backend=getattr(opts, "ckpt_backend", "flax"),
+        async_save=getattr(opts, "async_checkpoint", False),
+    )
+    print0(f"saved checkpoint {path}", flush=True)
     prune_checkpoints(opts.log_dir, opts.name, opts.keep_checkpoints)
     return state

@@ -1,8 +1,8 @@
-"""COCO-protocol bbox evaluation in numpy, for one process.
+"""COCO-protocol bbox evaluation in numpy.
 
 A copy of the bbox half of ``faster_rcnn_pytorch_tpu/evaluation/coco_eval.py``
 (which the port cannot import: its cross-host merge imports the JAX
-package's mesh module). The protocol, as pycocotools has it:
+package's mesh module; the port's merges over its own process group). The protocol, as pycocotools has it:
 
 * IoU thresholds 0.50:0.05:0.95, area ranges all/small/medium/large
   (32^2 / 96^2 split), maxDets (1, 10, 100),
@@ -14,8 +14,8 @@ package's mesh module). The protocol, as pycocotools has it:
 
 The evaluator keeps the reference wrapper's API shape:
 ``update(predictions)`` with ``{image_id: {"boxes","scores","labels"}}``,
-then ``accumulate`` / ``summarize``. There is no
-``synchronize_between_processes`` until the port runs several processes.
+then ``synchronize_between_processes`` (the data ranks' predictions
+merged), ``accumulate`` / ``summarize``.
 """
 
 from __future__ import annotations
@@ -138,6 +138,15 @@ class CocoEvaluator:
                 "scores": np.asarray(pred["scores"], np.float64).reshape(-1),
                 "labels": np.asarray(pred["labels"], np.int64).reshape(-1),
             }
+
+    def synchronize_between_processes(self) -> None:
+        """Merge the predictions of every data rank (each evaluated its
+        rows of each batch): the reference's pickled ``all_gather``
+        (``parallel.mesh.allgather_pyobj``). One process: nothing to do."""
+        from faster_rcnn_pytorch_tpu_torch.parallel.mesh import allgather_pyobj
+
+        for merged in allgather_pyobj(self.predictions):
+            self.predictions.update(merged)
 
     def accumulate(self) -> None:
         img_ids = sorted(self.predictions)

@@ -30,7 +30,7 @@ import torch
 from torch import nn
 
 from faster_rcnn_pytorch_tpu_torch.models.anchors import fpn_anchors, legacy_anchors
-from faster_rcnn_pytorch_tpu_torch.models.losses import LossBreakdown, frcnn_loss
+from faster_rcnn_pytorch_tpu_torch.models.losses import CountReduce, LossBreakdown, frcnn_loss
 from faster_rcnn_pytorch_tpu_torch.models.rpn import RPNHead, propose_batch, softmax
 from faster_rcnn_pytorch_tpu_torch.models.targets import (
     REG_STD,
@@ -158,6 +158,9 @@ class LegacyFRCNN(nn.Module):
     """VGG16 Faster R-CNN: conv5_3 features at stride 16, 9-anchor RPN,
     7x7 RoIPool head with the shared 4096-wide FC trunk."""
 
+    # Parameters the loss never reaches (none here; see FPNFRCNN).
+    frozen_prefixes: tuple[str, ...] = ()
+
     def __init__(self, num_classes: int = 21):
         super().__init__()
         self.num_classes = num_classes
@@ -204,6 +207,9 @@ class FPNFRCNN(nn.Module):
     and the shared 1024-wide FC trunk."""
 
     strides = (4, 8, 16, 32, 64)
+    # The frozen stem and layer1: detached in the forward, so the loss
+    # gives them no gradient (the optimizer still decays them).
+    frozen_prefixes = ("backbone.body.conv1.", "backbone.body.layer1.")
 
     def __init__(self, num_classes: int = 91):
         super().__init__()
@@ -407,10 +413,12 @@ def train_losses(
     roi_tg: RoITargets,
     canvas_hw: tuple[int, int],
     plain: bool = False,
+    count_reduce: CountReduce | None = None,
 ) -> TrainStepOutput:
     """The head on the sampled rois (either generation; FPN aligns in
     pixels of the ``canvas_hw`` canvas), the regression row of each target
-    class, and the four-part loss."""
+    class, and the four-part loss (``count_reduce``: its denominators
+    over the data group, ``models/losses.py``)."""
     head_cls, head_reg = _head_apply(model, feats, roi_tg.rois, canvas_hw, plain)
     b, s = roi_tg.labels.shape
     head_reg = head_reg.reshape(b, s, cfg.num_classes, 4)
@@ -419,6 +427,7 @@ def train_losses(
     losses = frcnn_loss(
         (rpn_cls, rpn_reg, head_cls, head_reg),
         (rpn_tg.labels, rpn_tg.reg_targets, roi_tg.labels, roi_tg.reg_targets),
+        count_reduce,
     )
     return TrainStepOutput(
         losses=losses,
@@ -438,6 +447,7 @@ def forward_train(
     generator: torch.Generator | None = None,
     noise: TrainNoise | None = None,
     plain: bool = False,
+    count_reduce: CountReduce | None = None,
 ) -> TrainStepOutput:
     """One training forward pass: the losses of a padded batch.
 
@@ -454,6 +464,8 @@ def forward_train(
       plain: tests only: the plain RoIPool or MultiScaleRoIAlign (forward
         and backward), the plain NMS sweep and the plain IoU of the RoI
         targets in place of the kernels.
+      count_reduce: data parallelism: the loss's counts over the data
+        group (``models/losses.py``).
 
     The JAX package's slab-batched VGG stem (``train=True``) is a TPU
     layout with the same numbers; this is the plain stack.
@@ -470,7 +482,8 @@ def forward_train(
         cfg, anchors, rpn_cls, rpn_reg, extents, gt_boxes, gt_labels, gt_mask, noise, plain
     )
     return train_losses(
-        model, cfg, feats, rpn_cls, rpn_reg, rpn_tg, roi_tg, (canvas_h, canvas_w), plain
+        model, cfg, feats, rpn_cls, rpn_reg, rpn_tg, roi_tg, (canvas_h, canvas_w), plain,
+        count_reduce,
     )
 
 
@@ -579,11 +592,17 @@ def label_offset_for(generation: str, data_type: str) -> int:
 
 
 def build_model(
-    generation: str, num_classes: int | None = None, label_offset: int | None = None
+    generation: str,
+    num_classes: int | None = None,
+    label_offset: int | None = None,
+    remat: bool = False,
 ):
     """Model + config factory (float32 parameters, uninitialised beyond
     PyTorch's defaults: load a state dict or call :func:`init_weights`).
-    ``label_offset`` overrides the config's (see :func:`label_offset_for`)."""
+    ``label_offset`` overrides the config's (see :func:`label_offset_for`).
+    ``remat`` (``--remat_backbone``): the backbone recomputes its
+    activations in the backward, VGG16 whole and ResNet50 per
+    bottleneck; the parameters are the same."""
     models = {"legacy": (LEGACY_CONFIG, LegacyFRCNN), "fpn": (FPN_CONFIG, FPNFRCNN)}
     if generation not in models:
         raise ValueError(f"unknown generation: {generation!r}")
@@ -594,4 +613,8 @@ def build_model(
     if label_offset is not None:
         overrides["label_offset"] = label_offset
     cfg = dataclasses.replace(cfg, **overrides)
-    return model_cls(num_classes=cfg.num_classes), cfg
+    model = model_cls(num_classes=cfg.num_classes)
+    for m in model.modules():
+        if isinstance(m, (VGG16Features, Bottleneck)):
+            m.remat = remat
+    return model, cfg

@@ -23,6 +23,9 @@ so its state dict loads with ``strict=True``.
   the stem's max pool and after ``layer1``, in every mode, as JAX's
   ``stop_gradient``. Their weights get no gradient from the loss; the
   optimizer still decays them (``parallel/train_step.py``).
+* ``remat`` (``--remat_backbone``) checkpoints each :class:`Bottleneck`,
+  as the JAX package's per-block ``nn.remat``: only block boundaries are
+  kept for the backward.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 STAGE_SIZES = (3, 4, 6, 3)
 
@@ -78,8 +82,14 @@ class Bottleneck(nn.Module):
             self.downsample = nn.Sequential(
                 _conv(cin, width * 4, 1, stride), FrozenBatchNorm2d(width * 4)
             )
+        self.remat = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(self._forward, x, use_reentrant=False)
+        return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.relu(self.bn1(self.conv1(x)))
         y = torch.relu(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))

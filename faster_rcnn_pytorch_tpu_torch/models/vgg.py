@@ -7,11 +7,17 @@ layout, so the parameters are named ``{i}.weight`` / ``{i}.bias`` at
 :data:`TORCH_VGG16_CONV_INDICES`. The JAX package's slab-batched stem is
 a train-only TPU schedule and is not on the predict path; this is the
 plain stack.
+
+``remat`` (``--remat_backbone``) checkpoints the stack whole, as the JAX
+package's ``nn.remat(VGG16Features)``: its activations are dropped in the
+forward and recomputed in the backward (``torch.utils.checkpoint``).
 """
 
 from __future__ import annotations
 
+import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 # (channels, convs in stage); a max-pool follows each stage except the last.
 VGG16_STAGES = ((64, 2), (128, 2), (256, 3), (512, 3), (512, 3))
@@ -33,3 +39,9 @@ class VGG16Features(nn.Sequential):
             if stage < len(VGG16_STAGES) - 1:
                 layers.append(nn.MaxPool2d(2, 2))
         super().__init__(*layers)
+        self.remat = False
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(super().forward, x, use_reentrant=False)
+        return super().forward(x)

@@ -1,7 +1,13 @@
 """Evaluation CLI of the port (counterpart of ``faster_rcnn_pytorch_tpu/test.py``).
 
-Same flags (``load_options``), one device: the CUDA card, or the CPU
-when ``FRT_TORCH_DEVICE=cpu`` asks for it (``utils.runtime.select_device``).
+Same flags (``load_options``), on the CUDA cards, or on the CPU when
+``FRT_TORCH_DEVICE=cpu`` asks for it (``utils.runtime.select_device``).
+As the JAX CLI evaluates SPMD over the local devices, this one starts
+``n = max((avail // mp) * mp, mp)`` processes for ``avail =
+--num_devices`` (0: every card) and ``mp = --model_parallel``: each
+predicts its rows of every batch (``--eval_batch_size`` 0: one image per
+data rank) and the ranks' detections are merged before scoring
+(``engine/evaluate.py``).
 Weights as ``utils.checkpoint.resolve_and_load_params`` resolves them:
 ``--checkpoint x.pth.tar`` imports reference-layout weights,
 ``--checkpoint x.pt`` loads a port train checkpoint (it must exist), and
@@ -23,13 +29,9 @@ import sys
 
 def main(argv=None) -> int:
     from faster_rcnn_pytorch_tpu_torch.config import load_options
-    from faster_rcnn_pytorch_tpu_torch.data.loader import build_dataloader
-    from faster_rcnn_pytorch_tpu_torch.engine.evaluate import evaluate, label_map_for
-    from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import build_model, label_offset_for
-    from faster_rcnn_pytorch_tpu_torch.utils.checkpoint import resolve_and_load_params
+    from faster_rcnn_pytorch_tpu_torch.parallel.mesh import device_count
     from faster_rcnn_pytorch_tpu_torch.utils.runtime import (
         apply_matmul_precision,
-        prepare_for_inference,
         refuse_unported,
         select_device,
         set_numerics,
@@ -37,38 +39,90 @@ def main(argv=None) -> int:
 
     opts = load_options(argv)
     refuse_unported(opts, "test")
+    set_numerics(opts.dtype)
+    apply_matmul_precision(opts.matmul_precision)
+    mp = max(opts.model_parallel, 1)
+    avail = device_count(opts.num_devices, select_device().type)
+    n_dev = max((avail // mp) * mp, mp)
+    if n_dev == 1:
+        return run(opts, 0, 1)
+    import torch
+    import torch.multiprocessing as tmp
+
+    from faster_rcnn_pytorch_tpu_torch.main import _free_port
+
+    opts.coordinator = opts.coordinator or f"127.0.0.1:{_free_port()}"
+    tmp.spawn(_worker, args=(opts, n_dev, torch.get_num_threads()), nprocs=n_dev, join=True)
+    return 0
+
+
+def _worker(local_rank: int, opts, local_world: int, threads: int) -> None:
+    import torch
+
+    torch.set_num_threads(max(threads // local_world, 1))
+    run(opts, local_rank, local_world)
+
+
+def run(opts, local_rank: int, local_world: int) -> int:
+    """One rank's eval (the whole eval with one process)."""
+    from faster_rcnn_pytorch_tpu_torch.data.loader import build_dataloader
+    from faster_rcnn_pytorch_tpu_torch.engine.evaluate import evaluate, label_map_for
+    from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import build_model, label_offset_for
+    from faster_rcnn_pytorch_tpu_torch.parallel import mesh
+    from faster_rcnn_pytorch_tpu_torch.parallel.tensor_parallel import apply_tensor_parallel
+    from faster_rcnn_pytorch_tpu_torch.utils.checkpoint import resolve_and_load_params
+    from faster_rcnn_pytorch_tpu_torch.utils.logging import print0
+    from faster_rcnn_pytorch_tpu_torch.utils.runtime import (
+        apply_matmul_precision,
+        prepare_for_inference,
+        select_device,
+        set_numerics,
+    )
+
     dtype = set_numerics(opts.dtype)
     apply_matmul_precision(opts.matmul_precision)
-    device = select_device()
-    _, test_loader = build_dataloader(opts)
-    model, cfg = build_model(
-        opts.model_generation,
-        opts.num_classes,
-        label_offset=label_offset_for(opts.model_generation, opts.data_type),
-    )
-
-    print(resolve_and_load_params(opts, model), flush=True)
-    model = prepare_for_inference(model, device, dtype)
-
-    coco_index = None
-    if opts.data_type == "coco":
-        from faster_rcnn_pytorch_tpu_torch.data.coco import CocoIndex
-
-        coco_index = CocoIndex(
-            os.path.join(opts.data_root, "annotations", "instances_val2017.json")
+    device = select_device(local_rank)
+    mp = max(opts.model_parallel, 1)
+    lay = mesh.layout()
+    if local_world > 1:
+        lay = mesh.init_distributed(
+            local_rank, local_world, device, init_method=opts.coordinator, model_parallel=mp
         )
-    result = evaluate(
-        model,
-        cfg,
-        test_loader,
-        data_type=opts.data_type,
-        coco_index=coco_index,
-        label_map=label_map_for(opts, coco_index),
-        score_threshold=opts.thres,
-        dump_path=opts.dump_detections or None,
-    )
-    print(f"mAP = {result['map']:.4f}", flush=True)
-    return 0
+    try:
+        if opts.eval_batch_size == 0:
+            opts.eval_batch_size = lay.local_data_size
+        _, test_loader = build_dataloader(opts, train_rows=False)
+        model, cfg = build_model(
+            opts.model_generation,
+            opts.num_classes,
+            label_offset=label_offset_for(opts.model_generation, opts.data_type),
+        )
+        print0(resolve_and_load_params(opts, model), flush=True)
+        model = apply_tensor_parallel(model, lay.model_group, lay.model_rank, lay.model_parallel)
+        model = prepare_for_inference(model, device, dtype)
+
+        coco_index = None
+        if opts.data_type == "coco":
+            from faster_rcnn_pytorch_tpu_torch.data.coco import CocoIndex
+
+            coco_index = CocoIndex(
+                os.path.join(opts.data_root, "annotations", "instances_val2017.json")
+            )
+        result = evaluate(
+            model,
+            cfg,
+            test_loader,
+            data_type=opts.data_type,
+            coco_index=coco_index,
+            label_map=label_map_for(opts, coco_index),
+            score_threshold=opts.thres,
+            dump_path=opts.dump_detections or None,
+            dtype=dtype,
+        )
+        print0(f"mAP = {result['map']:.4f}", flush=True)
+        return 0
+    finally:
+        mesh.shutdown()
 
 
 if __name__ == "__main__":

@@ -4,8 +4,8 @@ Counterpart of ``faster_rcnn_pytorch_tpu/utils/logging.py``: smoothed
 console step logs with an ETA (:class:`MetricLogger`), TensorBoard and
 CSV scalars (:class:`ScalarWriter`), images/s counters
 (:class:`StepTimer`) and a ``torch.profiler`` trace around a block
-(:func:`trace_context`). The port runs one process, so :func:`is_main`
-is always True.
+(:func:`trace_context`). :func:`is_main` is global rank 0: with several
+ranks (``parallel/mesh.py``) only it prints step logs and writes scalars.
 """
 
 from __future__ import annotations
@@ -22,7 +22,9 @@ import torch
 
 
 def is_main() -> bool:
-    return True
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def print0(*args, **kwargs) -> None:
@@ -90,7 +92,8 @@ class MetricLogger:
 
 class ScalarWriter:
     """TensorBoard (``backend="tensorboard"``) and CSV scalar sink. The CSV
-    ``{log_dir}/{name}/{name}_log.csv`` is always written."""
+    ``{log_dir}/{name}/{name}_log.csv`` is always written, by global rank 0
+    only: on the other ranks the writer drops every scalar."""
 
     def __init__(self, log_dir: str, name: str, backend: str = "tensorboard"):
         self.dir = os.path.join(log_dir, name)
@@ -98,6 +101,9 @@ class ScalarWriter:
         self._tb = None
         self._csv_rows: dict[str, dict] = {}
         self._last_flush = 0.0
+        self._on = is_main()
+        if not self._on:
+            return
         os.makedirs(self.dir, exist_ok=True)
         if backend == "tensorboard":
             from torch.utils.tensorboard import SummaryWriter
@@ -105,6 +111,8 @@ class ScalarWriter:
             self._tb = SummaryWriter(self.dir)
 
     def scalar(self, tag: str, value: float, step: int) -> None:
+        if not self._on:
+            return
         if self._tb is not None:
             self._tb.add_scalar(tag, float(value), int(step))
         row = self._csv_rows.setdefault(str(step), {"step": step})

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
@@ -11,22 +12,14 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # The port's counterpart of JAX_PLATFORMS=cpu: the CPU is an explicit choice.
 DEVICE_ENV = "FRT_TORCH_DEVICE"
 
-_EVAL = ("main", "test")  # the SPMD eval flags: train, and the JAX test CLI's mesh
 _WEIGHTS = ("main", "test", "demo", "export")  # the JAX CLIs that call main.init_params
 
 # Flags the port does not honour yet: the test on the options, the flag, the
 # ROADMAP.md Queue A item that ports it, and the CLIs whose JAX counterparts
 # honour it (each of those refuses it here rather than drop it unseen).
 NOT_PORTED = (
-    (lambda o: o.model_parallel > 1, "--model_parallel > 1", "item 14", _EVAL),
-    (lambda o: o.num_hosts > 1, "--num_hosts > 1", "item 14", ("main",)),
-    (lambda o: bool(o.coordinator), "--coordinator", "item 14", ("main",)),
-    (lambda o: o.num_devices > 1, "--num_devices > 1", "item 14", _EVAL),
-    (lambda o: o.remat_backbone, "--remat_backbone", "item 14", ("main",)),
     (lambda o: bool(o.pretrained_backbone), "--pretrained_backbone", "item 15", _WEIGHTS),
     (lambda o: o.checkpoint == "pretrained", "--checkpoint pretrained", "item 15", _WEIGHTS),
-    (lambda o: o.ckpt_backend == "orbax", "--ckpt_backend orbax", "item 14", ("main",)),
-    (lambda o: o.async_checkpoint, "--async_checkpoint", "item 14", ("main",)),
 )
 
 
@@ -42,10 +35,11 @@ def refuse_unported(opts, cli: str) -> None:
             )
 
 
-def select_device() -> torch.device:
-    """The CLIs' device: the first CUDA card, or the CPU when
-    ``FRT_TORCH_DEVICE=cpu`` asks for it. Without a card and without that
-    choice it raises rather than carry on on the CPU unseen."""
+def select_device(local_rank: int = 0) -> torch.device:
+    """The CLIs' device: CUDA card ``local_rank`` (a rank's card on its
+    host), or the CPU when ``FRT_TORCH_DEVICE=cpu`` asks for it. Without a
+    card and without that choice it raises rather than carry on on the CPU
+    unseen."""
     choice = os.environ.get(DEVICE_ENV, "cuda")
     if choice == "cpu":
         return torch.device("cpu")
@@ -55,7 +49,7 @@ def select_device() -> torch.device:
         raise RuntimeError(
             f"no CUDA device is visible; set {DEVICE_ENV}=cpu to run on the CPU"
         )
-    return torch.device("cuda", 0)
+    return torch.device("cuda", local_rank)
 
 
 def set_numerics(dtype: str) -> torch.dtype:
@@ -97,6 +91,43 @@ def apply_matmul_precision(precision: str) -> None:
     torch.set_float32_matmul_precision("high" if tf32 else "highest")
 
 
+def _cast_weights(model: torch.nn.Module, dtype: torch.dtype) -> list:
+    """Cast every parameter and floating buffer but FrozenBN's to
+    ``dtype``, in place; returns ``(object, attribute, old value)`` to undo
+    it with."""
+    from faster_rcnn_pytorch_tpu_torch.models.resnet import FrozenBatchNorm2d
+
+    undo = []
+    for m in model.modules():
+        if isinstance(m, FrozenBatchNorm2d):
+            continue
+        for p in m.parameters(recurse=False):
+            undo.append((p, "data", p.data))
+            p.data = p.data.to(dtype)
+        for name, buf in list(m.named_buffers(recurse=False)):
+            if buf.is_floating_point():
+                undo.append((m, name, buf))
+                setattr(m, name, buf.to(dtype))
+    return undo
+
+
+@contextlib.contextmanager
+def inference_weights(model: torch.nn.Module, dtype: torch.dtype | None):
+    """The weights cast to ``dtype`` as :func:`prepare_for_inference`
+    casts them, for the block only: the original tensors (a train run's
+    float32 master weights, which the optimizer holds) are put back after
+    it. ``None`` or the model's own dtype casts nothing."""
+    if dtype is None or next(model.parameters()).dtype == dtype:
+        yield model
+        return
+    undo = _cast_weights(model, dtype)
+    try:
+        yield model
+    finally:
+        for obj, name, value in reversed(undo):
+            setattr(obj, name, value)
+
+
 def prepare_for_inference(model: torch.nn.Module, device, dtype: torch.dtype):
     """Move the model to ``device``, cast its weights once to ``dtype``
     and switch to eval mode (the JAX package's ``cast_inference_params``:
@@ -106,15 +137,6 @@ def prepare_for_inference(model: torch.nn.Module, device, dtype: torch.dtype):
     them: the module folds ``rsqrt(var + eps) * scale`` in float32 before
     casting to the activations' dtype, and a bfloat16 ``var`` would change
     that fold."""
-    from faster_rcnn_pytorch_tpu_torch.models.resnet import FrozenBatchNorm2d
-
     model = model.to(device=device)
-    for m in model.modules():
-        if isinstance(m, FrozenBatchNorm2d):
-            continue
-        for p in m.parameters(recurse=False):
-            p.data = p.data.to(dtype)
-        for name, buf in m.named_buffers(recurse=False):
-            if buf.is_floating_point():
-                setattr(m, name, buf.to(dtype))
+    _cast_weights(model, dtype)
     return model.eval()

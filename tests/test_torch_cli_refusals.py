@@ -2,11 +2,13 @@
 
 Each of ``main``, ``test``, ``demo`` and ``export`` must raise the
 ``NotImplementedError`` that names the ROADMAP.md item porting a flag
-(item 14: parallelism and the scale flags; item 15: pretrained weights)
-wherever its JAX counterpart honours that flag, and before it selects a
-device or reads data or weights: the loaders, the checkpoint resolution
-and the device choice are replaced here by functions that fail the test.
-A flag that a CLI's JAX counterpart ignores is not refused by that CLI.
+(item 15: pretrained weights) wherever its JAX counterpart honours that
+flag, and before it selects a device or reads data or weights: the
+loaders, the checkpoint resolution and the device choice are replaced
+here by functions that fail the test. A flag that a CLI's JAX
+counterpart ignores is not refused by that CLI, and the scale flags of
+item 14, which the port honours (``tests/test_torch_scale_flags.py``),
+are refused by none.
 """
 
 import pytest
@@ -15,22 +17,22 @@ from faster_rcnn_pytorch_tpu_torch.config import load_options
 from faster_rcnn_pytorch_tpu_torch.utils import runtime
 
 TEST_REFUSES = (
-    (("--num_devices", "2"), "item 14"),
-    (("--model_parallel", "2"), "item 14"),
     (("--pretrained_backbone", "x"), "item 15"),
     (("--checkpoint", "pretrained"), "item 15"),
 )
-WEIGHT_FLAGS = TEST_REFUSES[2:]  # demo and export: through the JAX main.init_params
+WEIGHT_FLAGS = TEST_REFUSES  # demo and export: through the JAX main.init_params
 MAIN_REFUSES = (
-    (("--num_devices", "2"), "item 14"),
-    (("--coordinator", "localhost:1234"), "item 14"),
-    (("--model_parallel", "2"), "item 14"),
-    (("--num_hosts", "2"), "item 14"),
-    (("--remat_backbone", "true"), "item 14"),
     (("--pretrained_backbone", "vgg.pth"), "item 15"),
     (("--checkpoint", "pretrained"), "item 15"),
-    (("--ckpt_backend", "orbax"), "item 14"),
-    (("--async_checkpoint", "true"), "item 14"),
+)
+HONOURED = (  # item 14: refused by no CLI
+    ("--num_devices", "2"),
+    ("--coordinator", "localhost:1234"),
+    ("--model_parallel", "2"),
+    ("--num_hosts", "2"),
+    ("--remat_backbone", "true"),
+    ("--ckpt_backend", "orbax"),
+    ("--async_checkpoint", "true"),
 )
 CASES = (
     [("test", flags, item) for flags, item in TEST_REFUSES]
@@ -95,4 +97,6 @@ def test_cli_refuses_exactly_what_its_jax_counterpart_honours(cli):
                 runtime.refuse_unported(opts, cli)
         else:
             runtime.refuse_unported(opts, cli)
+    for flags in HONOURED:
+        runtime.refuse_unported(load_options(list(flags)), cli)
     runtime.refuse_unported(load_options([]), cli)  # the defaults pass

@@ -20,7 +20,8 @@ A tiny VOC tree (2 train and 2 test images, 90x120 px, built as
 * ``--matmul_precision`` sets the TF32 switches (``high`` on, ``default``
   and ``highest`` off) and any other value raises in both CLIs;
 * ``select_device`` raises without a card unless the CPU was asked for,
-  and flags of slices not ported yet raise ``NotImplementedError``.
+  and flags of slices not ported yet (item 15) raise
+  ``NotImplementedError``.
 """
 
 import contextlib
@@ -183,15 +184,8 @@ def test_main_without_a_card_raises_before_any_work(monkeypatch, tmp_path):
 @pytest.mark.parametrize(
     "flags",
     [
-        ["--num_devices", "2"],
-        ["--coordinator", "localhost:1234"],
-        ["--model_parallel", "2"],
-        ["--num_hosts", "2"],
-        ["--remat_backbone", "true"],
         ["--pretrained_backbone", "vgg.pth"],
         ["--checkpoint", "pretrained"],
-        ["--ckpt_backend", "orbax"],
-        ["--async_checkpoint", "true"],
     ],
 )
 def test_flags_of_later_slices_are_refused(flags, tmp_path):
