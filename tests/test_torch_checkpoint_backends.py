@@ -12,7 +12,8 @@
 * A checkpoint written by two ranks with ``--model_parallel 2`` (fc6/fc7
   split) holds the single-device state (both classifier aliases): it
   loads ``strict=True`` through the ``test`` CLI's resolution and, model
-  and momentum, into a one-process train state; the ``test`` CLI
+  and momentum, into a one-process train state, and resumes into the two
+  ranks' layout (each its shards, bit for bit); the ``test`` CLI
   evaluates a VOC tree from the directory one.
 """
 
@@ -120,6 +121,7 @@ def tp_checkpoints(tmp_path_factory):
 @pytest.mark.parametrize("backend", ["flax", "orbax"])
 def test_model_parallel_checkpoint_loads_at_one_process(tp_checkpoints, backend):
     tmp, want = tp_checkpoints
+    assert want["resumes"][backend]  # back into the two ranks' layout
     path = str(tmp / f"run.{backend}.pt")
     assert os.path.isdir(path) == (backend == "orbax")
     model = w.new_model("legacy", num_classes=21)

@@ -221,8 +221,9 @@ def tp_layout(rank):
 
 def tp_checkpoint(rank, directory, num_classes=21):
     """One legacy step at this layout (VOC's 21 classes), then a
-    checkpoint of each backend (the directory one asynchronous); digests
-    of the single-device state it should hold."""
+    checkpoint of each backend (the directory one asynchronous), each
+    loaded back into a fresh state at this layout; digests of the
+    single-device state it should hold."""
     from faster_rcnn_pytorch_tpu_torch.parallel import tensor_parallel as tp
     from faster_rcnn_pytorch_tpu_torch.utils import checkpoint as ck
 
@@ -238,11 +239,19 @@ def tp_checkpoint(rank, directory, num_classes=21):
             f"{directory}/run.{backend}.pt", state, {"epoch": 3}, backend, async_save
         )
     ck.wait_for_checkpoints()
+    resumes = {}
+    for backend in ("flax", "orbax"):  # back into this layout: this rank's shards
+        fresh = new_state("legacy", num_classes=num_classes)
+        ck.load_checkpoint(f"{directory}/run.{backend}.pt", fresh)
+        resumes[backend] = fresh.step == state.step and all(
+            torch.equal(p, q) for p, q in zip(fresh.model.parameters(), state.model.parameters())
+        )
     model = tp.gather_state_dict(state.model, lay.model_group)
     opt = tp.gather_optimizer_state(state.model, state.optimizer, lay.model_group)
     return {
         "model": {k: digest(v) for k, v in model.items()},
         "momentum": {i: digest(s["momentum_buffer"]) for i, s in opt["state"].items()},
+        "resumes": resumes,
     }
 
 
