@@ -197,11 +197,27 @@ CUDA card, builds the port's kernels from the sources in the checkout
    asynchronous directory save of the legacy train state (about 1.1 GB)
    and the steps taken while it is written (p50 of each printed); the
    state loaded back equals the saved one.
-25. imports: jax and flax were never imported.
+25. pretrained weights, offline: a ``FRT_CACHE_DIR`` of its own under
+   ``build/chip_smoke_pretrained/`` (removed after) holds seeded files in
+   the published layouts: torchvision's ``vgg16-397923af.pth`` (with
+   ``classifier.{0,3,6}``), ``resnet50-0676ba61.pth`` (with ``fc``, no
+   ``num_batches_tracked``) and a ``frcnn.best.pth.tar`` of a seeded
+   legacy VOC detector (``save_torch_checkpoint``). ``--pretrained_backbone
+   auto`` through ``utils.checkpoint.init_params`` (``main``'s call), both
+   generations: the backbone on the card equals the file bit for bit and
+   every other tensor the seeded fresh init; then 3 float32 train steps
+   at 800x1344, batch 2 (legacy 21 classes, FPN 91), counts reset just
+   before and read just after: the head's forward and backward kernels
+   and NMS once a step, losses finite. ``--checkpoint pretrained``
+   through ``load_detector`` (``demo``, ``export``) and the same file by
+   path through ``resolve_and_load_params`` (``test``): identical weights
+   and identical float32 detections at 800x1344 (8 images), RoIPool and
+   NMS launched. Step p50 and the phase's wall time are printed.
+26. imports: jax and flax were never imported.
 
 The ranks of phases 21, 22 and 24 send their kernel launch counts back
 (the slot-lattice align kernel's must stay 0). Its last two lines are the
-kernels' JSON record (``launches``: phases 3, 6, 9, 12, 15 and 21-24;
+kernels' JSON record (``launches``: phases 3, 6, 9, 12, 15, 21-24 and 25;
 ``serving_launches``: phases 18-20) and ``{"ok": true, "device": {...}}``.
 """
 
@@ -1293,6 +1309,33 @@ def _train_setup(generation: str):
     return FPN_CONFIG, (1, FPN_CLASSES)
 
 
+def train_epoch(model, cfg, batch: dict, steps: int, name: str, autocast_dtype=None):
+    """``steps`` train steps of ``model`` on one repeated batch through
+    ``train_one_epoch`` and ``parallel.train_step`` (constant LR), the
+    counts of ``PATH_KERNELS`` reset just before and read just after;
+    returns those counts, the step losses and the step timer."""
+    state = init_train_state(model, make_optimizer(model))
+    schedule = make_lr_schedule("constant", TRAIN_LR, 1, steps)
+    step_fn = make_train_step(cfg, schedule, autocast_dtype=autocast_dtype)
+    timer = StepTimer()
+
+    def timed_step(state, batch, generator):
+        timer.start()
+        metrics = step_fn(state, batch, generator)
+        torch.cuda.synchronize()
+        timer.stop()
+        return metrics
+
+    recorder = LossRecorder()
+    opts = SimpleNamespace(seed=SEED, vis_step=1, log_dir=LOG_DIR, name=name, keep_checkpoints=1)
+    for k in PATH_KERNELS:
+        k.launches = 0
+    train_one_epoch(state, timed_step, RepeatedBatch(batch, steps), 0, opts, schedule, recorder)
+    counts = {k.__name__: k.launches for k in PATH_KERNELS}
+    shutil.rmtree(LOG_DIR)
+    return counts, recorder.losses, timer
+
+
 def run_train(
     dtype_name: str, device, generation: str = "legacy", dense: bool = False
 ) -> tuple[int, int, int, int]:
@@ -1306,39 +1349,17 @@ def run_train(
     (the batch's proposals); its launches are returned last."""
     dtype = set_numerics(dtype_name)
     cfg, labels = _train_setup(generation)
-    model = _new_model(generation).to(device)
-    state = init_train_state(model, make_optimizer(model))
-    schedule = make_lr_schedule("constant", TRAIN_LR, 1, TRAIN_STEPS)
-    step_fn = make_train_step(cfg, schedule, autocast_dtype=dtype if dtype != torch.float32 else None)
-    timer = StepTimer()
-
-    def timed_step(state, batch, generator):
-        timer.start()
-        metrics = step_fn(state, batch, generator)
-        torch.cuda.synchronize()
-        timer.stop()
-        return metrics
-
     seed = SEED + (4 if generation == "legacy" else 6) + (10 if dense else 0)
     gt = dict(max_gt=DENSE_MAX_GT, boxes=DENSE_BOXES) if dense else {}
-    loader = RepeatedBatch(synthetic_train_batch(CANVAS, seed, labels=labels, **gt), TRAIN_STEPS)
-    recorder = LossRecorder()
     name = f"{generation}{' dense' if dense else ''} {dtype_name}"
-    opts = SimpleNamespace(
-        seed=SEED, vis_step=1, log_dir=LOG_DIR, name=f"train_{name.replace(' ', '_')}",
-        keep_checkpoints=1,
+    counts, losses, timer = train_epoch(
+        _new_model(generation).to(device), cfg, synthetic_train_batch(CANVAS, seed, labels=labels, **gt),
+        TRAIN_STEPS, f"train_{name.replace(' ', '_')}", autocast_dtype=dtype if dtype != torch.float32 else None,
     )
-    kernels = (*_head_kernels("legacy"), *_head_kernels("fpn"), *IOU_KERNELS, NMS_KERNEL)
-    for k in kernels:
-        k.launches = 0
-    train_one_epoch(state, timed_step, loader, 0, opts, schedule, recorder)
-    counts = {k.__name__: k.launches for k in kernels}
-    shutil.rmtree(LOG_DIR)
     fwd, bwd = (counts.pop(k.__name__) for k in _head_kernels(generation))
     nms = counts.pop(NMS_KERNEL.__name__)
     iou = counts.pop(boxes_mod.iou_match_cuda.__name__)
     matrix = counts.pop(boxes_mod.pairwise_iou_cuda.__name__)
-    losses = recorder.losses
     _require(len(losses) == TRAIN_STEPS, f"{len(losses)} of {TRAIN_STEPS} losses logged")
     _require(bool(np.isfinite(losses).all()), f"{name} train: non-finite loss {losses}")
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
@@ -2184,6 +2205,11 @@ ALL_KERNELS = (
 )
 
 
+# The main paths' kernels: every kernel but the slot-lattice align, whose
+# count is never reset after phase 2.
+PATH_KERNELS = (*_head_kernels("legacy"), *_head_kernels("fpn"), *IOU_KERNELS, NMS_KERNEL)
+
+
 def _launch_counts() -> dict:
     return {k.__name__: k.launches for k in ALL_KERNELS}
 
@@ -2621,6 +2647,178 @@ def check_remat(device) -> None:
             )
 
 
+PRETRAINED_DIR = os.path.join(BUILD, "chip_smoke_pretrained")  # phase 25's FRT_CACHE_DIR
+PRETRAINED_STEPS = 3  # phase 25's float32 train steps a generation
+PRETRAINED_SEED = SEED + 25  # the staged files' weights; the fresh init keeps SEED
+
+
+def _seeded_like(shapes: dict, seed: int) -> dict:
+    """Seeded tensors of ``shapes`` (name -> shape), in torchvision's
+    naming: conv weights He-normal (a bottleneck's last conv at 0.25 and
+    its downsample at 0.7 of it, as ``FPNFRCNN.init_stds``), biases and
+    FrozenBN statistics small and non-trivial, linear layers N(0, 0.01)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def uniform(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=g)
+
+    out = {}
+    for name, shape in shapes.items():
+        leaf = name.rsplit(".", 1)[1]
+        if len(shape) == 4:
+            gain = 0.25 if name.endswith("conv3.weight") else 0.7 if "downsample.0" in name else 1.0
+            out[name] = torch.randn(shape, generator=g) * gain * (2.0 / float(np.prod(shape[1:]))) ** 0.5
+        elif len(shape) == 2:
+            out[name] = torch.randn(shape, generator=g) * 0.01
+        elif leaf == "running_var":
+            out[name] = uniform(shape, 0.5, 1.5)
+        elif leaf == "weight":  # a FrozenBN scale
+            out[name] = uniform(shape, 0.5, 1.0)
+        else:  # conv and linear biases, FrozenBN shifts and means
+            out[name] = uniform(shape, -0.1, 0.1)
+    return out
+
+
+def stage_pretrained_files(root: str) -> dict:
+    """Phase 25's cache, made from ``PRETRAINED_SEED`` (nothing is
+    downloaded): torchvision's ``vgg16-397923af.pth`` (``features.*`` at
+    the 13 conv indices and ``classifier.{0,3,6}``), its
+    ``resnet50-0676ba61.pth`` (``conv1``, ``bn1``, ``layer1-4`` and
+    ``fc``, without ``num_batches_tracked``, as the published file) and
+    the reference ``frcnn.best.pth.tar`` of a seeded legacy VOC detector
+    written by the port's ``save_torch_checkpoint``. Returns their paths
+    by registry name."""
+    from faster_rcnn_pytorch_tpu_torch.models.resnet import ResNet50
+    from faster_rcnn_pytorch_tpu_torch.models.vgg import VGG16Features
+    from faster_rcnn_pytorch_tpu_torch.utils.checkpoint import save_torch_checkpoint
+    from faster_rcnn_pytorch_tpu_torch.utils.pretrained import CHECKPOINTS
+
+    cache = os.path.join(root, "checkpoints")
+    os.makedirs(cache, exist_ok=True)
+    paths = {name: os.path.join(cache, CHECKPOINTS[name][1]) for name in ("vgg16", "resnet50", "frcnn_demo")}
+    with torch.device("meta"):
+        vgg = {f"features.{k}": tuple(v.shape) for k, v in VGG16Features().state_dict().items()}
+        body = {k: tuple(v.shape) for k, v in ResNet50().state_dict().items()
+                if not k.endswith("num_batches_tracked")}
+    vgg.update({"classifier.0.weight": (4096, 512 * 7 * 7), "classifier.0.bias": (4096,),
+                "classifier.3.weight": (4096, 4096), "classifier.3.bias": (4096,),
+                "classifier.6.weight": (1000, 4096), "classifier.6.bias": (1000,)})
+    body.update({"fc.weight": (1000, 2048), "fc.bias": (1000,)})
+    torch.save(_seeded_like(vgg, PRETRAINED_SEED), paths["vgg16"])
+    torch.save(_seeded_like(body, PRETRAINED_SEED + 1), paths["resnet50"])
+    detector, _ = build_model("legacy", NUM_CLASSES)
+    save_torch_checkpoint(paths["frcnn_demo"], init_weights(detector, torch.Generator().manual_seed(PRETRAINED_SEED)))
+    return paths
+
+
+def check_pretrained(device) -> dict:
+    """Phase 25: the weight flags through the functions the CLIs call, on
+    files staged in a ``FRT_CACHE_DIR`` of its own. (a) ``--pretrained_backbone
+    auto``, both generations, through ``utils.checkpoint.init_params``
+    (``main``'s call): the backbone on the card equals the staged file bit
+    for bit and every other tensor the seeded fresh init; then float32
+    train steps, each launching the head's forward and backward kernels
+    and the NMS kernel once, with finite losses. (b) ``--checkpoint
+    pretrained`` through ``load_detector`` (``demo`` and ``export``)
+    against the same file by explicit path through
+    ``resolve_and_load_params`` (``test``): identical weights, and
+    identical float32 detections at 800x1344 with RoIPool and NMS
+    launched. Returns the launch counts of the phase."""
+    from faster_rcnn_pytorch_tpu_torch.config import load_options
+    from faster_rcnn_pytorch_tpu_torch.utils.checkpoint import (
+        init_params,
+        load_detector,
+        resolve_and_load_params,
+    )
+    from faster_rcnn_pytorch_tpu_torch.utils.convert import load_reference_checkpoint
+
+    t0 = time.time()
+    saved = os.environ.get("FRT_CACHE_DIR")
+    shutil.rmtree(PRETRAINED_DIR, ignore_errors=True)
+    os.environ["FRT_CACHE_DIR"] = PRETRAINED_DIR
+    total = dict.fromkeys(_launch_counts(), 0)  # the slot-lattice align's stays 0
+    try:
+        paths = stage_pretrained_files(PRETRAINED_DIR)
+        set_numerics("float32")
+        for generation, name, prefix, source in (
+            ("legacy", "vgg16", "extractor.", "features."),
+            ("fpn", "resnet50", "backbone.body.", ""),
+        ):
+            argv = ["--pretrained_backbone", "auto", "--model_generation", generation]
+            if generation == "fpn":
+                argv += ["--data_type", "coco", "--num_classes", str(FPN_CLASSES)]
+            opts = load_options(argv)
+            model, _ = build_model(generation, opts.num_classes)
+            note = init_params(model, opts)
+            _require(opts.pretrained_backbone == paths[name], f"auto resolved to {opts.pretrained_backbone}")
+            model = model.to(device)
+            staged = load_reference_checkpoint(paths[name])
+            fresh = _new_model(generation).state_dict()
+            n_file = 0
+            for k, v in model.state_dict().items():
+                if k.startswith(prefix) and not k.endswith("num_batches_tracked"):
+                    n_file += 1
+                    _require(torch.equal(v, staged[source + k[len(prefix):]].to(device)), f"{k} is not the file's")
+                else:
+                    _require(torch.equal(v.cpu(), fresh[k]), f"{k} is not the fresh init")
+            _require(n_file == (26 if generation == "legacy" else 265), f"{n_file} tensors from the file")
+            cfg, labels = _train_setup(generation)
+            batch = synthetic_train_batch(CANVAS, PRETRAINED_SEED, labels=labels)
+            counts, losses, timer = train_epoch(model, cfg, batch, PRETRAINED_STEPS, f"pretrained_{generation}")
+            fwd, bwd = _head_kernels(generation)
+            for k in (fwd, bwd, NMS_KERNEL):
+                _require(counts[k.__name__] == PRETRAINED_STEPS,
+                         f"pretrained {generation} train: {counts[k.__name__]} launches of {k.__name__}")
+            _require(bool(np.isfinite(losses).all()) and len(losses) == PRETRAINED_STEPS,
+                     f"pretrained {generation} train losses {losses}")
+            for k, v in counts.items():
+                total[k] += v
+            print(
+                f"pretrained {generation}: {note}; {n_file} backbone tensors equal the file bit for bit on "
+                f"the card, the rest the seeded init; {PRETRAINED_STEPS} float32 train steps at "
+                f"{CANVAS[0]}x{CANVAS[1]} batch {TRAIN_BATCH}: step p50 {1000 * timer.p50():.1f} ms, losses "
+                f"{[round(x, 4) for x in losses]}, launches {counts}",
+                flush=True,
+            )
+            del model, staged, fresh
+
+        by_name = load_options(["--checkpoint", "pretrained", "--log_dir", LOG_DIR])
+        model_a, _, note_a = load_detector(by_name)
+        _require(by_name.checkpoint == paths["frcnn_demo"], f"pretrained resolved to {by_name.checkpoint}")
+        by_path = load_options(["--checkpoint", paths["frcnn_demo"], "--log_dir", LOG_DIR])
+        model_b, _ = build_model("legacy", NUM_CLASSES)
+        note_b = resolve_and_load_params(by_path, model_b)
+        want = load_reference_checkpoint(paths["frcnn_demo"])
+        for k, v in model_a.state_dict().items():
+            _require(torch.equal(v, want[k]) and torch.equal(model_b.state_dict()[k], want[k]), f"{k} differs")
+        results = []
+        for model in (model_a, model_b):
+            for k in PATH_KERNELS:
+                k.launches = 0
+            result, counts = run_predict(model, "float32", device, SyntheticImages(N_IMAGES, CANVAS, PRETRAINED_SEED))
+            launches = {k.__name__: k.launches for k in PATH_KERNELS}
+            _require(launches[roi_pool_mod.roi_pool_cuda.__name__] > 0, "pretrained predict: no RoIPool launch")
+            _require(launches[NMS_KERNEL.__name__] == 2 * N_IMAGES, f"pretrained predict: {launches}")
+            _require(sum(counts) > 0, "pretrained predict found no detections to compare")
+            for k, v in launches.items():
+                total[k] += v
+            results.append(result["detections"])
+        _require(_detections_equal(*results), "--checkpoint pretrained and the explicit path detect differently")
+        print(
+            f"pretrained detector: {note_a} (demo/export) and {note_b} (test): identical weights and float32 "
+            f"detections at {CANVAS[0]}x{CANVAS[1]}; phase 25 took {time.time() - t0:.1f} s wall",
+            flush=True,
+        )
+    finally:
+        if saved is None:
+            os.environ.pop("FRT_CACHE_DIR", None)
+        else:
+            os.environ["FRT_CACHE_DIR"] = saved
+        shutil.rmtree(PRETRAINED_DIR, ignore_errors=True)
+    _require_slots_idle("phase 25")
+    return total
+
+
 def main() -> int:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -2756,7 +2954,8 @@ def main() -> int:
     before = _launch_counts()
     check_remat(device)
     phase23 = {k: v - before[k] for k, v in _launch_counts().items()}
-    for counts in (phase21, *phase22, phase23):
+    phase25 = check_pretrained(device)  # resets the counts; returns its own
+    for counts in (phase21, *phase22, phase23, phase25):
         for rec, kernels in (
             (record, (roi_pool_mod.roi_pool_cuda,)),
             (bwd_record, (roi_pool_mod.roi_pool_backward_cuda,)),
@@ -2767,8 +2966,11 @@ def main() -> int:
             (nms_record, (NMS_KERNEL,)),
         ):
             rec["launches"] += sum(counts[k.__name__] for k in kernels)
-    _require(slots_record["launches"] == 0, "a parallel phase launched the slot-lattice align kernel")
-    print(f"ranks' launches: phase 21 {phase21}; phase 22 {phase22}; phase 23 {phase23}", flush=True)
+    _require(slots_record["launches"] == 0, "a parallel or pretrained phase launched the slot-lattice align kernel")
+    print(
+        f"launches: phase 21 {phase21}; phase 22 {phase22}; phase 23 {phase23}; phase 25 {phase25} ({card})",
+        flush=True,
+    )
 
     leaked = [m for m in ("jax", "flax") if m in sys.modules]
     _require(not leaked, f"imported {leaked}")

@@ -20,13 +20,11 @@ def main(argv=None) -> int:
     from faster_rcnn_pytorch_tpu_torch.utils.runtime import (
         apply_matmul_precision,
         prepare_for_inference,
-        refuse_unported,
         select_device,
         set_numerics,
     )
 
     opts = load_options(argv)
-    refuse_unported(opts, "demo")
     dtype = set_numerics(opts.dtype)
     apply_matmul_precision(opts.matmul_precision)
     device = select_device()

@@ -1,8 +1,11 @@
-"""COCO-protocol bbox evaluation in numpy.
+"""COCO-protocol evaluation in numpy.
 
-A copy of the bbox half of ``faster_rcnn_pytorch_tpu/evaluation/coco_eval.py``
-(which the port cannot import: its cross-host merge imports the JAX
-package's mesh module; the port's merges over its own process group). The protocol, as pycocotools has it:
+A copy of ``faster_rcnn_pytorch_tpu/evaluation/coco_eval.py`` (which the
+port cannot import: its cross-host merge imports the JAX package's mesh
+module; the port's merges over its own process group). Matching is bbox
+only; :meth:`CocoEvaluator.prepare` writes result records of all three
+types (``bbox``, ``segm`` through ``evaluation/mask_rle.py``,
+``keypoints``). The protocol, as pycocotools has it:
 
 * IoU thresholds 0.50:0.05:0.95, area ranges all/small/medium/large
   (32^2 / 96^2 split), maxDets (1, 10, 100),
@@ -138,6 +141,83 @@ class CocoEvaluator:
                 "scores": np.asarray(pred["scores"], np.float64).reshape(-1),
                 "labels": np.asarray(pred["labels"], np.int64).reshape(-1),
             }
+
+    def prepare(self, predictions: dict[int, dict], iou_type: str = "bbox"):
+        """Convert per-image predictions to COCO results-json records
+        (reference evaluation/coco_eval.py:63-153). All three payload
+        types are supported for interchange (the records are valid
+        ``COCO.loadRes`` input); *matching* is implemented for bbox —
+        the only type this detector family produces."""
+        if iou_type == "bbox":
+            return self.prepare_for_coco_detection(predictions)
+        if iou_type == "segm":
+            return self.prepare_for_coco_segmentation(predictions)
+        if iou_type == "keypoints":
+            return self.prepare_for_coco_keypoint(predictions)
+        raise ValueError(f"unknown iou type {iou_type!r}")
+
+    @staticmethod
+    def prepare_for_coco_detection(predictions: dict[int, dict]) -> list[dict]:
+        """xyxy boxes -> xywh result records (coco_eval.py:70-92)."""
+        results = []
+        for img_id, pred in predictions.items():
+            boxes = np.asarray(pred["boxes"], np.float64).reshape(-1, 4)
+            xywh = np.concatenate(
+                [boxes[:, :2], boxes[:, 2:] - boxes[:, :2]], axis=1
+            )
+            results.extend(
+                {
+                    "image_id": int(img_id),
+                    "category_id": int(lab),
+                    "bbox": [float(v) for v in box],
+                    "score": float(sc),
+                }
+                for box, sc, lab in zip(xywh, pred["scores"], pred["labels"])
+            )
+        return results
+
+    @staticmethod
+    def prepare_for_coco_segmentation(predictions: dict[int, dict]) -> list[dict]:
+        """Masks (``[n, h, w]`` or ``[n, 1, h, w]``, probabilities or
+        binary) -> compressed-RLE result records (coco_eval.py:94-127)."""
+        from faster_rcnn_pytorch_tpu_torch.evaluation import mask_rle
+
+        results = []
+        for img_id, pred in predictions.items():
+            masks = np.asarray(pred["masks"])
+            if masks.ndim == 4:
+                masks = masks[:, 0]
+            for mask, sc, lab in zip(masks, pred["scores"], pred["labels"]):
+                results.append(
+                    {
+                        "image_id": int(img_id),
+                        "category_id": int(lab),
+                        "segmentation": mask_rle.encode(mask > 0.5),
+                        "score": float(sc),
+                    }
+                )
+        return results
+
+    @staticmethod
+    def prepare_for_coco_keypoint(predictions: dict[int, dict]) -> list[dict]:
+        """Keypoints ``[n, K, 3]`` (x, y, visibility) -> flattened
+        result records (coco_eval.py:129-153)."""
+        results = []
+        for img_id, pred in predictions.items():
+            kps = np.asarray(pred["keypoints"], np.float64)
+            # the width named: an image without detections has kps.size 0,
+            # which reshape(n, -1) refuses (the JAX package's copy raises there)
+            kps = kps.reshape(kps.shape[0], int(np.prod(kps.shape[1:])))
+            results.extend(
+                {
+                    "image_id": int(img_id),
+                    "category_id": int(lab),
+                    "keypoints": [float(v) for v in kp],
+                    "score": float(sc),
+                }
+                for kp, sc, lab in zip(kps, pred["scores"], pred["labels"])
+            )
+        return results
 
     def synchronize_between_processes(self) -> None:
         """Merge the predictions of every data rank (each evaluated its

@@ -4,8 +4,10 @@
 
 Either generation (``--model_generation legacy|fpn``) on VOC or COCO
 (``--data_type``). Orchestration: options -> processes -> loaders ->
-model (with the dataset's label offset) -> weights (seeded fresh init, or
-a reference-layout ``.pth``/``.pth.tar`` of either generation) -> tensor
+model (with the dataset's label offset) -> weights (``utils.checkpoint.
+init_params``: a seeded fresh init, its backbone from ``--pretrained_backbone``
+if given, or a reference-layout ``.pth``/``.pth.tar`` of either
+generation, ``--checkpoint pretrained`` the released demo detector) -> tensor
 parallelism -> LR schedule -> optimizer -> resume (from
 ``{log_dir}/{name}/saves/{name}.{start_epoch - 1}.pt``, or from
 ``--checkpoint x.pt``, model and optimizer; either must exist) -> epochs
@@ -31,8 +33,12 @@ package's ``dtype=bf16, param_dtype=float32``); the losses stay float32;
 each epoch's eval casts a bfloat16 copy of the weights, as ``test`` and
 the JAX ``evaluate`` do. ``--dtype float32`` means TF32 off unless
 ``--matmul_precision high`` turns it on
-(``utils.runtime.apply_matmul_precision``). Flags of slices not ported
-yet raise ``NotImplementedError`` naming their ROADMAP.md item.
+(``utils.runtime.apply_matmul_precision``).
+
+The weight flags are resolved to files in the parent, before it starts a
+process a card (``utils.checkpoint.resolve_weight_specs``): one process a
+host fetches, from the cache ``FRT_CACHE_DIR`` or the network, and the
+ranks read the files it names.
 """
 
 from __future__ import annotations
@@ -84,20 +90,21 @@ def _free_port() -> int:
 def main(argv=None) -> int:
     from faster_rcnn_pytorch_tpu_torch.config import load_options
     from faster_rcnn_pytorch_tpu_torch.parallel.mesh import device_count
+    from faster_rcnn_pytorch_tpu_torch.utils.checkpoint import resolve_weight_specs
     from faster_rcnn_pytorch_tpu_torch.utils.runtime import (
         apply_matmul_precision,
-        refuse_unported,
         select_device,
         set_numerics,
     )
 
     opts = load_options(argv)
-    refuse_unported(opts, "main")
     set_numerics(opts.dtype)
     apply_matmul_precision(opts.matmul_precision)
     device_type = select_device().type
     avail = device_count(opts.num_devices, device_type)
     n_dev = device_plan(opts, avail)
+    # Downloads happen here, once a host; every rank then reads the files.
+    resolve_weight_specs(opts)
     if n_dev == 1 and opts.num_hosts == 1 and not opts.coordinator:
         return train(opts, 0, 1, avail)
     if not opts.coordinator:
@@ -153,11 +160,7 @@ def _run(opts, lay, device) -> int:
     from faster_rcnn_pytorch_tpu_torch.data.loader import build_dataloader
     from faster_rcnn_pytorch_tpu_torch.engine.evaluate import evaluate, label_map_for
     from faster_rcnn_pytorch_tpu_torch.engine.train import train_one_epoch
-    from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import (
-        build_model,
-        init_weights,
-        label_offset_for,
-    )
+    from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import build_model, label_offset_for
     from faster_rcnn_pytorch_tpu_torch.parallel.tensor_parallel import apply_tensor_parallel
     from faster_rcnn_pytorch_tpu_torch.parallel.train_step import (
         init_train_state,
@@ -167,10 +170,10 @@ def _run(opts, lay, device) -> int:
     )
     from faster_rcnn_pytorch_tpu_torch.utils.checkpoint import (
         checkpoint_path,
+        init_params,
         load_checkpoint,
         save_checkpoint,
     )
-    from faster_rcnn_pytorch_tpu_torch.utils.convert import load_reference_checkpoint
     from faster_rcnn_pytorch_tpu_torch.utils.logging import ScalarWriter, print0, trace_context
     from faster_rcnn_pytorch_tpu_torch.utils.runtime import apply_matmul_precision, set_numerics
 
@@ -197,16 +200,13 @@ def _run(opts, lay, device) -> int:
         )
     label_map = label_map_for(opts, coco_index)
 
-    if opts.checkpoint.endswith((".pth.tar", ".pth")):
-        model.load_state_dict(load_reference_checkpoint(opts.checkpoint), strict=True)
-        print0(f"imported torch checkpoint {opts.checkpoint}", flush=True)
-    elif opts.checkpoint and not opts.checkpoint.endswith(".pt"):
+    if opts.checkpoint and not opts.checkpoint.endswith((".pth.tar", ".pth", ".pt")):
         raise ValueError(
             f"--checkpoint {opts.checkpoint!r}: the port reads .pth/.pth.tar "
-            "weights or its own .pt train checkpoints"
+            "weights, 'pretrained' or its own .pt train checkpoints"
         )
-    else:
-        init_weights(model, torch.Generator().manual_seed(opts.seed))
+    # Before the split and DDP, so that every shard starts from these weights.
+    print0(init_params(model, opts), flush=True)
     model = apply_tensor_parallel(model, lay.model_group, lay.model_rank, lay.model_parallel)
     model = model.to(device)
 

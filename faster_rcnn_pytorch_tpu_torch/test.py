@@ -9,11 +9,16 @@ predicts its rows of every batch (``--eval_batch_size`` 0: one image per
 data rank) and the ranks' detections are merged before scoring
 (``engine/evaluate.py``).
 Weights as ``utils.checkpoint.resolve_and_load_params`` resolves them:
-``--checkpoint x.pth.tar`` imports reference-layout weights,
+``--checkpoint x.pth.tar`` imports reference-layout weights
+(``--checkpoint pretrained``: the released demo detector, from the cache
+``FRT_CACHE_DIR`` or downloaded into it),
 ``--checkpoint x.pt`` loads a port train checkpoint (it must exist), and
 without one the run's ``{log_dir}/{name}/saves/{name}.{test_epoch}.pt``
 (as ``main`` writes it) is loaded, or, where it is missing, the detector
-gets a fresh init seeded by ``--seed`` and a note says so. Both generations
+gets a fresh init seeded by ``--seed`` (its backbone from
+``--pretrained_backbone`` if given) and a note says so. With several
+processes the parent resolves both flags to files first, so that one
+process a host downloads. Both generations
 (``--model_generation legacy|fpn``) on VOC or COCO (``--data_type``);
 COCO scores against ``annotations/instances_val2017.json`` under the
 data root.
@@ -30,20 +35,20 @@ import sys
 def main(argv=None) -> int:
     from faster_rcnn_pytorch_tpu_torch.config import load_options
     from faster_rcnn_pytorch_tpu_torch.parallel.mesh import device_count
+    from faster_rcnn_pytorch_tpu_torch.utils.checkpoint import resolve_weight_specs
     from faster_rcnn_pytorch_tpu_torch.utils.runtime import (
         apply_matmul_precision,
-        refuse_unported,
         select_device,
         set_numerics,
     )
 
     opts = load_options(argv)
-    refuse_unported(opts, "test")
     set_numerics(opts.dtype)
     apply_matmul_precision(opts.matmul_precision)
     mp = max(opts.model_parallel, 1)
     avail = device_count(opts.num_devices, select_device().type)
     n_dev = max((avail // mp) * mp, mp)
+    resolve_weight_specs(opts)  # one fetch on this host; the ranks get paths
     if n_dev == 1:
         return run(opts, 0, 1)
     import torch

@@ -26,7 +26,11 @@ this rank's shards. :func:`load_checkpoint` tells the backends apart by
 whether the path is a file or a directory. The suffix is ``.pt``, not the
 JAX package's ``.ckpt``, so a flax checkpoint is never read as a torch one. Reference-layout ``.pth``/``.pth.tar``
 weights are read by ``utils/convert.load_reference_checkpoint``.
-:func:`resolve_and_load_params` is the eval CLI's checkpoint policy (the
+:func:`init_params` is every CLI's starting weights (the JAX package's
+``main.init_params``: a seeded fresh init, with ``--pretrained_backbone``
+an ImageNet backbone, or a reference import, with ``--checkpoint
+pretrained`` the released demo detector), and
+:func:`resolve_and_load_params` the eval CLIs' checkpoint policy (the
 JAX package's function of that name).
 """
 
@@ -226,42 +230,189 @@ def load_checkpoint(path: str, state):
 
 def resolve_and_load_params(opts, model: torch.nn.Module) -> str:
     """Load the weights ``opts.checkpoint`` names into ``model`` (the
-    counterpart of the JAX package's ``resolve_and_load_params``, one
-    policy for the eval CLIs). Returns a note for the console.
+    counterpart of the JAX package's ``main.init_params`` followed by its
+    ``resolve_and_load_params``, one policy for the eval CLIs). Returns a
+    note for the console.
 
-    * ``*.pth`` / ``*.pth.tar``: reference-layout weights, imported by
-      ``utils/convert.load_reference_checkpoint``.
+    * ``pretrained``, ``*.pth`` / ``*.pth.tar``: reference-layout weights,
+      imported by :func:`init_params` (``pretrained`` is the released demo
+      detector, ``utils/pretrained.py::fetch("frcnn_demo")``).
     * ``*.pt``: a port train checkpoint (a file, or a directory of the
       ``orbax`` backend), which must exist; only its ``model`` entry is
       loaded (``strict=True``).
     * empty: the run's ``{log_dir}/{name}/saves/{name}.{test_epoch}.pt``.
-      If it is missing, the model gets the fresh init seeded by
-      ``opts.seed`` and the note names the missing path.
-    * anything else: ``ValueError``. Going on with random weights after a
-      typo in the path is the worst failure an eval CLI can have.
+      If it is missing, the model keeps :func:`init_params`' fresh init
+      (seeded by ``opts.seed``, the backbone from
+      ``--pretrained_backbone`` if given) and the note names the missing
+      path.
+    * anything else: ``ValueError``, before any weight is read. Going on
+      with random weights after a typo in the path is the worst failure
+      an eval CLI can have.
+
+    As in the JAX package, :func:`init_params` runs first in every case
+    but a reference import, and a port checkpoint then overwrites all of
+    it.
     """
     ckpt = opts.checkpoint
-    if ckpt.endswith((".pth.tar", ".pth")):
-        from faster_rcnn_pytorch_tpu_torch.utils.convert import load_reference_checkpoint
-
-        model.load_state_dict(load_reference_checkpoint(ckpt), strict=True)
-        return f"imported torch checkpoint {ckpt}"
-    if ckpt and not ckpt.endswith(SUFFIX):
+    reference = ckpt == "pretrained" or ckpt.endswith((".pth.tar", ".pth"))
+    if ckpt and not reference and not ckpt.endswith(SUFFIX):
         raise ValueError(
-            f"--checkpoint {ckpt!r}: expected a port {SUFFIX} checkpoint or "
-            "reference .pth/.pth.tar weights"
+            f"--checkpoint {ckpt!r}: expected a port {SUFFIX} checkpoint, reference "
+            ".pth/.pth.tar weights or 'pretrained'"
         )
     path = ckpt or checkpoint_path(opts.log_dir, opts.name, opts.test_epoch)
+    if ckpt and not reference and not os.path.exists(path):
+        raise FileNotFoundError(f"--checkpoint {ckpt!r}: no such file")
+    note = init_params(model, opts)
+    if reference:
+        return note
     if not os.path.exists(path):
-        if ckpt:  # an explicit path must exist
-            raise FileNotFoundError(f"--checkpoint {ckpt!r}: no such file")
-        from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import init_weights
-
-        init_weights(model, torch.Generator().manual_seed(opts.seed))
-        return f"no checkpoint at {path}; fresh init with seed {opts.seed}"
+        return f"no checkpoint at {path}; {note}"
     payload = _read(path, model_only=True)
     model.load_state_dict(payload["model"], strict=True)
     return f"loaded {path} (epoch {payload['metadata'].get('epoch')})"
+
+
+# ------------------------------------------------------ pretrained weights
+
+
+def resolve_weight_specs(opts) -> None:
+    """Turn the weight flags into local paths, in place: ``--checkpoint
+    pretrained`` becomes the fetched demo detector's path, and, unless
+    the checkpoint is a reference import (which never takes it),
+    ``--pretrained_backbone`` becomes its weights file's path
+    (``utils/pretrained.py``: ``auto``, a registry name or a path). A
+    download happens here; resolving paths again is a no-op. ``main`` and
+    ``test`` call it in the parent before they start a process a card, so
+    that one process per host fetches and the ranks receive paths."""
+    from faster_rcnn_pytorch_tpu_torch.utils.pretrained import fetch, resolve_backbone
+
+    if opts.checkpoint == "pretrained":
+        opts.checkpoint = fetch("frcnn_demo")
+    if opts.pretrained_backbone and not opts.checkpoint.endswith((".pth.tar", ".pth")):
+        opts.pretrained_backbone = resolve_backbone(opts.pretrained_backbone, opts.model_generation)
+
+
+def init_params(model: torch.nn.Module, opts) -> str:
+    """The weights every CLI starts from (the JAX package's
+    ``main.init_params``), loaded into ``model`` in place; returns a note.
+    A reference ``.pth``/``.pth.tar`` (or ``pretrained``) is imported
+    whole, through :func:`load_reference_weights`; otherwise the model
+    gets the fresh init seeded by ``opts.seed`` and then, with
+    ``--pretrained_backbone``, the ImageNet backbone
+    (:func:`load_pretrained_backbone`). A port ``.pt`` checkpoint is
+    loaded over this by the caller."""
+    from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import init_weights
+
+    resolve_weight_specs(opts)
+    if opts.checkpoint.endswith((".pth.tar", ".pth")):
+        load_reference_weights(model, opts.checkpoint, opts.model_generation)
+        return f"imported torch checkpoint {opts.checkpoint}"
+    init_weights(model, torch.Generator().manual_seed(opts.seed))
+    note = f"fresh init with seed {opts.seed}"
+    if opts.pretrained_backbone:
+        load_pretrained_backbone(model, opts.pretrained_backbone, opts.model_generation)
+        note += f", backbone from {opts.pretrained_backbone}"
+    return note
+
+
+def _check_into(model: torch.nn.Module, sd: dict, what: str) -> dict:
+    """The model's own tensors for the keys of ``sd``; ``ValueError``
+    naming ``what`` and the first keys at fault unless each key exists in
+    the model with the same shape. Nothing is loaded before the check."""
+    own = model.state_dict()
+    missing = [k for k in sd if k not in own]
+    shapes = [
+        f"{k}: model {tuple(own[k].shape)}, file {tuple(sd[k].shape)}"
+        for k in sd
+        if k in own and own[k].shape != sd[k].shape
+    ]
+    if missing or shapes:
+        raise ValueError(
+            f"{what}: {len(missing)} keys the model lacks {missing[:3]}, "
+            f"{len(shapes)} shapes that differ {shapes[:3]}"
+        )
+    return own
+
+
+def load_reference_weights(model: torch.nn.Module, path: str, generation: str) -> None:
+    """Import a reference-layout detector (``{"model_state_dict": ...}``
+    or a bare state dict, ``utils/convert.load_reference_checkpoint``)
+    into ``model`` whole. A file of the other generation, or of another
+    class count, raises ``ValueError`` naming ``generation`` before any
+    tensor is copied: the model is never left half loaded."""
+    from faster_rcnn_pytorch_tpu_torch.utils.convert import load_reference_checkpoint
+
+    sd = load_reference_checkpoint(path)
+    what = f"{path} is not a {generation} detector of {model.num_classes} classes"
+    own = _check_into(model, sd, what)
+    absent = sorted(set(own) - set(sd))
+    if absent:
+        raise ValueError(f"{what}: it lacks {len(absent)} of the model's keys {absent[:3]}")
+    model.load_state_dict(sd, strict=True)
+
+
+def import_torchvision_vgg16(sd: dict) -> dict:
+    """torchvision's ``vgg16`` ImageNet state dict -> the port's
+    ``extractor.*`` entries (the JAX ``import_torchvision_vgg16``). The
+    port's ``VGG16Features`` keeps torchvision's indices, so this is a key
+    map: ``features.{i}.*`` at ``TORCH_VGG16_CONV_INDICES`` become
+    ``extractor.{i}.*``. ``classifier.*`` is ignored: the reference
+    bootstraps ``vgg16(pretrained=True).features[:-1]`` and inits its own
+    FCs (models/model.py:275-281)."""
+    from faster_rcnn_pytorch_tpu_torch.models.vgg import TORCH_VGG16_CONV_INDICES
+
+    return {
+        f"extractor.{i}.{leaf}": sd[f"features.{i}.{leaf}"]
+        for i in TORCH_VGG16_CONV_INDICES
+        for leaf in ("weight", "bias")
+    }
+
+
+_BN_LEAVES = ("weight", "bias", "running_mean", "running_var")
+
+
+def import_torchvision_resnet50(sd: dict) -> dict:
+    """torchvision's ``resnet50`` ImageNet state dict -> the port's
+    ``backbone.body.*`` entries (the JAX ``import_torchvision_resnet50``):
+    ``conv1``, ``bn1`` and ``layer{1-4}.{b}.{conv,bn}{1-3}`` /
+    ``downsample.{0,1}``, FrozenBN statistics included. ``fc.*`` and
+    ``num_batches_tracked`` (absent from the ImageNet file, and read by
+    nothing) are not imported; the FPN convs keep the fresh init, as in
+    the reference (models/new_model.py:372)."""
+    from faster_rcnn_pytorch_tpu_torch.models.resnet import STAGE_SIZES
+
+    names = ["conv1.weight", *(f"bn1.{leaf}" for leaf in _BN_LEAVES)]
+    for stage, blocks in enumerate(STAGE_SIZES):
+        for b in range(blocks):
+            t = f"layer{stage + 1}.{b}"
+            for ci in (1, 2, 3):
+                names += [f"{t}.conv{ci}.weight", *(f"{t}.bn{ci}.{leaf}" for leaf in _BN_LEAVES)]
+            if f"{t}.downsample.0.weight" in sd:
+                names += [f"{t}.downsample.0.weight"]
+                names += [f"{t}.downsample.1.{leaf}" for leaf in _BN_LEAVES]
+    return {f"backbone.body.{k}": sd[k] for k in names}
+
+
+def load_pretrained_backbone(model: torch.nn.Module, spec: str, generation: str) -> None:
+    """Load an ImageNet backbone into ``model`` in place (the JAX
+    ``load_pretrained_backbone``): ``spec`` is a path, ``auto`` or a
+    registry name, resolved by ``utils/pretrained.py::resolve_backbone``;
+    VGG16 for ``legacy``, ResNet50 for ``fpn``. A key the model lacks or
+    a shape that differs raises ``ValueError`` naming it, before anything
+    is copied; an unknown generation raises too."""
+    from faster_rcnn_pytorch_tpu_torch.utils.convert import load_reference_checkpoint
+    from faster_rcnn_pytorch_tpu_torch.utils.pretrained import resolve_backbone
+
+    importers = {"legacy": import_torchvision_vgg16, "fpn": import_torchvision_resnet50}
+    if generation not in importers:
+        raise ValueError(f"unknown generation: {generation!r}")
+    path = resolve_backbone(spec, generation)
+    new = importers[generation](load_reference_checkpoint(path))
+    own = _check_into(model, new, f"backbone import shape mismatch from {path}")
+    with torch.no_grad():
+        for k, v in new.items():
+            own[k].copy_(v)
 
 
 def prune_checkpoints(log_dir: str, name: str, keep_last: int) -> list[str]:

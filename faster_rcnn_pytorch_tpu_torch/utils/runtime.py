@@ -12,29 +12,6 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # The port's counterpart of JAX_PLATFORMS=cpu: the CPU is an explicit choice.
 DEVICE_ENV = "FRT_TORCH_DEVICE"
 
-_WEIGHTS = ("main", "test", "demo", "export")  # the JAX CLIs that call main.init_params
-
-# Flags the port does not honour yet: the test on the options, the flag, the
-# ROADMAP.md Queue A item that ports it, and the CLIs whose JAX counterparts
-# honour it (each of those refuses it here rather than drop it unseen).
-NOT_PORTED = (
-    (lambda o: bool(o.pretrained_backbone), "--pretrained_backbone", "item 15", _WEIGHTS),
-    (lambda o: o.checkpoint == "pretrained", "--checkpoint pretrained", "item 15", _WEIGHTS),
-)
-
-
-def refuse_unported(opts, cli: str) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP.md item for the
-    first flag in ``opts`` that ``cli`` (``main``, ``test``, ``demo`` or
-    ``export``) would have to honour and cannot yet. Each CLI calls it
-    right after ``load_options``, before it reads data or weights."""
-    for test, flag, item, clis in NOT_PORTED:
-        if cli in clis and test(opts):
-            raise NotImplementedError(
-                f"{flag} is not ported to PyTorch yet; see ROADMAP.md Queue A {item}"
-            )
-
-
 def select_device(local_rank: int = 0) -> torch.device:
     """The CLIs' device: CUDA card ``local_rank`` (a rank's card on its
     host), or the CPU when ``FRT_TORCH_DEVICE=cpu`` asks for it. Without a

@@ -19,9 +19,9 @@ A tiny VOC tree (2 train and 2 test images, 90x120 px, built as
   ``.pt`` raises in ``test`` and in ``main``, and a ``.ckpt`` raises;
 * ``--matmul_precision`` sets the TF32 switches (``high`` on, ``default``
   and ``highest`` off) and any other value raises in both CLIs;
-* ``select_device`` raises without a card unless the CPU was asked for,
-  and flags of slices not ported yet (item 15) raise
-  ``NotImplementedError``.
+* ``select_device`` raises without a card unless the CPU was asked for.
+  (The weight flags, ``--pretrained_backbone`` and ``--checkpoint
+  pretrained``, are tested in ``tests/test_torch_pretrained_cli.py``.)
 """
 
 import contextlib
@@ -179,20 +179,6 @@ def test_main_without_a_card_raises_before_any_work(monkeypatch, tmp_path):
     monkeypatch.delenv(runtime.DEVICE_ENV, raising=False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--data_root", str(tmp_path / "absent")])
-
-
-@pytest.mark.parametrize(
-    "flags",
-    [
-        ["--pretrained_backbone", "vgg.pth"],
-        ["--checkpoint", "pretrained"],
-    ],
-)
-def test_flags_of_later_slices_are_refused(flags, tmp_path):
-    from faster_rcnn_pytorch_tpu_torch.main import main
-
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item"):
-        main(["--data_root", str(tmp_path / "absent"), *flags])
 
 
 def _epoch_evals(out):
