@@ -143,7 +143,10 @@ CUDA card, builds the port's kernels from the sources in the checkout
    read just after: the IoU kernel's match mode runs once per step for
    the batch and its matrix mode never, RoIPool forward and backward and
    NMS once per step each; losses finite and falling as in phase 6; img/s
-   printed as there.
+   printed as there, with the run's peak ``max_memory_allocated`` and the
+   stages of 6 more steps (a device sync between backbone + RPN, propose
+   + targets, head + loss, backward and SGD: ``train_stage_rows``), with
+   propose + targets' share of the step.
 16. dense step vs plain: one float32 dense step from the same weights and
    noise through the IoU match and NMS kernels and with ``plain=True``:
    identical RPN and RoI targets (rois, labels, is_pos, valid, reg
@@ -213,12 +216,36 @@ CUDA card, builds the port's kernels from the sources in the checkout
    path through ``resolve_and_load_params`` (``test``): identical weights
    and identical float32 detections at 800x1344 (8 images), RoIPool and
    NMS launched. Step p50 and the phase's wall time are printed.
-26. imports: jax and flax were never imported.
+27. main path, FPN dense-scene train: phases 15 and 16 for the FPN
+   generation, the gt padded to 640 slots (``FPN_DENSE_MAX_GT``, the
+   generation's IoU kernel gate) with 300-500 small boxes an image under
+   raw COCO ids: 20 steps in float32 and under bfloat16 autocast, counts
+   reset just before and read just after (the IoU match mode once a step,
+   its matrix mode never, the align forward and backward and NMS once a
+   step; losses finite and falling), peak memory and the stage split
+   printed beside phase 15's; then one float32 step through the kernels
+   and with ``plain=True``: identical RPN and RoI targets and losses.
+28. main path, shapes-VOC training through the port's ``main``:
+   ``tools/make_shapes_voc.py`` (a subprocess) writes 800 train and 160
+   test scenes under ``build/chip_smoke_shapes/`` (removed after); each
+   generation trains from random init for 8 epochs with the recipe of
+   ``ACCURACY_SHAPES.json`` (``--resize 320 --max_size 512 --batch_size 8
+   --lr 1e-3``, bfloat16; ``tools/shapes_recipe.py``) in this process,
+   counts reset just before ``main`` and read after the test CLIs: every
+   logged loss finite, the head's forward and backward kernels and NMS
+   launched at least once a step, the other head's never, best AP50 >=
+   0.55; then the best checkpoint through the port's ``test`` CLI at
+   ``--dtype float32`` (TF32 off) and ``bfloat16`` on 800 test scenes of
+   the same generator (the 160 and 640 more): mAPs within 0.01, their
+   detections' greedy pairing printed. The AP50 curve, the train
+   loop's img/s and the epochs' wall times are printed.
+29. imports: jax and flax were never imported.
 
 The ranks of phases 21, 22 and 24 send their kernel launch counts back
 (the slot-lattice align kernel's must stay 0). Its last two lines are the
-kernels' JSON record (``launches``: phases 3, 6, 9, 12, 15, 21-24 and 25;
-``serving_launches``: phases 18-20) and ``{"ok": true, "device": {...}}``.
+kernels' JSON record (``launches``: phases 3, 6, 9, 12, 15, 21-24, 25, 27
+and 28; ``serving_launches``: phases 18-20) and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -252,6 +279,7 @@ from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import (
     RoITargets,
     RPNTargets,
     build_model,
+    device_anchors,
     draw_train_noise,
     forward_train,
     init_weights,
@@ -284,8 +312,9 @@ TRAIN_STEPS = 20
 MAX_GT = 100  # the loader's gt slots (config.max_gt)
 DENSE_MAX_GT = 512  # --max_gt of a dense scene: past the IoU kernel's gate (432 for legacy)
 DENSE_BOXES = (300, 501)  # real gt boxes per dense image, [low, high)
-FPN_DENSE_MAX_GT = 640  # the FPN generation's gate, timed in phase 2 only
+FPN_DENSE_MAX_GT = 640  # the FPN generation's gate: phase 27's --max_gt
 TRAIN_LR = 1e-3
+DENSE_SPLIT_STEPS = 6  # a dense scene's stage split: steps 2-6 after the 20
 BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 LOG_DIR = os.path.join(BUILD, "chip_smoke_logs")
 FPN_CLASSES = 91
@@ -1309,6 +1338,55 @@ def _train_setup(generation: str):
     return FPN_CONFIG, (1, FPN_CLASSES)
 
 
+TRAIN_STAGES = ("backbone+rpn fwd", "propose+targets", "head+loss fwd", "backward", "sgd")
+
+
+def dense_max_gt(generation: str) -> int:
+    """A dense scene's gt slots: past the generation's IoU kernel gate."""
+    return DENSE_MAX_GT if generation == "legacy" else FPN_DENSE_MAX_GT
+
+
+def _sync(device) -> float:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def train_stage_rows(state, cfg, batch: dict, dtype, steps: int, generator):
+    """``steps`` train steps of ``state`` on ``batch`` (``dtype``: autocast
+    unless float32), split into ``TRAIN_STAGES`` by a device sync between
+    them. Returns per step the seconds of each stage and of the whole
+    step, and per step the NMS and IoU match launches."""
+    model = state.model
+    device = batch["image"].device
+    schedule = make_lr_schedule("constant", TRAIN_LR, 1, steps)
+    canvas_hw = tuple(batch["image"].shape[1:3])
+    anchors = device_anchors(model, *canvas_hw, device)
+    n_cand = cfg.post_nms_train + batch["gt_boxes"].shape[1]
+    autocast = torch.autocast(device.type, dtype=torch.bfloat16, enabled=dtype != torch.float32)
+    rows, launches = [], []
+    for _ in range(steps):
+        before = (NMS_KERNEL.launches, boxes_mod.iou_match_cuda.launches)
+        t0 = _sync(device)
+        state.optimizer.zero_grad(set_to_none=True)
+        with autocast:
+            feats = model.features(batch["image"].permute(0, 3, 1, 2).contiguous())
+            rpn_cls, rpn_reg = model.rpn_out(feats)
+            t1 = _sync(device)
+            noise = draw_train_noise(generator, batch["image"].shape[0], anchors.shape[0], n_cand, device)
+            targets = train_targets(cfg, anchors, rpn_cls, rpn_reg, *(batch[k] for k in BATCH_KEYS[1:]), noise)
+            t2 = _sync(device)
+            out = train_losses(model, cfg, feats, rpn_cls, rpn_reg, *targets, canvas_hw)
+            t3 = _sync(device)
+        out.losses.total.backward()
+        t4 = _sync(device)
+        apply_gradients(state, schedule)
+        t5 = _sync(device)
+        rows.append([t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4, t5 - t0])
+        launches.append((NMS_KERNEL.launches - before[0], boxes_mod.iou_match_cuda.launches - before[1]))
+    return rows, launches
+
+
 def train_epoch(model, cfg, batch: dict, steps: int, name: str, autocast_dtype=None):
     """``steps`` train steps of ``model`` on one repeated batch through
     ``train_one_epoch`` and ``parallel.train_step`` (constant LR), the
@@ -1333,7 +1411,7 @@ def train_epoch(model, cfg, batch: dict, steps: int, name: str, autocast_dtype=N
     train_one_epoch(state, timed_step, RepeatedBatch(batch, steps), 0, opts, schedule, recorder)
     counts = {k.__name__: k.launches for k in PATH_KERNELS}
     shutil.rmtree(LOG_DIR)
-    return counts, recorder.losses, timer
+    return counts, recorder.losses, timer, state
 
 
 def run_train(
@@ -1342,20 +1420,26 @@ def run_train(
     """20 full-width train steps through ``train_one_epoch``; returns the
     launch counts of the generation's head kernels (forward, backward) and
     of the IoU kernel in the run, and requires the other generation's
-    kernels to stay idle. ``dense``: gt padded to ``DENSE_MAX_GT`` slots
-    with ``DENSE_BOXES`` boxes per image, past the IoU kernel's gate, so
-    its match mode runs once per step for the batch and its matrix mode
-    never; otherwise (100 slots) neither. The NMS kernel runs once a step
-    (the batch's proposals); its launches are returned last."""
+    kernels to stay idle. ``dense``: gt padded to ``dense_max_gt`` slots
+    (512 legacy, 640 FPN) with ``DENSE_BOXES`` boxes per image, past the
+    IoU kernel's gate, so its match mode runs once per step for the batch
+    and its matrix mode never; otherwise (100 slots) neither. The NMS
+    kernel runs once a step (the batch's proposals); its launches are
+    returned last. The peak ``max_memory_allocated`` of the run is
+    printed; for a dense scene also the stages of ``DENSE_SPLIT_STEPS``
+    more steps (``train_stage_rows``) and propose + targets' share."""
     dtype = set_numerics(dtype_name)
     cfg, labels = _train_setup(generation)
     seed = SEED + (4 if generation == "legacy" else 6) + (10 if dense else 0)
-    gt = dict(max_gt=DENSE_MAX_GT, boxes=DENSE_BOXES) if dense else {}
+    gt = dict(max_gt=dense_max_gt(generation), boxes=DENSE_BOXES) if dense else {}
     name = f"{generation}{' dense' if dense else ''} {dtype_name}"
-    counts, losses, timer = train_epoch(
-        _new_model(generation).to(device), cfg, synthetic_train_batch(CANVAS, seed, labels=labels, **gt),
+    batch = synthetic_train_batch(CANVAS, seed, labels=labels, **gt)
+    torch.cuda.reset_peak_memory_stats(device)
+    counts, losses, timer, state = train_epoch(
+        _new_model(generation).to(device), cfg, batch,
         TRAIN_STEPS, f"train_{name.replace(' ', '_')}", autocast_dtype=dtype if dtype != torch.float32 else None,
     )
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
     fwd, bwd = (counts.pop(k.__name__) for k in _head_kernels(generation))
     nms = counts.pop(NMS_KERNEL.__name__)
     iou = counts.pop(boxes_mod.iou_match_cuda.__name__)
@@ -1381,30 +1465,46 @@ def run_train(
         }
     print(
         f"train {name} {CANVAS[0]}x{CANVAS[1]} batch {TRAIN_BATCH}"
-        f"{f' gt slots {DENSE_MAX_GT}' if dense else ''}: "
+        f"{f' gt slots {dense_max_gt(generation)}' if dense else ''}: "
         f"{TRAIN_BATCH * len(steady) / sum(steady):.2f} img/s over steps 6-{TRAIN_STEPS} "
         f"(step p50 {1000 * timer.p50():.1f} ms), mean loss steps 1-5 {first:.4f} -> "
-        f"16-20 {last:.4f}, launches fwd {fwd} bwd {bwd} iou {iou} nms {nms}, other kernels {counts}",
+        f"16-20 {last:.4f}, launches fwd {fwd} bwd {bwd} iou {iou} nms {nms}, other kernels {counts}, "
+        f"peak max_memory_allocated {peak_gib:.2f} GiB",
         flush=True,
     )
+    if dense:
+        rows, split_launches = train_stage_rows(
+            state, cfg, _to_device(batch, device), dtype, DENSE_SPLIT_STEPS,
+            torch.Generator(device=device).manual_seed(SEED),
+        )
+        _require(all(n == (1, 1) for n in split_launches), f"{name} split: launches {split_launches}")
+        med = [1000 * statistics.median(r[i] for r in rows[1:]) for i in range(len(TRAIN_STAGES) + 1)]
+        print(
+            f"  stages of {name} (ms a step, median of steps 2-{DENSE_SPLIT_STEPS}, a sync between "
+            f"stages): {', '.join(f'{k} {v:.2f}' for k, v in zip(TRAIN_STAGES, med))}, total "
+            f"{med[-1]:.2f}; propose+targets share {med[1] / med[-1]:.3f}",
+            flush=True,
+        )
     return fwd, bwd, iou, nms
 
 
-def check_dense_targets_kernel_vs_plain(device) -> None:
-    """One float32 legacy dense-scene step from the same weights and noise
+def check_dense_targets_kernel_vs_plain(device, generation: str = "legacy") -> None:
+    """One float32 dense-scene step of ``generation`` (phase 16: legacy at
+    512 gt slots; phase 27: FPN at 640) from the same weights and noise
     through the IoU kernel and through ``plain=True``: identical RPN and
     RoI targets (rois, labels, is_pos, valid, reg targets), one launch of
     the match mode for the batch against none, and identical losses."""
     set_numerics("float32")
-    cfg = LEGACY_CONFIG
-    model = _new_model("legacy").to(device)
+    cfg, labels = _train_setup(generation)
+    max_gt = dense_max_gt(generation)
+    model = _new_model(generation).to(device)
     batch = _to_device(
-        synthetic_train_batch(CANVAS, SEED + 12, max_gt=DENSE_MAX_GT, boxes=DENSE_BOXES), device
+        synthetic_train_batch(CANVAS, SEED + 12, labels=labels, max_gt=max_gt, boxes=DENSE_BOXES), device
     )
     anchors = torch.from_numpy(model.canvas_anchors(*CANVAS)).to(device)
     noise = draw_train_noise(
         torch.Generator(device=device).manual_seed(SEED), TRAIN_BATCH, anchors.shape[0],
-        cfg.post_nms_train + DENSE_MAX_GT, device,
+        cfg.post_nms_train + max_gt, device,
     )
     iou_k = boxes_mod.iou_match_cuda
     with torch.no_grad():
@@ -1437,7 +1537,7 @@ def check_dense_targets_kernel_vs_plain(device) -> None:
     _require(torch.equal(*losses), f"dense losses differ: {losses[0].tolist()} vs {losses[1].tolist()}")
     n_real = batch["gt_mask"].sum(1).tolist()
     print(
-        f"dense train step legacy float32 ({n_real} of {DENSE_MAX_GT} gt slots real): RoI and RPN "
+        f"dense train step {generation} float32 ({n_real} of {max_gt} gt slots real): RoI and RPN "
         f"targets identical with the IoU match and NMS kernels and with the plain ones ({int(k_roi.is_pos.sum())} "
         f"positive rois), losses identical ({', '.join(f'{v:.5f}' for v in losses[0].tolist())})",
         flush=True,
@@ -2764,7 +2864,7 @@ def check_pretrained(device) -> dict:
             _require(n_file == (26 if generation == "legacy" else 265), f"{n_file} tensors from the file")
             cfg, labels = _train_setup(generation)
             batch = synthetic_train_batch(CANVAS, PRETRAINED_SEED, labels=labels)
-            counts, losses, timer = train_epoch(model, cfg, batch, PRETRAINED_STEPS, f"pretrained_{generation}")
+            counts, losses, timer, _ = train_epoch(model, cfg, batch, PRETRAINED_STEPS, f"pretrained_{generation}")
             fwd, bwd = _head_kernels(generation)
             for k in (fwd, bwd, NMS_KERNEL):
                 _require(counts[k.__name__] == PRETRAINED_STEPS,
@@ -2816,6 +2916,100 @@ def check_pretrained(device) -> dict:
             os.environ["FRT_CACHE_DIR"] = saved
         shutil.rmtree(PRETRAINED_DIR, ignore_errors=True)
     _require_slots_idle("phase 25")
+    return total
+
+
+def check_fpn_dense(device) -> dict:
+    """Phase 27: phases 15 and 16 for the FPN generation, gt padded to
+    ``FPN_DENSE_MAX_GT`` (640) slots. Returns the launches of its 20-step
+    runs (the main path's: neither the stage split nor the comparison with
+    the plain version counts)."""
+    counts = {k.__name__: 0 for k in ALL_KERNELS}
+    fwd_k, bwd_k = _head_kernels("fpn")
+    for dtype_name in ("float32", "bfloat16"):
+        fwd, bwd, iou, nms = run_train(dtype_name, device, "fpn", dense=True)
+        for k, n in ((fwd_k, fwd), (bwd_k, bwd), (boxes_mod.iou_match_cuda, iou), (NMS_KERNEL, nms)):
+            counts[k.__name__] += n
+    check_dense_targets_kernel_vs_plain(device, "fpn")
+    return counts
+
+
+SHAPES_DIR = os.path.join(BUILD, "chip_smoke_shapes")  # phase 28's scenes, logs and checkpoints
+SHAPES_EPOCHS = 8
+SHAPES_MIN_AP50 = 0.55  # the best epoch's; an untrained detector reads under 0.1
+SHAPES_MAX_DMAP = 0.01  # float32 against bfloat16 test-CLI mAP of the best checkpoint
+
+
+def check_shapes_voc(device) -> dict:
+    """Phase 28: both generations trained from random init through the
+    port's ``main`` (in this process) on ``tools/make_shapes_voc.py``
+    scenes (800 train, 160 test, 3 classes, 320 px; a subprocess, under
+    ``SHAPES_DIR``, removed after), the recipe of ``ACCURACY_SHAPES.json``
+    (``tools/shapes_recipe.py``) for ``SHAPES_EPOCHS`` epochs, cuDNN in its
+    CLI defaults; then the best checkpoint through the port's ``test`` CLI
+    at ``--dtype float32`` (TF32 off) and ``bfloat16`` on 800 test scenes
+    of the same generator (``shapes_recipe.N_CHECK``). Gates: every logged
+    loss finite; the head's forward and backward kernels and NMS launched
+    at least once a step; best AP50 >= ``SHAPES_MIN_AP50``; the two test
+    mAPs within ``SHAPES_MAX_DMAP``. Returns the launches of the main and
+    test runs, counts reset just before and read just after."""
+    from faster_rcnn_pytorch_tpu_torch.tools import shapes_recipe
+
+    t0 = time.time()
+    _require(os.environ.get("FRT_TORCH_DEVICE") != "cpu", "FRT_TORCH_DEVICE=cpu would send main to the CPU")
+    shutil.rmtree(SHAPES_DIR, ignore_errors=True)
+    root, logs = os.path.join(SHAPES_DIR, "voc"), os.path.join(SHAPES_DIR, "logs")
+    check_root = os.path.join(SHAPES_DIR, "check")
+    shapes_recipe.make_data(root)
+    shapes_recipe.make_check_data(check_root)
+    steps = shapes_recipe.steps_per_epoch(root)
+    print(f"phase 28: {steps} steps an epoch, data made in {time.time() - t0:.1f} s", flush=True)
+    total = {k.__name__: 0 for k in ALL_KERNELS}
+    deterministic = torch.backends.cudnn.deterministic
+    for generation in ("legacy", "fpn"):
+        t1 = time.time()
+        name = f"shapes_{generation}"
+        argv = shapes_recipe.recipe_argv(
+            generation, root, SHAPES_EPOCHS, "--log_dir", logs, "--name", name, "--vis_step", "10",
+            "--keep_checkpoints", "1",
+        )
+        for k in PATH_KERNELS:
+            k.launches = 0
+        torch.backends.cudnn.deterministic = False  # as the CLI runs
+        try:
+            run = shapes_recipe.run_in_process(argv, steps)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        t_train = time.time() - t1
+        maps, pairing = shapes_recipe.test_best(generation, check_root, logs, name)
+        counts = {k.__name__: k.launches for k in PATH_KERNELS}
+        n_steps = steps * SHAPES_EPOCHS
+        _require(run["epochs"] == list(range(SHAPES_EPOCHS)), f"{name}: epochs {run['epochs']} logged")
+        _require(run["losses_finite"] and run["losses_logged"] >= n_steps // 10, f"{name}: losses {run}")
+        for k in (*_head_kernels(generation), NMS_KERNEL):
+            _require(counts[k.__name__] >= n_steps, f"{name}: {k.__name__} {counts[k.__name__]} < {n_steps} steps")
+        other = _head_kernels("fpn" if generation == "legacy" else "legacy")
+        _require(not any(counts[k.__name__] for k in other), f"{name} launched the other head's kernels: {counts}")
+        _require(run["best_map"] >= SHAPES_MIN_AP50, f"{name}: best AP50 {run['best_map']} < {SHAPES_MIN_AP50}")
+        d_map = maps["bfloat16"] - maps["float32"]
+        _require(abs(d_map) <= SHAPES_MAX_DMAP, f"{name}: test mAP {maps}")
+        _require_slots_idle(f"phase 28 {generation}")
+        for k, n in counts.items():
+            total[k] += n
+        print(
+            f"phase 28 {generation}: AP50 by epoch {' '.join(f'{v:.4f}' for v in run['map_by_epoch'])} "
+            f"(best {run['best_map']:.4f}, final {run['final_map']:.4f}); train loop "
+            f"{' '.join(f'{v:.1f}' for v in run['train_img_s_by_epoch'])} img/s by epoch (median "
+            f"{run['train_img_s_median']:.2f}); epoch wall {' '.join(f'{v:.1f}' for v in run['epoch_wall_s_by_epoch'])} s "
+            f"(median {run['epoch_wall_s_median']:.2f}); {run['losses_logged']} logged losses finite; main "
+            f"{t_train:.1f} s; test CLI on the best checkpoint, {shapes_recipe.N_CHECK} test scenes: mAP "
+            f"float32 {maps['float32']:.4f}, bfloat16 {maps['bfloat16']:.4f} (d {d_map:+.4f}); {pairing}; "
+            f"launches {counts}; {time.time() - t1:.1f} s",
+            flush=True,
+        )
+        shutil.rmtree(os.path.join(logs, name))  # the checkpoints (1.1 GB legacy)
+    shutil.rmtree(SHAPES_DIR)
+    print(f"phase 28 took {time.time() - t0:.1f} s wall", flush=True)
     return total
 
 
@@ -2955,7 +3149,9 @@ def main() -> int:
     check_remat(device)
     phase23 = {k: v - before[k] for k, v in _launch_counts().items()}
     phase25 = check_pretrained(device)  # resets the counts; returns its own
-    for counts in (phase21, *phase22, phase23, phase25):
+    phase27 = check_fpn_dense(device)
+    phase28 = check_shapes_voc(device)
+    for counts in (phase21, *phase22, phase23, phase25, phase27, phase28):
         for rec, kernels in (
             (record, (roi_pool_mod.roi_pool_cuda,)),
             (bwd_record, (roi_pool_mod.roi_pool_backward_cuda,)),
@@ -2966,9 +3162,10 @@ def main() -> int:
             (nms_record, (NMS_KERNEL,)),
         ):
             rec["launches"] += sum(counts[k.__name__] for k in kernels)
-    _require(slots_record["launches"] == 0, "a parallel or pretrained phase launched the slot-lattice align kernel")
+    _require(slots_record["launches"] == 0, "a phase after 20 launched the slot-lattice align kernel")
     print(
-        f"launches: phase 21 {phase21}; phase 22 {phase22}; phase 23 {phase23}; phase 25 {phase25} ({card})",
+        f"launches: phase 21 {phase21}; phase 22 {phase22}; phase 23 {phase23}; phase 25 {phase25}; "
+        f"phase 27 {phase27}; phase 28 {phase28} ({card})",
         flush=True,
     )
 

@@ -515,9 +515,10 @@ def predict(
     plain: bool = False,
     on_stage: Callable[[str, object], None] | None = None,
 ) -> Detections:
-    """Test-time forward of either generation: proposals, head on all
-    rois, softmax, deltas un-normalised by REG_STD and decoded against the
-    rois, clamp, per-class threshold + NMS, labels 0-based.
+    """Test-time forward of either generation: proposals, then
+    :func:`detect`: head on all rois, softmax, deltas un-normalised by
+    REG_STD and decoded against the rois, clamp, per-class threshold +
+    NMS, labels 0-based.
 
     Args:
       images: ``[B, H, W, 3]`` normalised canvas batch (the JAX package's
@@ -531,7 +532,7 @@ def predict(
         sync the device between stages.
     """
     mark = on_stage or (lambda name, result: None)
-    b, canvas_h, canvas_w = images.shape[:3]
+    canvas_h, canvas_w = images.shape[1:3]
     dev = images.device
     dtype = next(model.parameters()).dtype
     anchors = device_anchors(model, canvas_h, canvas_w, dev)
@@ -554,12 +555,30 @@ def predict(
         nms_tile=cfg.rpn_nms_tile,
         plain=plain,
     )
-    rois, valid = props.rois, props.valid
-    mark("propose", rois)
+    mark("propose", props.rois)
+    return detect(model, cfg, feats, props.rois, props.valid, (canvas_h, canvas_w), thres, plain, mark)
 
-    head_cls, head_reg = _head_apply(model, feats, rois, (canvas_h, canvas_w), plain)
+
+@torch.no_grad()
+def detect(
+    model: LegacyFRCNN | FPNFRCNN,
+    cfg: DetectorConfig,
+    feats,
+    rois: torch.Tensor,
+    valid: torch.Tensor,
+    canvas_hw: tuple[int, int],
+    score_threshold: float,
+    plain: bool = False,
+    on_stage: Callable[[str, object], None] | None = None,
+) -> Detections:
+    """The stages of :func:`predict` after the proposals: the RoI head on
+    ``rois`` ``[B, S, 4]`` (``valid`` ``[B, S]``), softmax, deltas
+    un-normalised by REG_STD and decoded against the rois, clamp, and the
+    per-class threshold + NMS."""
+    mark = on_stage or (lambda name, result: None)
+    b, s = rois.shape[:2]
+    head_cls, head_reg = _head_apply(model, feats, rois, canvas_hw, plain)
     mark("roi_head", head_cls)
-    s = cfg.post_nms_test
     probs = softmax(head_cls)
     probs = torch.where(valid[:, :, None], probs, 0.0)
     reg = scale_columns(head_reg.reshape(b, s, cfg.num_classes, 4), REG_STD)
@@ -571,7 +590,7 @@ def predict(
         *multiclass_nms_batch(
             boxes,
             probs,
-            thres,
+            score_threshold,
             cfg.nms_iou,
             num_classes=cfg.num_classes,
             per_class_k=cfg.max_detections,

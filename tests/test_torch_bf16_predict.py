@@ -23,14 +23,24 @@ mean nothing without the inputs. Twice the rounding's own size passes
 two roundings that go different ways and fails a cast or a fold done
 otherwise than the JAX package does it.
 
-The FPN case does not agree, and is kept as ``xfail(strict=True)`` (ROADMAP
-Queue C): 96 and 91 of 100 detections pair up, where 99 must; the pairs
-are within 0.00105 (score) and 0.00011 (box), inside the tolerances. The
-JAX package's bfloat16 predict pairs 96 and 92 of 100 with its own
-float32 predict on these inputs: with random weights the RPN's
-objectness is nearly tied across the 12501 anchors, so a bfloat16
-rounding changes which anchors make the cuts of 256 and 64, in either
-package.
+The FPN full predict cannot agree detection for detection, and the
+stages below say why (ROADMAP Queue C, C6): with random weights the RPN's
+objectness is nearly tied across the 12501 anchors (ranks 255-257 about
+1.5e-5 apart), so one bfloat16 rounding changes which anchors make the
+cuts of 256 and 64, in either package. The JAX package's own bfloat16
+predict pairs only 96 and 92 of 100 detections with the float32 one on
+these inputs. So the FPN case is held in three parts:
+
+1. the RPN outputs: the port's bfloat16 objectness logits and deltas at
+   every anchor within ``RPN_ULPS`` bfloat16 ulps of the JAX ones, the
+   ulp taken at each tensor's max|x| (measured: 1 and 1.25);
+2. the RoI head, decode and per-class NMS fed the same proposals (the
+   JAX bfloat16 predict's rois and validity), in bfloat16 in both
+   packages: ``detections_agree`` at the tolerances above (measured:
+   100 of 100 paired on each image);
+3. the full predict: the port pairs at least ``SHARE`` of the pairs the
+   JAX package's own bfloat16 predict makes with the float32 one, every
+   pair within the tolerances (measured: 96 of 96 and 91 of 92).
 """
 
 import dataclasses
@@ -42,6 +52,9 @@ import pytest
 import torch
 
 from faster_rcnn_pytorch_tpu.models import faster_rcnn as jfr
+from faster_rcnn_pytorch_tpu.models.rpn import propose
+from faster_rcnn_pytorch_tpu.ops.boxes import cxcy_to_xy, decode, xy_to_cxcy
+from faster_rcnn_pytorch_tpu.ops.nms import multiclass_nms
 from faster_rcnn_pytorch_tpu.utils import checkpoint as jck
 from faster_rcnn_pytorch_tpu.utils.params import cast_inference_params
 from faster_rcnn_pytorch_tpu_torch.evaluation.diff import detections_agree, greedy_match
@@ -105,22 +118,17 @@ def _fpn():
     return params, pmodel, cfg, images, extents
 
 
-CASES = [
-    pytest.param("legacy", _legacy, id="legacy"),
-    pytest.param(
-        "fpn",
-        _fpn,
-        id="fpn",
-        marks=pytest.mark.xfail(
-            strict=True,
-            reason="ROADMAP Queue C: 96 and 91 of 100 FPN detections pair up (99 needed); "
-            "the JAX bfloat16 predict pairs 96 and 92 with its own float32 one",
-        ),
-    ),
-]
+RPN_ULPS = 2  # stage 1: bfloat16 ulps at the tensor's max|x|
+SHARE = 0.95  # stage 3: of the JAX package's own bfloat16-to-float32 pairs
 
 
-@pytest.mark.parametrize("generation,setup", CASES)
+def _tolerances(jax_bf16: dict, f32: dict) -> tuple[float, float]:
+    """Twice the largest score and box ``|d|`` between the JAX bfloat16
+    detections and the float32 ones of one image."""
+    return tuple(2 * d for d in _differences(jax_bf16, f32))
+
+
+@pytest.mark.parametrize("generation,setup", [("legacy", _legacy), ("fpn", _fpn)], ids=["legacy", "fpn"])
 def test_bfloat16_predict_agrees_with_jax(generation, setup):
     params, pmodel, cfg, images, extents = setup()
     jmodel, _ = jfr.build_model(generation, num_classes=cfg.num_classes, dtype=jnp.bfloat16)
@@ -135,8 +143,90 @@ def test_bfloat16_predict_agrees_with_jax(generation, setup):
     with torch.no_grad():
         f32 = pfr.predict(*args)
     for b in range(images.shape[0]):
-        g, w = _valid_dets(got, b), _valid_dets(want, b)
+        g, w, f = _valid_dets(got, b), _valid_dets(want, b), _valid_dets(f32, b)
         assert len(w["scores"]) > 0, "no detections to compare"
-        score_tol, box_tol = (2 * d for d in _differences(w, _valid_dets(f32, b)))
+        score_tol, box_tol = _tolerances(w, f)
+        min_frac = 0.99
+        if generation == "fpn":  # stage 3: the share of the JAX package's own pairing
+            min_frac = SHARE * len(greedy_match(w, f)) / max(len(g["scores"]), len(w["scores"]))
+        ok, summary = detections_agree(g, w, score_tol=score_tol, box_tol=box_tol, min_frac=min_frac)
+        assert ok, f"image {b}: {summary} (tolerances {score_tol:.3g}, {box_tol:.3g}, min {min_frac:.3f})"
+
+
+def _jax_stages(model, cfg, images, extents, rois, valid):
+    """The JAX bfloat16 predict's RPN outputs and proposals, and the RoI
+    head, decode and per-class NMS on the given ``rois`` and ``valid``:
+    ``predict``'s own steps (``models/faster_rcnn.py``), split there."""
+    b, h, w = images.shape[:3]
+    anchors = jnp.asarray(model.canvas_anchors(h, w))
+    feats = model.features(images)
+    rpn_cls, rpn_reg = model.rpn_out(feats)
+    props = jax.vmap(
+        lambda c, r, e: propose(
+            c, r, anchors, e, pre_k=cfg.pre_nms_test, post_k=cfg.post_nms_test,
+            nms_iou=cfg.rpn_nms_iou, min_size=cfg.proposal_min_size, nms_tile=cfg.rpn_nms_tile,
+        )
+    )(rpn_cls, rpn_reg, extents)
+    head_cls, head_reg = jfr._head_apply(model, feats, rois, (h, w))
+    probs = jnp.where(valid[:, :, None], jax.nn.softmax(head_cls, axis=-1), 0.0)
+    reg = head_reg.reshape(b, rois.shape[1], cfg.num_classes, 4) * jfr.REG_STD
+    boxes = jnp.clip(cxcy_to_xy(decode(reg, xy_to_cxcy(rois)[:, :, None, :])), 0.0, 1.0)
+    dets = jax.vmap(
+        lambda bx, pr: multiclass_nms(
+            bx, pr, 0.05, cfg.nms_iou, num_classes=cfg.num_classes,
+            per_class_k=cfg.max_detections, max_det=cfg.max_detections,
+        )
+    )(boxes, probs)
+    return rpn_cls, rpn_reg, props, jfr.Detections(*dets)
+
+
+@pytest.fixture(scope="module")
+def fpn_stages():
+    """Both packages' bfloat16 RPN outputs on ``_fpn()``'s inputs, their
+    RoI head, decode and per-class NMS on the JAX proposals, and the
+    port's float32 predict (the tolerances' reference)."""
+    params, pmodel, cfg, images, extents = _fpn()
+    jmodel, _ = jfr.build_model("fpn", num_classes=cfg.num_classes, dtype=jnp.bfloat16)
+    stages = jax.jit(lambda p, *a: jmodel.apply(p, cfg, *a, method=_jax_stages))
+    jargs = (cast_inference_params(params, jnp.bfloat16), jnp.asarray(images), jnp.asarray(extents))
+    s = cfg.post_nms_test
+    # the same program twice: its proposals first, then the head on them
+    _, _, props, _ = stages(*jargs, jnp.zeros((2, s, 4)), jnp.zeros((2, s), bool))
+    j_cls, j_reg, _, j_dets = stages(*jargs, props.rois, props.valid)
+    rois, valid = (torch.from_numpy(np.array(x)) for x in (props.rois, props.valid))
+    canvas = images.shape[1:3]
+    with inference_weights(pmodel, torch.bfloat16), torch.no_grad():
+        feats = pmodel.features(torch.tensor(images).permute(0, 3, 1, 2).to(torch.bfloat16).contiguous())
+        p_cls, p_reg = pmodel.rpn_out(feats)
+        p_dets = pfr.detect(pmodel, cfg, feats, rois, valid, canvas, 0.05)
+    with torch.no_grad():
+        f32 = pfr.predict(pmodel, cfg, torch.tensor(images), torch.tensor(extents), 0.05)
+    return {
+        "rpn": {"objectness": (p_cls, j_cls), "deltas": (p_reg, j_reg)},
+        "valid": valid, "port": p_dets, "jax": j_dets, "f32": f32,
+    }
+
+
+@pytest.mark.parametrize("name", ["objectness", "deltas"])
+def test_fpn_rpn_outputs_agree_with_jax(fpn_stages, name):
+    """Stage 1: every anchor's bfloat16 RPN output within ``RPN_ULPS``
+    ulps of the JAX one, the ulp at the tensor's max|x|."""
+    got, want = fpn_stages["rpn"][name]
+    got, want = got.float().numpy(), np.asarray(want, np.float32)
+    assert got.shape == want.shape == (2, 12501, 2 if name == "objectness" else 4)
+    scale = float(np.abs(want).max())
+    ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)  # bfloat16 keeps 8 significant bits
+    err = float(np.abs(got - want).max())
+    assert err <= RPN_ULPS * ulp, (name, err / ulp, scale)
+
+
+def test_fpn_head_on_the_same_proposals_agrees_with_jax(fpn_stages):
+    """Stage 2: the RoI head, decode and per-class NMS of both packages on
+    the JAX bfloat16 proposals, at the full predict's tolerances."""
+    assert fpn_stages["valid"].sum() > 0
+    for b in range(2):
+        g, w = _valid_dets(fpn_stages["port"], b), _valid_dets(fpn_stages["jax"], b)
+        assert len(w["scores"]) > 0, "no detections to compare"
+        score_tol, box_tol = _tolerances(w, _valid_dets(fpn_stages["f32"], b))
         ok, summary = detections_agree(g, w, score_tol=score_tol, box_tol=box_tol)
         assert ok, f"image {b}: {summary} (tolerances {score_tol:.3g}, {box_tol:.3g})"

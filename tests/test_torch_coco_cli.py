@@ -123,6 +123,7 @@ def test_port_coco_cli_matches_jax_cli(coco_root, generation, tmp_path, capsys, 
     jax_out = capsys.readouterr().out
     assert port_main(_args(coco_root, generation, ckpt, port_dump)) == 0
     port_out = capsys.readouterr().out
+    os.remove(ckpt)  # up to 1 GB, read by both CLIs
     assert "imported torch checkpoint" in port_out
 
     j_imgs, j_dets, j_map = _parse(jax_out)

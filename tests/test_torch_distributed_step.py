@@ -4,7 +4,9 @@ Two ranks (``tests/torch_dist.py``) each take one row of a two-image
 global batch whose second image has a small extent, so the two ranks'
 loss counts differ (56 and 3 trainable anchors): a per-rank mean would
 not be the global mean there. Against the port's one-process step on the
-same global batch (``tests/torch_dist_workers.py``):
+same global batch, which rank 0 runs itself after its distributed run
+and holds its own results against (``tests/torch_dist_workers.py``), so
+that only error tables leave the ranks:
 
 * legacy and FPN (its convolutions batch-invariant on both sides, see
   ``train_steps``): losses within 1e-5 relative, the first step's
@@ -28,6 +30,7 @@ time), within ``tests/test_torch_train_step.py``'s tolerances.
 """
 
 import dataclasses
+import os
 import shutil
 
 import jax
@@ -51,7 +54,7 @@ JOBS = {
 
 @pytest.fixture(scope="module")
 def tmp_dir(tmp_path_factory):
-    """The module's files (weights and references of 0.3-1.1 GB each),
+    """The module's files (the JAX weights and gradients, 0.54 GB each),
     removed when its tests are done."""
     path = tmp_path_factory.mktemp("distributed_step")
     yield path
@@ -88,28 +91,30 @@ def jax_reference(tmp_dir):
 
 
 @pytest.fixture(scope="module")
-def one_rank(tmp_dir):
-    """The one-process runs' metrics; their gradients and parameters go to
-    a reference file per job, which rank 0 reads."""
-    out = {}
-    for name, (fn, kw) in JOBS.items():
-        run = getattr(w, fn)(0, **kw)
-        out[name] = str(tmp_dir / f"reference_{name}.pt")
-        torch.save({"grads": run.pop("grads"), "params": run.pop("params")}, out[name])
-        out[name] = (run, out[name])
-    return out
-
-
-@pytest.fixture(scope="module")
-def two_ranks(tmp_dir, jax_reference, one_rank):
+def two_ranks(tmp_dir, jax_reference):
+    """Every job on two ranks. Rank 0 also runs each job of ``JOBS`` as
+    one process and sends back only its gradients' and parameters' error
+    tables against that run (``torch_dist_workers.ONE_PROCESS``); the JAX
+    files are removed as soon as the ranks have read them."""
     path, noise, _, jax_grads = jax_reference
-    specs = [(fn, {**kw, "reference": one_rank[name][1]}) for name, (fn, kw) in JOBS.items()]
+    specs = [(fn, {**kw, "reference": w.ONE_PROCESS}) for fn, kw in JOBS.values()]
     specs.append(
         ("train_steps", dict(generation="legacy", global_b=2, steps=1, noise=noise, weights=path,
                              reference=jax_grads))
     )
-    out = run_ranks(w.jobs, 2, tmp_dir / "ranks", specs, timeout=600)
+    try:
+        out = run_ranks(w.jobs, 2, tmp_dir / "ranks", specs, timeout=600)
+    finally:
+        for f in (path, jax_grads):
+            os.remove(f)
     return {name: [r[i] for r in out] for i, name in enumerate([*JOBS, "jax"])}
+
+
+@pytest.fixture(scope="module")
+def one_rank(two_ranks):
+    """The one-process run of each job (rank 0's): its metrics and the
+    digests of its parameters after the steps."""
+    return {name: two_ranks[name][0]["reference"] for name in JOBS}
 
 
 def _assert_close(errs: dict, what: str):
@@ -134,7 +139,7 @@ def _assert_metrics(got: list, want: list):
 
 @pytest.mark.parametrize("name", ["legacy", "fpn", "accum"])
 def test_two_ranks_match_one_process(two_ranks, one_rank, name):
-    got, want = two_ranks[name][0], one_rank[name][0]
+    got, want = two_ranks[name][0], one_rank[name]
     _assert_metrics(got["metrics"], want["metrics"])
     _assert_close(got["grads"], "first step's gradients")
     _assert_close(got["params"], "parameters after the steps")
@@ -151,21 +156,21 @@ def test_per_rank_counts_differ_and_the_loss_is_global(two_ranks, one_rank):
     """Trap A would show here: the ranks' trainable-anchor counts differ."""
     (c0, c1) = (r["counts"][0] for r in two_ranks["legacy"])
     assert c0[0] != c1[0] and c0[0] > 0 and c1[0] > 0, (c0, c1)
-    _assert_metrics(two_ranks["legacy"][0]["metrics"], one_rank["legacy"][0]["metrics"])
+    _assert_metrics(two_ranks["legacy"][0]["metrics"], one_rank["legacy"]["metrics"])
 
 
 def test_fpn_frozen_stages_decay_alike(two_ranks, one_rank):
     """Left out of DDP's reducer, the frozen stem and ``layer1`` decay as
     one process decays them: bit for bit, and away from their init."""
     errs = two_ranks["fpn"][0]["params"]
-    want = torch.load(one_rank["fpn"][1], weights_only=True, mmap=True)["params"]
+    want = one_rank["fpn"]["digests"]
     model = w.new_model("fpn")
     frozen = [k for k, _ in model.named_parameters() if k.startswith(model.frozen_prefixes)]
     assert frozen
     init = model.state_dict()
     for k in frozen:
         assert errs[k][0] == 0.0, k
-        assert not torch.equal(want[k], init[k]), k  # weight decay moved them
+        assert want[k] != w.digest(init[k]), k  # weight decay moved them
 
 
 def test_two_rank_step_matches_jax(two_ranks, jax_reference):

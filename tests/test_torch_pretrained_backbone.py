@@ -24,6 +24,7 @@ no torchvision here), saved to a file and loaded by both packages'
 """
 
 import functools
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -206,5 +207,6 @@ def test_a_detector_of_another_generation_raises(tmp_path, file_generation, file
     before = {k: v.clone() for k, v in model.state_dict().items()}
     with pytest.raises(ValueError, match=f"not a {generation} detector of {classes} classes"):
         ck.load_reference_weights(model, path, generation)
+    os.remove(path)  # up to 1 GB
     for k, v in model.state_dict().items():
         assert torch.equal(v, before[k]), k

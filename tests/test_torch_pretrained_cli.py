@@ -27,6 +27,7 @@ ranks' options must hold the staged file's path after one fetch.
 """
 
 import importlib
+import shutil
 
 import numpy as np
 import pytest
@@ -90,7 +91,8 @@ def staged(tmp_path_factory):
             opts = Options(num_classes=21, **{name[2:]: value})
             want[flag] = jck.export_legacy_torch_state_dict(init_params(jmodel, opts))
             assert opts.checkpoint in ("", paths["checkpoint"])
-    return root, paths, want
+    yield root, paths, want
+    shutil.rmtree(root, ignore_errors=True)  # 1.1 GB of staged files
 
 
 @pytest.fixture

@@ -24,7 +24,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from faster_rcnn_pytorch_tpu.models import faster_rcnn as jfr
 from faster_rcnn_pytorch_tpu.parallel.mesh import MODEL_AXIS, _tp_spec
@@ -92,16 +91,15 @@ def test_shards_follow_the_jax_tp_spec(generation):
 
 @pytest.fixture(scope="module")
 def four_ranks(tmp_path_factory):
+    """The ranks' results, and the one-process run's that rank 0 makes
+    itself (``torch_dist_workers.ONE_PROCESS``)."""
     tmp = tmp_path_factory.mktemp("tensor_parallel")
-    ref = str(tmp / "reference.pt")
-    run = w.train_steps(0, "legacy", 2, 2)
-    torch.save({"grads": run.pop("grads"), "params": run.pop("params")}, ref)
     specs = [
-        ("train_steps", dict(generation="legacy", global_b=2, steps=2, reference=ref)),
+        ("train_steps", dict(generation="legacy", global_b=2, steps=2, reference=w.ONE_PROCESS)),
         ("tp_layout", {}),
     ]
     out = run_ranks(w.jobs, 4, tmp / "ranks", specs, model_parallel=2, timeout=600)
-    yield run, out
+    yield out[0][0]["reference"], out
     shutil.rmtree(tmp, ignore_errors=True)
 
 

@@ -15,6 +15,7 @@ Pillow unimported (this process has jax loaded by conftest).
 import os
 import pickle
 import re
+import shutil
 import subprocess
 import sys
 
@@ -51,7 +52,8 @@ def voc_and_checkpoint(tmp_path_factory):
     params = init_detector_params(model, jax.random.key(3), canvas=64)
     ckpt = str(root / "legacy.pth.tar")
     save_torch_checkpoint(ckpt, params, "legacy")
-    return str(root), ckpt
+    yield str(root), ckpt
+    shutil.rmtree(root, ignore_errors=True)  # the 0.98 GB checkpoint
 
 
 def _args(root, ckpt, dump):

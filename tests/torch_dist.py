@@ -6,9 +6,9 @@ process group through ``parallel.mesh.init_distributed`` with a
 so tests under xdist cannot collide), one torch thread each, and
 ``FRT_TORCH_DEVICE=cpu``. Each runs ``fn(rank, *args)`` (a function of
 an importable module that does not import jax) and its result is read
-back with ``torch.load``. Every spawn has its own timeout: a rank that
-hangs is killed and fails its test, and a rank that raises fails it with
-its traceback.
+back with ``torch.load``, its file removed once read. Every spawn has its
+own timeout: a rank that hangs is killed and fails its test, and a rank
+that raises fails it with its traceback.
 """
 
 from __future__ import annotations
@@ -74,4 +74,9 @@ def run_ranks(fn, world: int, tmp, *args, model_parallel: int = 1, timeout: floa
             f"ranks {hung} hung past {timeout} s; exit codes "
             f"{[p.exitcode for p in procs]}\n" + "\n".join(errors)
         )
-    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(world)]
+    out = []
+    for r in range(world):
+        path = os.path.join(tmp, f"rank{r}.pt")
+        out.append(torch.load(path, weights_only=False))
+        os.remove(path)
+    return out

@@ -12,6 +12,7 @@ would then not be the global mean).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from faster_rcnn_pytorch_tpu_torch.models import faster_rcnn as pfr
+from faster_rcnn_pytorch_tpu_torch.parallel import mesh
 from faster_rcnn_pytorch_tpu_torch.parallel import train_step as pts
 from faster_rcnn_pytorch_tpu_torch.parallel.mesh import layout
 from faster_rcnn_pytorch_tpu_torch.parallel.tensor_parallel import apply_tensor_parallel
@@ -118,6 +120,21 @@ def errors(got: dict, want: dict) -> dict:
     return out
 
 
+ONE_PROCESS = "one_process"  # train_steps' reference computed in the rank itself
+
+
+@contextlib.contextmanager
+def one_process():
+    """This rank's code as one process runs it: the layout of a world of
+    1 (no DDP, no tensor parallelism, no reduced counts) while inside."""
+    saved = mesh._LAYOUT
+    mesh._LAYOUT = mesh.Layout()
+    try:
+        yield
+    finally:
+        mesh._LAYOUT = saved
+
+
 def train_steps(
     rank, generation, global_b, steps, accum=1, noise=None, record_counts=False, weights=None,
     batch_invariant=False, reference=None,
@@ -125,30 +142,41 @@ def train_steps(
     """``steps`` steps of the DDP train step on this rank's rows of one
     seeded global batch. Returns the metrics of each step, the first
     step's gradients and the parameters after the last (single-device
-    layout, from rank 0 only; with ``reference``, a file of
-    ``{"grads", "params"}``, their :func:`errors` against it instead), a
-    digest of every local parameter (to check that replicas agree bit for
-    bit) and, with ``record_counts``,
-    the loss counts this rank saw at each step. ``noise``: the global
-    batch's ``TrainNoise`` in place of the generator (one step);
-    ``weights``: a state dict file to start from. ``batch_invariant``:
-    convolutions without oneDNN, whose CPU kernels for ResNet50's small
-    late maps round an image differently in a batch of one and of two
-    (P5 by 2e-6), which a ReLU or a tie can then amplify: the
-    comparison of one image a rank with two in one process is then like
-    with like."""
+    layout, from rank 0 only), a digest of every local parameter (to check
+    that replicas agree bit for bit) and, with ``record_counts``, the loss
+    counts this rank saw at each step. ``noise``: the global batch's
+    ``TrainNoise`` in place of the generator (one step); ``weights``: a
+    state dict file to start from. ``batch_invariant``: convolutions
+    without oneDNN, whose CPU kernels for ResNet50's small late maps round
+    an image differently in a batch of one and of two (P5 by 2e-6), which a
+    ReLU or a tie can then amplify: the comparison of one image a rank
+    with two in one process is then like with like.
+
+    ``reference``: rank 0 returns the :func:`errors` of its gradients and
+    parameters against a reference in their place. :data:`ONE_PROCESS`
+    runs the same steps on the whole global batch here, as one process
+    does (:func:`one_process`), and adds that run's metrics and parameter
+    digests as ``out["reference"]``: nothing of the size of the model
+    crosses a process or touches the disk. Otherwise it names a file of
+    ``{"grads", "params"}``."""
     mkldnn = torch.backends.mkldnn.enabled
     torch.backends.mkldnn.enabled = not batch_invariant and mkldnn
     try:
         out = _setup_and_train(
             rank, generation, global_b, steps, accum, noise, record_counts, weights
         )
+        if rank != 0 or reference is None:
+            return out
+        if reference == ONE_PROCESS:
+            with one_process():
+                ref = _setup_and_train(0, generation, global_b, steps, accum, noise, False, weights)
+            out["reference"] = {"metrics": ref["metrics"], "digests": ref["digests"]}
+        else:
+            ref = torch.load(reference, weights_only=True, mmap=True)
     finally:
         torch.backends.mkldnn.enabled = mkldnn
-    if reference and rank == 0:
-        ref = torch.load(reference, weights_only=True, mmap=True)
-        for key in ("grads", "params"):
-            out[key] = errors(out[key], ref[key]) if key in ref else None
+    for key in ("grads", "params"):
+        out[key] = errors(out[key], ref[key]) if key in ref else None
     return out
 
 

@@ -5,8 +5,9 @@ generation (``--generation legacy``: VGG16, 21 classes, ``LEGACY_CONFIG``
 budgets; ``--generation fpn``: ResNet50-FPN, 91 classes, raw COCO ids,
 ``FPN_CONFIG`` budgets; both with seeded random weights, the 800x1344
 canvas, batch 2 and one repeated synthetic batch; ``--dense``: the smoke's
-dense scene, gt padded to 512 slots with 300-500 boxes an image, where
-the RoI targets' IoU runs through its kernel's match mode, once a step)
+dense scene, gt padded to 512 slots (FPN: 640) with 300-500 boxes an
+image, where the RoI targets' IoU runs through its kernel's match mode,
+once a step)
 and prints, per dtype (float32 with TF32 off, bfloat16 autocast):
 
 1. rate: ``--repeats`` runs of 20 steps of ``make_train_step``
@@ -43,7 +44,6 @@ import platform
 import statistics
 import subprocess
 import sys
-import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -51,15 +51,8 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from faster_rcnn_pytorch_tpu_torch.engine.train import epoch_generator  # noqa: E402
-from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import (  # noqa: E402
-    device_anchors,
-    draw_train_noise,
-    train_losses,
-    train_targets,
-)
 from faster_rcnn_pytorch_tpu_torch.ops import nms as nms_mod  # noqa: E402
 from faster_rcnn_pytorch_tpu_torch.parallel.train_step import (  # noqa: E402
-    apply_gradients,
     init_train_state,
     make_lr_schedule,
     make_optimizer,
@@ -76,12 +69,6 @@ def host_line() -> str:
         model = names[0] if names else model
     load = ", ".join(f"{x:.2f}" for x in os.getloadavg())
     return f"host: {model}, {os.cpu_count()} cpus, load average {load}"
-
-
-def _sync(device) -> float:
-    if device.type == "cuda":
-        torch.cuda.synchronize()
-    return time.perf_counter()
 
 
 def _steady_summary(times, launches, batch_size, skip) -> str:
@@ -104,9 +91,9 @@ def run_rate(model, init, cfg, dtype, device, batch, steps, repeats, warmup) -> 
         times, launches, losses = [], [], []
         for _ in range(steps):
             nms_mod.nms_segments_cuda.launches = 0
-            t0 = _sync(device)
+            t0 = cs._sync(device)
             metrics = step_fn(state, batch, gen)
-            times.append(_sync(device) - t0)
+            times.append(cs._sync(device) - t0)
             launches.append(nms_mod.nms_segments_cuda.launches)
             losses.append(float(metrics["loss"]))
         print(
@@ -127,42 +114,16 @@ def run_stages(model, init, cfg, dtype, device, batch, steps, warmup, determinis
     name = str(dtype).removeprefix("torch.")
     model.load_state_dict(init)
     state = init_train_state(model, make_optimizer(model))
-    schedule = make_lr_schedule("constant", cs.TRAIN_LR, 1, steps)
-    canvas_hw = tuple(batch["image"].shape[1:3])
-    anchors = device_anchors(model, *canvas_hw, device)
-    n_cand = cfg.post_nms_train + batch["gt_boxes"].shape[1]
-    gen = epoch_generator(cs.SEED, 0, device)
-    autocast = torch.autocast(device.type, dtype=torch.bfloat16, enabled=dtype != torch.float32)
-    rows, launches, iou_launches = [], [], [cs._iou_launches()]
-    for _ in range(steps):
-        nms_mod.nms_segments_cuda.launches = 0
-        t0 = _sync(device)
-        state.optimizer.zero_grad(set_to_none=True)
-        with autocast:
-            feats = model.features(batch["image"].permute(0, 3, 1, 2).contiguous())
-            rpn_cls, rpn_reg = model.rpn_out(feats)
-            t1 = _sync(device)
-            noise = draw_train_noise(gen, cs.TRAIN_BATCH, anchors.shape[0], n_cand, device)
-            targets = train_targets(
-                cfg, anchors, rpn_cls, rpn_reg, *(batch[k] for k in cs.BATCH_KEYS[1:]), noise
-            )
-            t2 = _sync(device)
-            out = train_losses(model, cfg, feats, rpn_cls, rpn_reg, *targets, canvas_hw)
-            t3 = _sync(device)
-        out.losses.total.backward()
-        t4 = _sync(device)
-        apply_gradients(state, schedule)
-        t5 = _sync(device)
-        rows.append([t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4, t5 - t0])
-        iou_launches.append(cs._iou_launches())
-        launches.append(nms_mod.nms_segments_cuda.launches)
+    rows, launches = cs.train_stage_rows(
+        state, cfg, batch, dtype, steps, epoch_generator(cs.SEED, 0, device)
+    )
     med = [1000 * statistics.median(r[i] for r in rows[warmup:]) for i in range(6)]
+    nms = [n for n, _ in launches[warmup:]]
     print(
         f"stages {name} cudnn deterministic={deterministic}, ms per step (median of steps "
-        f"{warmup + 1}-{steps}): backbone+rpn fwd {med[0]:.2f}, propose+targets {med[1]:.2f}, "
-        f"head+loss fwd {med[2]:.2f}, backward {med[3]:.2f}, sgd {med[4]:.2f}, total {med[5]:.2f}; "
-        f"NMS launches per step {min(launches[warmup:])}-{max(launches[warmup:])}; "
-        f"IoU kernel launches {iou_launches[-1] - iou_launches[0]} in {steps} steps",
+        f"{warmup + 1}-{steps}): {', '.join(f'{k} {v:.2f}' for k, v in zip(cs.TRAIN_STAGES, med))}, "
+        f"total {med[5]:.2f}; NMS launches per step {min(nms)}-{max(nms)}; "
+        f"IoU kernel launches {sum(i for _, i in launches)} in {steps} steps",
         flush=True,
     )
 
@@ -178,10 +139,10 @@ def run_profile(model, init, cfg, dtype, device, batch) -> None:
         step_fn(state, batch, gen)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        t0 = _sync(device)
+        t0 = cs._sync(device)
         for _ in range(3):
             step_fn(state, batch, gen)
-        wall = _sync(device) - t0
+        wall = cs._sync(device) - t0
 
     def device_us(e):
         return getattr(e, "self_device_time_total", 0)
@@ -242,7 +203,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.benchmark = False
     cfg, labels = cs._train_setup(args.generation)
     print(f"generation {args.generation}{' dense' if args.dense else ''}", flush=True)
-    gt = dict(max_gt=cs.DENSE_MAX_GT, boxes=cs.DENSE_BOXES) if args.dense else {}
+    gt = dict(max_gt=cs.dense_max_gt(args.generation), boxes=cs.DENSE_BOXES) if args.dense else {}
     batch = cs._to_device(
         cs.synthetic_train_batch(tuple(args.canvas), cs.SEED + 4, labels=labels, **gt), device
     )
