@@ -208,7 +208,8 @@ CUDA card, builds the port's kernels from the sources in the checkout
    legacy VOC detector (``save_torch_checkpoint``). ``--pretrained_backbone
    auto`` through ``utils.checkpoint.init_params`` (``main``'s call), both
    generations: the backbone on the card equals the file bit for bit and
-   every other tensor the seeded fresh init; then 3 float32 train steps
+   every other tensor the CLI's seeded fresh init (``init_detector_weights``,
+   the JAX package's init distributions); then 3 float32 train steps
    at 800x1344, batch 2 (legacy 21 classes, FPN 91), counts reset just
    before and read just after: the head's forward and backward kernels
    and NMS once a step, losses finite. ``--checkpoint pretrained``
@@ -234,7 +235,9 @@ CUDA card, builds the port's kernels from the sources in the checkout
    counts reset just before ``main`` and read after the test CLIs: every
    logged loss finite, the head's forward and backward kernels and NMS
    launched at least once a step, the other head's never, best AP50 >=
-   0.55; then the best checkpoint through the port's ``test`` CLI at
+   0.55, its curve printed beside the JAX package's 8-epoch records
+   (``*_voc_shapes_r3_headcheck``); then the best checkpoint through the
+   port's ``test`` CLI at
    ``--dtype float32`` (TF32 off) and ``bfloat16`` on 800 test scenes of
    the same generator (the 160 and 640 more): mAPs within 0.01, their
    detections' greedy pairing printed. The AP50 curve, the train
@@ -2825,6 +2828,7 @@ def check_pretrained(device) -> dict:
     identical float32 detections at 800x1344 with RoIPool and NMS
     launched. Returns the launch counts of the phase."""
     from faster_rcnn_pytorch_tpu_torch.config import load_options
+    from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import init_detector_weights
     from faster_rcnn_pytorch_tpu_torch.utils.checkpoint import (
         init_params,
         load_detector,
@@ -2853,14 +2857,15 @@ def check_pretrained(device) -> dict:
             _require(opts.pretrained_backbone == paths[name], f"auto resolved to {opts.pretrained_backbone}")
             model = model.to(device)
             staged = load_reference_checkpoint(paths[name])
-            fresh = _new_model(generation).state_dict()
+            fresh, _ = build_model(generation, opts.num_classes)
+            fresh = init_detector_weights(fresh, torch.Generator().manual_seed(opts.seed)).state_dict()
             n_file = 0
             for k, v in model.state_dict().items():
                 if k.startswith(prefix) and not k.endswith("num_batches_tracked"):
                     n_file += 1
                     _require(torch.equal(v, staged[source + k[len(prefix):]].to(device)), f"{k} is not the file's")
                 else:
-                    _require(torch.equal(v.cpu(), fresh[k]), f"{k} is not the fresh init")
+                    _require(torch.equal(v.cpu(), fresh[k]), f"{k} is not the CLI's fresh init")
             _require(n_file == (26 if generation == "legacy" else 265), f"{n_file} tensors from the file")
             cfg, labels = _train_setup(generation)
             batch = synthetic_train_batch(CANVAS, PRETRAINED_SEED, labels=labels)
@@ -2996,6 +3001,14 @@ def check_shapes_voc(device) -> dict:
         _require_slots_idle(f"phase 28 {generation}")
         for k, n in counts.items():
             total[k] += n
+        record = shapes_recipe.jax_record("voc", generation, SHAPES_EPOCHS)
+        print(
+            f"phase 28 {generation}: AP50 by epoch, the JAX package's {record['name']} (TPU v5e, its own "
+            f"init and seed) {' '.join(f'{v:.4f}' for v in record['map_by_epoch'])} (best "
+            f"{record['best_map']:.4f}); this run {' '.join(f'{v:.4f}' for v in run['map_by_epoch'])} "
+            f"(best {run['best_map']:.4f})",
+            flush=True,
+        )
         print(
             f"phase 28 {generation}: AP50 by epoch {' '.join(f'{v:.4f}' for v in run['map_by_epoch'])} "
             f"(best {run['best_map']:.4f}, final {run['final_map']:.4f}); train loop "

@@ -189,9 +189,10 @@ class LegacyFRCNN(nn.Module):
     def canvas_anchors(self, height: int, width: int):
         return legacy_anchors(height, width)
 
-    def init_stds(self) -> dict:
-        """The reference's head inits; every other conv and linear layer is
-        He-normal (keeps activations O(1) through the 15 ReLU layers)."""
+    def head_stds(self) -> dict:
+        """The heads' N(0, std) inits, the JAX package's (and the
+        reference's): the RPN convs at 0.01, the class head at 0.01, the
+        box head at 0.001."""
         return {
             self.rpn.inter_layer: 0.01,
             self.rpn.cls_layer: 0.01,
@@ -199,6 +200,12 @@ class LegacyFRCNN(nn.Module):
             self.fast_rcnn_head.cls_head: 0.01,
             self.fast_rcnn_head.reg_head: 0.001,
         }
+
+    def init_stds(self) -> dict:
+        """The fixtures' init (:func:`init_weights`): the heads'; every
+        other conv and linear layer is He-normal (keeps activations O(1)
+        through the 15 ReLU layers)."""
+        return self.head_stds()
 
 
 class FPNFRCNN(nn.Module):
@@ -242,8 +249,9 @@ class FPNFRCNN(nn.Module):
         return fpn_anchors(height, width, strides=self.strides)
 
     def init_stds(self) -> dict:
-        """Seeded-init scales that keep P2..P6 O(1) with identity FrozenBN
-        (std about 1-3 at 800x1344): each bottleneck's last conv at 0.25
+        """The fixtures' init (:func:`init_weights`): scales that keep
+        P2..P6 O(1) with identity FrozenBN (std about 1-3 at 800x1344):
+        each bottleneck's last conv at 0.25
         and its downsample at 0.7 of He, so the residual sums do not
         double the variance block after block; the FPN convs, whose inputs
         are not rectified, at ``1 / sqrt(fan_in)``. The heads as the
@@ -262,27 +270,84 @@ class FPNFRCNN(nn.Module):
         for conv in self.backbone.fpn.modules():
             if isinstance(conv, nn.Conv2d):
                 stds[conv] = 1.0 / math.sqrt(conv.weight[0].numel())
-        head = self.rpn["rpn_head"]
-        stds.update(
-            {
-                head.inter_layer: 0.01,
-                head.cls_layer: 0.01,
-                head.reg_layer: 0.01,
-                self.frcnn_head.cls_head: 0.02,
-                self.frcnn_head.reg_head: 0.001,
-            }
-        )
+        stds.update(self.head_stds())
+        stds[self.frcnn_head.cls_head] = 0.02
         return stds
+
+    def head_stds(self) -> dict:
+        """The heads' N(0, std) inits, the JAX package's (and the
+        reference's): the shared RPN head's convs at 0.01, the class head
+        at 0.01, the box head at 0.001."""
+        head = self.rpn["rpn_head"]
+        return {
+            head.inter_layer: 0.01,
+            head.cls_layer: 0.01,
+            head.reg_layer: 0.01,
+            self.frcnn_head.cls_head: 0.01,
+            self.frcnn_head.reg_head: 0.001,
+        }
 
 
 def _he_std(m: nn.Module) -> float:
     return math.sqrt(2.0 / m.weight[0].numel())
 
 
+# The std of a standard normal cut at +-2: flax's ``variance_scaling``
+# divides by it so that its truncated normal keeps the asked-for variance.
+TRUNCATED_NORMAL_STD = 0.87962566103423978
+
+
+def _truncated_normal(shape, generator: torch.Generator) -> torch.Tensor:
+    """A standard normal cut at +-2 (std ``TRUNCATED_NORMAL_STD``), drawn
+    by rejection: every draw outside the cut is drawn again until none is
+    left (4.6% the first time). ``torch.nn.init.trunc_normal_`` draws the
+    same distribution through ``erfinv``, 8x slower on a CPU core: 8 s
+    for the legacy fc6."""
+    flat = torch.empty(shape).normal_(generator=generator).view(-1)
+    idx = (flat.abs() > 2).nonzero().squeeze(1)
+    while idx.numel():
+        redraw = torch.randn(idx.numel(), generator=generator)
+        flat[idx] = redraw
+        idx = idx[redraw.abs() > 2]
+    return flat.view(shape)
+
+
+def init_detector_weights(model, generator: torch.Generator):
+    """The fresh init every CLI starts from
+    (``utils/checkpoint.py::init_params``): the distributions of the JAX package's ``init_detector_params``, layer
+    for layer, drawn from ``generator`` (the JAX PRNG stream is not
+    reproduced). The heads get N(0, std) from the model's ``head_stds``;
+    every other conv and linear layer (VGG16's convs; ResNet50's, stem and
+    downsample included; the FPN's laterals and outputs; fc6 and fc7)
+    flax's default ``lecun_normal``: a normal of std
+    ``sqrt(1 / fan_in) / TRUNCATED_NORMAL_STD`` cut at twice that std,
+    whose std is then ``sqrt(1 / fan_in)``, with ``fan_in`` the inputs of
+    one output unit (``cin * kh * kw``). Biases are zero; FrozenBN keeps
+    its identity statistics."""
+    heads = model.head_stds()
+    with torch.no_grad():
+        for m in model.modules():
+            if not isinstance(m, (nn.Conv2d, nn.Linear)):
+                continue
+            if m in heads:
+                w = torch.empty(m.weight.shape).normal_(0.0, heads[m], generator=generator)
+            else:
+                std = math.sqrt(1.0 / m.weight[0].numel()) / TRUNCATED_NORMAL_STD
+                w = _truncated_normal(m.weight.shape, generator) * std
+            m.weight.copy_(w)
+            if m.bias is not None:
+                m.bias.zero_()
+    return model
+
+
 def init_weights(model, generator: torch.Generator):
-    """Seeded random init: N(0, std) weights with the model's
-    ``init_stds`` and He-normal elsewhere, zero biases. FrozenBN keeps its
-    identity statistics (scale 1, bias 0, mean 0, var 1)."""
+    """The fixtures' seeded random init, *not* the JAX package's
+    distribution (that is :func:`init_detector_weights`, which every CLI
+    uses): N(0, std) weights with the model's ``init_stds`` and He-normal
+    elsewhere, zero biases. FrozenBN keeps its identity statistics (scale
+    1, bias 0, mean 0, var 1). Tests that only need random weights,
+    ``tools/predict_stages.py`` and ``chip_smoke.py``'s kernel phases use
+    it: its detections at random weights are free of ties."""
     small = model.init_stds()
     with torch.no_grad():
         for m in model.modules():
@@ -617,7 +682,8 @@ def build_model(
     remat: bool = False,
 ):
     """Model + config factory (float32 parameters, uninitialised beyond
-    PyTorch's defaults: load a state dict or call :func:`init_weights`).
+    PyTorch's defaults: load a state dict or call
+    :func:`init_detector_weights`).
     ``label_offset`` overrides the config's (see :func:`label_offset_for`).
     ``remat`` (``--remat_backbone``): the backbone recomputes its
     activations in the backward, VGG16 whole and ResNet50 per

@@ -298,17 +298,18 @@ def init_params(model: torch.nn.Module, opts) -> str:
     ``main.init_params``), loaded into ``model`` in place; returns a note.
     A reference ``.pth``/``.pth.tar`` (or ``pretrained``) is imported
     whole, through :func:`load_reference_weights`; otherwise the model
-    gets the fresh init seeded by ``opts.seed`` and then, with
-    ``--pretrained_backbone``, the ImageNet backbone
+    gets the fresh init seeded by ``opts.seed`` (the JAX package's
+    distributions, ``models/faster_rcnn.py::init_detector_weights``) and
+    then, with ``--pretrained_backbone``, the ImageNet backbone
     (:func:`load_pretrained_backbone`). A port ``.pt`` checkpoint is
     loaded over this by the caller."""
-    from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import init_weights
+    from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import init_detector_weights
 
     resolve_weight_specs(opts)
     if opts.checkpoint.endswith((".pth.tar", ".pth")):
         load_reference_weights(model, opts.checkpoint, opts.model_generation)
         return f"imported torch checkpoint {opts.checkpoint}"
-    init_weights(model, torch.Generator().manual_seed(opts.seed))
+    init_detector_weights(model, torch.Generator().manual_seed(opts.seed))
     note = f"fresh init with seed {opts.seed}"
     if opts.pretrained_backbone:
         load_pretrained_backbone(model, opts.pretrained_backbone, opts.model_generation)

@@ -16,9 +16,11 @@ params that the JAX ``init_params`` returns from the same cache:
 * ``--checkpoint pretrained``: JAX fetches and imports the staged
   detector whole;
 * ``--pretrained_backbone auto``: JAX starts from its fresh init, here
-  replaced by the port's seeded one (``init_detector_params`` returns it,
-  imported through ``import_legacy_torch_params``, so that the two fresh
-  inits agree), and merges the staged VGG16 into it.
+  replaced by the port's seeded one (``init_detector_weights``, which
+  draws the JAX distributions from another stream;
+  ``init_detector_params`` returns it, imported through
+  ``import_legacy_torch_params``, so that the two fresh inits agree),
+  and merges the staged VGG16 into it.
 
 ``main`` and ``test`` with several processes resolve both flags in the
 parent: ``torch.multiprocessing.spawn`` is replaced by a recorder (real
@@ -56,7 +58,7 @@ class _Stop(Exception):
 
 def _seeded_legacy(seed: int):
     model, _ = pfr.build_model("legacy", 21)
-    return pfr.init_weights(model, torch.Generator().manual_seed(seed))
+    return pfr.init_detector_weights(model, torch.Generator().manual_seed(seed))
 
 
 @pytest.fixture(scope="module")

@@ -223,7 +223,7 @@ def test_test_cli_scores_the_best_epoch_main_wrote(two_epoch_run, voc_root, caps
 
 
 def test_a_test_epoch_without_a_file_takes_the_seeded_init(two_epoch_run):
-    from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import build_model, init_weights
+    from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import build_model, init_detector_weights
     from faster_rcnn_pytorch_tpu_torch.utils.checkpoint import resolve_and_load_params
 
     log_dir, _ = two_epoch_run
@@ -233,7 +233,7 @@ def test_a_test_epoch_without_a_file_takes_the_seeded_init(two_epoch_run):
     missing = os.path.join(log_dir, "run", "saves", "run.0.pt")
     assert note == f"no checkpoint at {missing}; fresh init with seed 3"
     want, _ = build_model("legacy", 21)
-    init_weights(want, torch.Generator().manual_seed(3))
+    init_detector_weights(want, torch.Generator().manual_seed(3))
     for k, v in want.state_dict().items():
         assert torch.equal(model.state_dict()[k], v), k
 
