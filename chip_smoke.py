@@ -217,6 +217,29 @@ CUDA card, builds the port's kernels from the sources in the checkout
    path through ``resolve_and_load_params`` (``test``): identical weights
    and identical float32 detections at 800x1344 (8 images), RoIPool and
    NMS launched. Step p50 and the phase's wall time are printed.
+26. the real-data drill and the single-image tutorial, under
+   ``build/chip_smoke_preflight/`` (removed after): ``tools/make_shapes_voc.py``
+   writes 8 train and 24 test scenes (a subprocess), and a seeded legacy
+   VOC ``frcnn.best.pth.tar`` (``save_torch_checkpoint``); the drill's
+   ``main`` (``faster_rcnn_pytorch_tpu_torch/tools/preflight_real_data.py``)
+   in this process at the default ``--resize 800`` with
+   ``FRT_PREFLIGHT_LIMIT=20``, in float32 (TF32 off) and bfloat16, counts
+   reset just before and read just after: the census's ``params`` is the
+   model's, RoIPool and NMS launched (NMS twice a predict call), the
+   align and IoU kernels never, 20 images taken, and in float32 the
+   drill's detections equal those of the first 20 images of one
+   unbounded eval of the 24 bit for bit. Then the FPN drill on
+   ``tools/make_shapes_coco.py`` scenes (4 and 24) with ``--data_type
+   coco --num_classes 91`` and the seeded fresh init, bfloat16: both
+   splits counted, the align kernel and NMS launched, RoIPool never. Then
+   ``examples/tutorial_torch.py``'s functions on a seeded 375x500 JPEG
+   with that checkpoint, bfloat16, at 0.05: detections equal direct
+   ``predict`` on its canvas, RoIPool and NMS launched; and the script as
+   a subprocess (at its own 0.5, the checkpoint's class head made
+   constant so that every roi scores ~1.0): exit 0, more than 0
+   detections printed, and ``tutorial_out.png`` the JPEG with their
+   boxes drawn. The phase's wall time and the drills' eval img/s are printed
+   with the card's name and power limit.
 27. main path, FPN dense-scene train: phases 15 and 16 for the FPN
    generation, the gt padded to 640 slots (``FPN_DENSE_MAX_GT``, the
    generation's IoU kernel gate) with 300-500 small boxes an image under
@@ -246,17 +269,19 @@ CUDA card, builds the port's kernels from the sources in the checkout
 
 The ranks of phases 21, 22 and 24 send their kernel launch counts back
 (the slot-lattice align kernel's must stay 0). Its last two lines are the
-kernels' JSON record (``launches``: phases 3, 6, 9, 12, 15, 21-24, 25, 27
-and 28; ``serving_launches``: phases 18-20) and ``{"ok": true, "device":
+kernels' JSON record (``launches``: phases 3, 6, 9, 12, 15, 21-24, 25-28; ``serving_launches``: phases 18-20) and ``{"ok": true, "device":
 {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import io
 import json
 import os
+import pickle
+import re
 import shutil
 import statistics
 import subprocess
@@ -2924,6 +2949,211 @@ def check_pretrained(device) -> dict:
     return total
 
 
+PREFLIGHT_DIR = os.path.join(BUILD, "chip_smoke_preflight")  # phase 26's trees, checkpoint, drawing
+PREFLIGHT_LIMIT = 20  # FRT_PREFLIGHT_LIMIT, the drill's default
+PREFLIGHT_SEED = SEED + 26  # the checkpoint's weights and the tutorial's JPEG
+TUTORIAL_CLASS = 15  # the class head's one live output in the tutorial script's checkpoint
+TUTORIAL = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", "tutorial_torch.py")
+
+
+def _run_drill(argv: list[str]) -> tuple[dict, dict]:
+    """The drill's ``main(argv)`` in this process under
+    ``FRT_PREFLIGHT_LIMIT``, the kernels' counts reset just before and read
+    just after. Returns its JSON reports by name (``layout``,
+    ``checkpoint``, ``mini eval``, plus its eval ``img/s``) and the
+    counts. Its output is printed after it."""
+    from faster_rcnn_pytorch_tpu_torch.tools import preflight_real_data as drill
+
+    saved = os.environ.get(drill.LIMIT_ENV)
+    os.environ[drill.LIMIT_ENV] = str(PREFLIGHT_LIMIT)
+    out = io.StringIO()
+    for k in PATH_KERNELS:
+        k.launches = 0
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = drill.main(argv)
+    finally:
+        counts = {k.__name__: k.launches for k in PATH_KERNELS}
+        if saved is None:
+            os.environ.pop(drill.LIMIT_ENV)
+        else:
+            os.environ[drill.LIMIT_ENV] = saved
+        print(out.getvalue(), end="", flush=True)
+    _require(rc == 0, f"the drill {argv} returned {rc}")
+    text = out.getvalue()
+    reports = {
+        m.group(1): json.loads(m.group(2))
+        for m in re.finditer(r"^\[preflight\] (layout|checkpoint|mini eval) ok: (\{.*\})$", text, re.M)
+    }
+    speed = re.search(r"eval inference: \d+ images in [\d.]+s \(([\d.]+) img/s\)", text)
+    _require(speed and {"layout", "mini eval"} <= reports.keys(), f"the drill printed:\n{text}")
+    reports["img/s"] = float(speed.group(1))
+    return reports, counts
+
+
+def _load_tutorial():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("tutorial_torch", TUTORIAL)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def check_preflight_and_tutorial(device, card: str) -> dict:
+    """Phase 26: the real-data drill
+    (``faster_rcnn_pytorch_tpu_torch/tools/preflight_real_data.py``) and
+    the single-image tutorial (``examples/tutorial_torch.py``) on
+    generated trees under ``PREFLIGHT_DIR`` (removed after). (a) Legacy on
+    VOC (``tools/make_shapes_voc.py``, 8 train and 24 test scenes) with a
+    seeded ``frcnn.best.pth.tar`` at the default ``--resize 800``, in
+    float32 (TF32 off) and bfloat16: the census's ``params`` is the
+    model's, RoIPool and NMS (twice a predict call) launched, the align
+    and IoU kernels never, ``PREFLIGHT_LIMIT`` images taken; in float32
+    the drill's detections are those of the first ``PREFLIGHT_LIMIT``
+    images of one unbounded eval of the 24, bit for bit. (b) FPN on COCO
+    (``tools/make_shapes_coco.py``, 4 and 24) with the seeded fresh init,
+    bfloat16: both splits counted, the align kernel and NMS launched,
+    RoIPool never. (c) The tutorial's functions on a seeded JPEG with
+    (a)'s checkpoint, in its bfloat16, at ``THRESHOLD``: its detections
+    equal direct ``predict`` on its canvas with the same weights and
+    dtype, RoIPool and NMS launched; then ``python
+    examples/tutorial_torch.py <jpeg> <ckpt>`` (at its own 0.5), the
+    checkpoint's class head made constant (``TUTORIAL_CLASS``), exits 0,
+    prints its detections, more than none, and draws them into
+    ``tutorial_out.png``. Returns the launch counts of the drills and the
+    tutorial's in-process call."""
+    from faster_rcnn_pytorch_tpu_torch.config import load_options
+    from faster_rcnn_pytorch_tpu_torch.tools import preflight_real_data as drill
+    from faster_rcnn_pytorch_tpu_torch.tools import shapes_recipe
+    from faster_rcnn_pytorch_tpu_torch.utils.checkpoint import save_torch_checkpoint
+
+    t0 = time.time()
+    _require(os.environ.get("FRT_TORCH_DEVICE") != "cpu", "FRT_TORCH_DEVICE=cpu would send the drill to the CPU")
+    shutil.rmtree(PREFLIGHT_DIR, ignore_errors=True)
+    voc, coco = os.path.join(PREFLIGHT_DIR, "voc"), os.path.join(PREFLIGHT_DIR, "coco")
+    logs = os.path.join(PREFLIGHT_DIR, "logs")  # no checkpoint there: (b) takes the fresh init
+    ckpt = os.path.join(PREFLIGHT_DIR, "frcnn.best.pth.tar")
+    total = dict.fromkeys(_launch_counts(), 0)
+    pool, align, nms = (
+        k.__name__ for k in (roi_pool_mod.roi_pool_cuda, roi_align_mod.multiscale_roi_align_cuda, NMS_KERNEL)
+    )
+    try:
+        shapes_recipe.make_data(voc, 8, 24)
+        shapes_recipe.make_data(coco, 4, 24, data="coco")
+        model, _ = build_model("legacy", NUM_CLASSES)
+        # He-init heads: class scores past the threshold, so the detections compared are not empty
+        save_torch_checkpoint(ckpt, init_weights(model, torch.Generator().manual_seed(PREFLIGHT_SEED)))
+        n_params = sum(p.numel() for p in model.parameters())
+
+        voc_argv = ["--data_type", "voc", "--data_root", voc, "--checkpoint", ckpt, "--log_dir", logs]
+        speeds = {}
+        dump = os.path.join(PREFLIGHT_DIR, "drill.pkl")
+        for dtype_name in ("float32", "bfloat16"):
+            reports, counts = _run_drill(voc_argv + ["--dtype", dtype_name, "--dump_detections", dump])
+            census, mini = reports["checkpoint"], reports["mini eval"]
+            _require(census["params"] == n_params and census["torch_keys"] == len(model.state_dict()),
+                     f"census {census}: the model has {n_params} parameters in {len(model.state_dict())} tensors")
+            _require(mini["images"] == PREFLIGHT_LIMIT, f"the {dtype_name} drill took {mini['images']} images")
+            _require(counts[pool] > 0 and counts[nms] == 2 * PREFLIGHT_LIMIT, f"{dtype_name} drill: {counts}")
+            _require(counts[align] == 0 and not any(counts[k.__name__] for k in IOU_KERNELS),
+                     f"{dtype_name} drill: {counts}")
+            speeds[f"legacy VOC {dtype_name}"] = reports["img/s"]
+            for k, n in counts.items():
+                total[k] += n
+            if dtype_name == "float32":
+                with open(dump, "rb") as f:
+                    got = pickle.load(f)["predictions"]
+                # max_images=0 evaluates every image: the same path, unbounded
+                full = drill.run_mini_eval(load_options(voc_argv + ["--dtype", "float32"]), 0)["detections"]
+                first = list(full)[:PREFLIGHT_LIMIT]
+                _require(len(full) == 24 and list(got) == first, f"the drill took {list(got)}, not {first}")
+                _require(_detections_equal(got, {i: full[i] for i in first}),
+                         "the drill's float32 detections differ from the unbounded eval's first images")
+                n_det = sum(len(d["scores"]) for d in got.values())
+                _require(n_det > 0, "the float32 drill found no detections to compare")
+                print(f"phase 26: float32 drill == the first {PREFLIGHT_LIMIT} of 24 images bit for bit "
+                      f"({n_det} detections)", flush=True)
+
+        reports, counts = _run_drill([
+            "--data_type", "coco", "--model_generation", "fpn", "--num_classes", str(FPN_CLASSES),
+            "--data_root", coco, "--dtype", "bfloat16", "--log_dir", logs,
+        ])
+        layout = reports["layout"]
+        _require(layout["train2017"]["images"] == 4 and layout["val2017"]["images"] == 24, f"layout {layout}")
+        _require(reports["mini eval"]["images"] == PREFLIGHT_LIMIT, f"FPN drill: {reports['mini eval']}")
+        _require(counts[align] > 0 and counts[nms] > 0 and counts[pool] == 0, f"FPN drill: {counts}")
+        speeds["FPN COCO bfloat16"] = reports["img/s"]
+        for k, n in counts.items():
+            total[k] += n
+
+        tutorial = _load_tutorial()
+        # This module instance only: the tutorial's 0.5 keeps none of a random head's scores.
+        tutorial.THRESHOLD = THRESHOLD
+        jpeg = os.path.join(PREFLIGHT_DIR, "tutorial.jpg")
+        with open(jpeg, "wb") as f:
+            f.write(_jpeg(PREFLIGHT_SEED, 375, 500))
+        dtype = set_numerics(tutorial.DTYPE)
+        model, cfg = tutorial.load_model(ckpt)
+        model = prepare_for_inference(model, device, dtype)
+        raw = load_image(jpeg)
+        for k in PATH_KERNELS:
+            k.launches = 0
+        boxes, labels, scores = tutorial.detect_image(model, cfg, raw)
+        counts = {k.__name__: k.launches for k in PATH_KERNELS}
+        _require(counts[pool] > 0 and counts[nms] == 2, f"tutorial: {counts}")
+        _require(len(scores) > 0, "the tutorial found no detections to compare")
+        for k, n in counts.items():
+            total[k] += n
+        canvas, extent, (h, w) = tutorial.to_canvas(raw)
+        det = predict(model, cfg, torch.from_numpy(canvas[None]).to(device),
+                      torch.from_numpy(extent[None]).to(device), tutorial.THRESHOLD)
+        valid = det.valid[0].cpu().numpy()
+        (ch, cw), (oh, ow) = canvas.shape[:2], raw.shape[:2]
+        want = det.boxes[0].float().cpu().numpy()[valid] * np.array([cw, ch, cw, ch])
+        want = want / np.array([w, h, w, h]) * np.array([ow, oh, ow, oh])
+        _require(np.array_equal(boxes, want) and np.array_equal(labels, det.labels[0].cpu().numpy()[valid])
+                 and np.array_equal(scores, det.scores[0].float().cpu().numpy()[valid]),
+                 "the tutorial's detections differ from direct predict on its canvas")
+        # The script keeps its own 0.5, which no score of the He-init head reaches. Its
+        # checkpoint gets a constant class head, every roi TUTORIAL_CLASS at ~1.0, so that
+        # the script finds detections and draws their boxes.
+        head, _ = tutorial.load_model(ckpt)
+        with torch.no_grad():
+            head.fast_rcnn_head.cls_head.weight.zero_()
+            head.fast_rcnn_head.cls_head.bias.zero_()
+            head.fast_rcnn_head.cls_head.bias[TUTORIAL_CLASS] = 10.0
+        save_torch_checkpoint(ckpt, head)
+        del head
+        proc = subprocess.run(
+            [sys.executable, TUTORIAL, jpeg, ckpt], cwd=PREFLIGHT_DIR, capture_output=True, text=True, timeout=600
+        )
+        drawn = os.path.join(PREFLIGHT_DIR, "tutorial_out.png")
+        _require(proc.returncode == 0 and os.path.exists(drawn),
+                 f"tutorial_torch.py exit {proc.returncode}:\n{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+        said = re.search(r"^(\d+) detections$", proc.stdout, re.M)
+        _require(said and int(said.group(1)) > 0, f"tutorial_torch.py printed:\n{proc.stdout[-2000:]}")
+        picture = load_image(drawn)
+        _require(picture.shape == raw.shape and (picture != raw).any(),
+                 f"tutorial_out.png {picture.shape} holds no box over the {raw.shape} image")
+        print(
+            f"phase 26: tutorial {tutorial.DTYPE} {ch}x{cw} canvas of a {oh}x{ow} JPEG: {len(scores)} "
+            f"detections at {tutorial.THRESHOLD} == direct predict, launches {counts}; as a subprocess "
+            f"with a constant class head, {said.group(1)} detections at 0.5 drawn, "
+            f"{os.path.getsize(drawn)} B tutorial_out.png",
+            flush=True,
+        )
+    finally:
+        shutil.rmtree(PREFLIGHT_DIR, ignore_errors=True)
+    _require_slots_idle("phase 26")
+    print(
+        f"phase 26 took {time.time() - t0:.1f} s wall; drill eval img/s "
+        f"{', '.join(f'{k} {v}' for k, v in speeds.items())}; launches {total} ({card})",
+        flush=True,
+    )
+    return total
+
+
 def check_fpn_dense(device) -> dict:
     """Phase 27: phases 15 and 16 for the FPN generation, gt padded to
     ``FPN_DENSE_MAX_GT`` (640) slots. Returns the launches of its 20-step
@@ -3162,9 +3392,10 @@ def main() -> int:
     check_remat(device)
     phase23 = {k: v - before[k] for k, v in _launch_counts().items()}
     phase25 = check_pretrained(device)  # resets the counts; returns its own
+    phase26 = check_preflight_and_tutorial(device, card)  # likewise
     phase27 = check_fpn_dense(device)
     phase28 = check_shapes_voc(device)
-    for counts in (phase21, *phase22, phase23, phase25, phase27, phase28):
+    for counts in (phase21, *phase22, phase23, phase25, phase26, phase27, phase28):
         for rec, kernels in (
             (record, (roi_pool_mod.roi_pool_cuda,)),
             (bwd_record, (roi_pool_mod.roi_pool_backward_cuda,)),
@@ -3178,7 +3409,7 @@ def main() -> int:
     _require(slots_record["launches"] == 0, "a phase after 20 launched the slot-lattice align kernel")
     print(
         f"launches: phase 21 {phase21}; phase 22 {phase22}; phase 23 {phase23}; phase 25 {phase25}; "
-        f"phase 27 {phase27}; phase 28 {phase28} ({card})",
+        f"phase 26 {phase26}; phase 27 {phase27}; phase 28 {phase28} ({card})",
         flush=True,
     )
 

@@ -16,6 +16,7 @@ per-epoch eval and the eval CLIs.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import pickle
 import time
@@ -69,6 +70,8 @@ def evaluate(
     coco_index=None,
     label_map=None,
     score_threshold: float | None = None,
+    max_images: int | None = None,
+    max_detections: int | None = None,
     dump_path: str | None = None,
     plain: bool = False,
     verbose: bool = True,
@@ -78,10 +81,15 @@ def evaluate(
     yielding the loader's batch dicts, ``.batch_size`` and, for VOC,
     ``.records_by_id``) on the model's device.
 
-    VOC keeps every per-class NMS survivor, like the reference's
-    ``_suppress``: the budget is ``post_nms_test * (num_classes - 1)``.
-    COCO keeps the protocol's ``cfg.max_detections`` (100) and scores
-    against ``coco_index`` (a ``data.coco.CocoIndex``). ``label_map`` maps
+    ``max_detections`` is the per-image budget. By default VOC keeps
+    every per-class NMS survivor, like the reference's ``_suppress``: the
+    budget is ``post_nms_test * (num_classes - 1)``; COCO keeps the
+    protocol's ``cfg.max_detections`` (100) and scores against
+    ``coco_index`` (a ``data.coco.CocoIndex``). ``max_images`` stops
+    taking batches once the host-batch rows dispatched reach it (a batch
+    that crosses it is evaluated whole; the rows are the host batch's,
+    ``loader.batch_size`` a batch, so every data rank stops at the same
+    batch); only the images taken are scored. ``label_map`` maps
     a 0-based foreground label to the dataset's id (identity when None).
     ``plain`` is for tests only (see :func:`predict`). ``dtype``: the
     weights are cast to it for the pass and restored after it (the
@@ -95,12 +103,12 @@ def evaluate(
     ``detections`` maps image id to its original-pixel boxes, labels (in
     the dataset's ids) and scores.
     """
-    if data_type == "voc":
-        cfg = dataclasses.replace(
-            cfg, max_detections=cfg.post_nms_test * (cfg.num_classes - 1)
-        )
-    elif data_type != "coco":
+    if data_type not in ("voc", "coco"):
         raise ValueError(f"unknown data_type {data_type!r}")
+    if max_detections is None and data_type == "voc":
+        max_detections = cfg.post_nms_test * (cfg.num_classes - 1)
+    if max_detections is not None:
+        cfg = dataclasses.replace(cfg, max_detections=max_detections)
     label_map = label_map or (lambda x: x)
     label_table = np.asarray([label_map(i) for i in range(cfg.num_classes - 1)], np.int64)
     device = next(model.parameters()).device
@@ -121,7 +129,7 @@ def evaluate(
     gts: dict[int, dict] = {}
     t0 = time.time()
     n_img = 0
-    for batch in _batches(loader, rows, inference_weights(model, dtype)):
+    for batch in _batches(loader, rows, inference_weights(model, dtype), max_images):
         images = torch.from_numpy(np.ascontiguousarray(batch["image"])).to(device)
         extents = torch.from_numpy(batch["extent"].astype(np.float32)).to(device)
         det = predict(model, cfg, images, extents, score_threshold, plain=plain)
@@ -189,9 +197,14 @@ def evaluate(
     }
 
 
-def _batches(loader, rows: slice | None, weights):
+def _batches(loader, rows: slice | None, weights, max_images: int | None):
     """The loader's batches (this rank's ``rows`` of each) inside the
-    ``weights`` context: the cast weights live as long as the pass."""
-    with weights:
-        for batch in loader.epoch(0):
+    ``weights`` context: the cast weights live as long as the pass. Stops
+    after the batch whose host rows bring the count to ``max_images``."""
+    dispatched = 0
+    with weights, contextlib.closing(loader.epoch(0)) as batches:
+        for batch in batches:
             yield batch if rows is None else {k: v[rows] for k, v in batch.items()}
+            dispatched += loader.batch_size
+            if max_images and dispatched >= max_images:
+                return

@@ -336,12 +336,13 @@ def _check_into(model: torch.nn.Module, sd: dict, what: str) -> dict:
     return own
 
 
-def load_reference_weights(model: torch.nn.Module, path: str, generation: str) -> None:
+def load_reference_weights(model: torch.nn.Module, path: str, generation: str) -> dict:
     """Import a reference-layout detector (``{"model_state_dict": ...}``
     or a bare state dict, ``utils/convert.load_reference_checkpoint``)
-    into ``model`` whole. A file of the other generation, or of another
-    class count, raises ``ValueError`` naming ``generation`` before any
-    tensor is copied: the model is never left half loaded."""
+    into ``model`` whole, and return the state dict read. A file of the
+    other generation, or of another class count, raises ``ValueError``
+    naming ``generation`` before any tensor is copied: the model is never
+    left half loaded."""
     from faster_rcnn_pytorch_tpu_torch.utils.convert import load_reference_checkpoint
 
     sd = load_reference_checkpoint(path)
@@ -351,6 +352,7 @@ def load_reference_weights(model: torch.nn.Module, path: str, generation: str) -
     if absent:
         raise ValueError(f"{what}: it lacks {len(absent)} of the model's keys {absent[:3]}")
     model.load_state_dict(sd, strict=True)
+    return sd
 
 
 def import_torchvision_vgg16(sd: dict) -> dict:

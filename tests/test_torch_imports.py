@@ -1,7 +1,7 @@
 """The port imports nothing of JAX, flax or the JAX package.
 
-An AST scan of every module of ``faster_rcnn_pytorch_tpu_torch/`` and of
-``chip_smoke.py``: any ``import`` or ``from ... import`` of ``jax``,
+An AST scan of every module of ``faster_rcnn_pytorch_tpu_torch/``, of
+``chip_smoke.py`` and of ``examples/tutorial_torch.py``: any ``import`` or ``from ... import`` of ``jax``,
 ``flax`` or ``faster_rcnn_pytorch_tpu`` (not ``faster_rcnn_pytorch_tpu_torch``),
 at any depth of the module (inside functions too), fails. The port keeps
 its own copies of the JAX package's host modules (``config.py``,
@@ -18,7 +18,7 @@ FORBIDDEN = ("jax", "flax", "faster_rcnn_pytorch_tpu")
 
 
 def _port_files():
-    files = ["chip_smoke.py"]
+    files = ["chip_smoke.py", os.path.join("examples", "tutorial_torch.py")]
     for base, _, names in os.walk(os.path.join(REPO, "faster_rcnn_pytorch_tpu_torch")):
         files += [
             os.path.relpath(os.path.join(base, n), REPO) for n in sorted(names) if n.endswith(".py")

@@ -340,9 +340,10 @@ def write_coco_index(loader: SyntheticLoader, path: str) -> str:
     return path
 
 
-def eval_job(rank, data_type, n_images, batch_size, coco_path=None):
+def eval_job(rank, data_type, n_images, batch_size, coco_path=None, max_images=None):
     """``evaluate`` of the seeded FPN (COCO) or legacy (VOC) model over
-    the synthetic loader at this layout, or the error it raises."""
+    the synthetic loader at this layout (``max_images`` passed on), or the
+    error it raises."""
     from faster_rcnn_pytorch_tpu_torch.data.coco import CocoIndex
     from faster_rcnn_pytorch_tpu_torch.engine.evaluate import evaluate
 
@@ -356,7 +357,7 @@ def eval_job(rank, data_type, n_images, batch_size, coco_path=None):
         result = evaluate(
             model, cfg, loader, data_type=data_type, coco_index=index,
             label_map=(lambda l: l + 1) if data_type == "coco" else None,
-            score_threshold=0.0, verbose=False,
+            score_threshold=0.0, verbose=False, max_images=max_images,
         )
     except ValueError as err:
         return str(err)
