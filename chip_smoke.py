@@ -50,6 +50,20 @@ CUDA card, builds the port's kernels from the sources in the checkout
      plain chain (max bit for bit, first argmax); both also back to back
      (``BURST`` calls), beside an empty kernel (the launch floor) and the
      per-image chain (matrix, ``where``, ``max``) that the match replaces;
+   * the anchor match kernel (row 8, ``ops/cuda/anchor_match.cu``: the
+     RPN's per-anchor max and first argmax and per-gt best anchors for the
+     batch) at the main path's four shapes (``RPN_MATCH_SHAPES``: the FPN's
+     268,569 anchors against 2 x 640 and 2 x 100 gt slots in ``ties`` mode
+     with no boundary filter; legacy's 37,800 against 2 x 512 and 2 x 100
+     in ``argmax`` mode with the boundary filter on cropped extents), on the
+     train phases' scenes (``DENSE_BOXES`` boxes, or 1-3) and on crafted
+     batches (duplicated slots, gt equal to anchors, a zero-area gt, an
+     image with every slot padded, an image with every anchor outside):
+     ``iou_max`` bit for bit, ``iou_argmax`` and ``best_any`` equal to the
+     plain twin's, and at least one FPN image whose tie set holds more
+     anchors than it has real gt; timed one call and back to back beside
+     the twin (the eager ``[G, A]`` chain it replaces) and the launch floor,
+     with its bound;
    * the slot-lattice MultiScaleRoIAlign forward (no main path runs it) on
      the forward's predict shapes and rois, float32 and bfloat16: bit-exact
      with its plain version, within 1e-5 * max|ref| of the forward kernel
@@ -91,8 +105,9 @@ CUDA card, builds the port's kernels from the sources in the checkout
    gt padded to 100 slots) on one repeated synthetic batch through
    ``engine.train.train_one_epoch`` and ``parallel.train_step``, in
    float32 and under bfloat16 autocast, counts reset just before and read
-   just after: the backward kernel and the NMS kernel (the batch's
-   proposals) run once per step, the IoU kernel never, every loss is
+   just after: the backward kernel, the NMS kernel (the batch's
+   proposals) and the anchor match kernel run once per step, the IoU
+   kernel never, every loss is
    finite and the mean loss of steps 16-20 is below that of steps 1-5.
 7. train step vs plain: one float32 step from the same weights and noise
    through the kernels and through plain RoIPool and NMS: identical losses;
@@ -124,8 +139,8 @@ CUDA card, builds the port's kernels from the sources in the checkout
    image under raw COCO ids, FPN_CONFIG budgets) through
    ``train_one_epoch`` and ``parallel.train_step``, in float32 and under
    bfloat16 autocast, counts reset just before and read just after: the
-   align forward and backward kernels and NMS run once per step each,
-   RoIPool and IoU never; every loss is finite and the mean of steps 16-20 is below that
+   align forward and backward kernels, NMS and the anchor match run once
+   per step each, RoIPool and IoU never; every loss is finite and the mean of steps 16-20 is below that
    of steps 1-5.
 13. FPN train step vs plain: one float32 step from the same weights and
    noise through the align and NMS kernels and through the plain align
@@ -141,16 +156,16 @@ CUDA card, builds the port's kernels from the sources in the checkout
    512 slots (``--max_gt 512``, past the IoU kernel's gate of 432) and
    300-500 small boxes tiled over each image, counts reset just before and
    read just after: the IoU kernel's match mode runs once per step for
-   the batch and its matrix mode never, RoIPool forward and backward and
-   NMS once per step each; losses finite and falling as in phase 6; img/s
+   the batch and its matrix mode never, RoIPool forward and backward, NMS
+   and the anchor match once per step each; losses finite and falling as in phase 6; img/s
    printed as there, with the run's peak ``max_memory_allocated`` and the
    stages of 6 more steps (a device sync between backbone + RPN, propose
    + targets, head + loss, backward and SGD: ``train_stage_rows``), with
    propose + targets' share of the step.
 16. dense step vs plain: one float32 dense step from the same weights and
-   noise through the IoU match and NMS kernels and with ``plain=True``:
-   identical RPN and RoI targets (rois, labels, is_pos, valid, reg
-   targets) and losses.
+   noise through the IoU match, NMS and anchor match kernels (one launch
+   each) and with ``plain=True`` (none): identical RPN and RoI targets
+   (rois, labels, is_pos, valid, reg targets) and losses.
 17. sync-free predict: full-width bfloat16 predict, legacy at batch 1 and
    FPN at batch 2, the canvas anchors already on the device, under
    ``torch.cuda.set_sync_debug_mode("error")``: it must not raise.
@@ -211,12 +226,12 @@ CUDA card, builds the port's kernels from the sources in the checkout
    every other tensor the CLI's seeded fresh init (``init_detector_weights``,
    the JAX package's init distributions); then 3 float32 train steps
    at 800x1344, batch 2 (legacy 21 classes, FPN 91), counts reset just
-   before and read just after: the head's forward and backward kernels
-   and NMS once a step, losses finite. ``--checkpoint pretrained``
+   before and read just after: the head's forward and backward kernels,
+   NMS and the anchor match once a step, losses finite. ``--checkpoint pretrained``
    through ``load_detector`` (``demo``, ``export``) and the same file by
    path through ``resolve_and_load_params`` (``test``): identical weights
    and identical float32 detections at 800x1344 (8 images), RoIPool and
-   NMS launched. Step p50 and the phase's wall time are printed.
+   NMS launched, the train targets' kernels never. Step p50 and the phase's wall time are printed.
 26. the real-data drill and the single-image tutorial, under
    ``build/chip_smoke_preflight/`` (removed after): ``tools/make_shapes_voc.py``
    writes 8 train and 24 test scenes (a subprocess), and a seeded legacy
@@ -226,7 +241,7 @@ CUDA card, builds the port's kernels from the sources in the checkout
    ``FRT_PREFLIGHT_LIMIT=20``, in float32 (TF32 off) and bfloat16, counts
    reset just before and read just after: the census's ``params`` is the
    model's, RoIPool and NMS launched (NMS twice a predict call), the
-   align and IoU kernels never, 20 images taken, and in float32 the
+   align, IoU and anchor match kernels never, 20 images taken, and in float32 the
    drill's detections equal those of the first 20 images of one
    unbounded eval of the 24 bit for bit. Then the FPN drill on
    ``tools/make_shapes_coco.py`` scenes (4 and 24) with ``--data_type
@@ -245,8 +260,9 @@ CUDA card, builds the port's kernels from the sources in the checkout
    generation's IoU kernel gate) with 300-500 small boxes an image under
    raw COCO ids: 20 steps in float32 and under bfloat16 autocast, counts
    reset just before and read just after (the IoU match mode once a step,
-   its matrix mode never, the align forward and backward and NMS once a
-   step; losses finite and falling), peak memory and the stage split
+   its matrix mode never, the align forward and backward, NMS and the
+   anchor match once a step; losses finite and falling), peak memory and
+   the stage split
    printed beside phase 15's; then one float32 step through the kernels
    and with ``plain=True``: identical RPN and RoI targets and losses.
 28. main path, shapes-VOC training through the port's ``main``:
@@ -256,8 +272,10 @@ CUDA card, builds the port's kernels from the sources in the checkout
    ``ACCURACY_SHAPES.json`` (``--resize 320 --max_size 512 --batch_size 8
    --lr 1e-3``, bfloat16; ``tools/shapes_recipe.py``) in this process,
    counts reset just before ``main`` and read after the test CLIs: every
-   logged loss finite, the head's forward and backward kernels and NMS
-   launched at least once a step, the other head's never, best AP50 >=
+   logged loss finite, the head's forward and backward kernels, NMS and
+   the anchor match launched at least once a step (the anchor match as
+   often as the head's backward: once a train step), the other head's
+   never, best AP50 >=
    0.55, its curve printed beside the JAX package's 8-epoch records
    (``*_voc_shapes_r3_headcheck``); then the best checkpoint through the
    port's ``test`` CLI at
@@ -268,9 +286,12 @@ CUDA card, builds the port's kernels from the sources in the checkout
 29. imports: jax and flax were never imported.
 
 The ranks of phases 21, 22 and 24 send their kernel launch counts back
-(the slot-lattice align kernel's must stay 0). Its last two lines are the
-kernels' JSON record (``launches``: phases 3, 6, 9, 12, 15, 21-24, 25-28; ``serving_launches``: phases 18-20) and ``{"ok": true, "device":
-{...}}``.
+(the slot-lattice align kernel's must stay 0). In phases 21-23 the
+anchor match kernel runs once a train step: as often as the head's
+backward kernel (phase 22: once a rank; phase 23: its 48 steps). Its last
+two lines are the kernels' JSON record (eight records; ``launches``:
+phases 3, 6, 9, 12, 15, 21-24, 25-28; ``serving_launches``: phases 18-20)
+and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -301,9 +322,12 @@ from faster_rcnn_pytorch_tpu_torch.engine import demo as demo_mod
 from faster_rcnn_pytorch_tpu_torch.engine.evaluate import evaluate
 from faster_rcnn_pytorch_tpu_torch.engine.train import BATCH_KEYS, train_one_epoch
 from faster_rcnn_pytorch_tpu_torch.evaluation.diff import detections_agree
+from faster_rcnn_pytorch_tpu_torch.models.anchors import fpn_anchors, legacy_anchors
 from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import (
     FPN_CONFIG,
+    FPNFRCNN,
     LEGACY_CONFIG,
+    TRAIN_TARGET_STAGES,
     RoITargets,
     RPNTargets,
     build_model,
@@ -315,6 +339,7 @@ from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import (
     train_losses,
     train_targets,
 )
+from faster_rcnn_pytorch_tpu_torch.models.targets import anchor_inside
 from faster_rcnn_pytorch_tpu_torch.ops import boxes as boxes_mod
 from faster_rcnn_pytorch_tpu_torch.ops import nms as nms_mod
 from faster_rcnn_pytorch_tpu_torch.ops import roi_align as roi_align_mod
@@ -1017,10 +1042,12 @@ def iou_boxes(generator, n_props: int, max_gt: int, n_real: int) -> tuple[torch.
 
 
 IOU_KERNELS = (boxes_mod.pairwise_iou_cuda, boxes_mod.iou_match_cuda)  # the matrix and match modes
+RPN_MATCH_KERNEL = boxes_mod.rpn_match_cuda
+TARGET_KERNELS = (*IOU_KERNELS, RPN_MATCH_KERNEL)  # the train targets' kernels: no predict runs them
 
 
-def _iou_launches() -> int:
-    return sum(k.launches for k in IOU_KERNELS)
+def _target_launches() -> int:
+    return sum(k.launches for k in TARGET_KERNELS)
 
 
 def _iou_inputs(generator, n_props: int, max_gt: int, device):
@@ -1158,6 +1185,146 @@ def check_iou_kernel(device) -> dict:
                     matrix_launches=0,
                 )
     return record
+
+
+# Row 8's shapes, the main path's: (generation, gt slots, real boxes an image [low, high)).
+RPN_MATCH_SHAPES = (
+    ("fpn", FPN_DENSE_MAX_GT, DENSE_BOXES),  # phase 27
+    ("fpn", MAX_GT, (1, 4)),  # phase 12
+    ("legacy", DENSE_MAX_GT, DENSE_BOXES),  # phase 15
+    ("legacy", MAX_GT, (1, 4)),  # phase 6
+)
+
+
+def rpn_match_inputs(generation: str, max_gt: int, boxes, seed: int, device):
+    """The anchor match's operands as the train step hands them over: the
+    generation's anchors on the 800x1344 canvas, a ``TRAIN_BATCH`` of
+    ``synthetic_train_batch`` scenes (``boxes`` real gt an image, ``max_gt``
+    slots) and each image's inside mask (legacy: the boundary filter against
+    its cropped extent; FPN: every anchor). Then two crafted batches: image 0
+    with 30 or more real slots, slots 10-19 copies of 0-9, 20-23 equal to
+    (inside) anchors, 24 of zero area (its max is 0: every inside anchor
+    ties with it in ``ties`` mode); image 1 with every slot padded, or with
+    every anchor outside (legacy: an extent of 0.01, FPN: the mask set
+    False). Returns ``(anchors, [(what, gt, gt_mask, inside), ...])``."""
+    cfg, labels = _train_setup(generation)
+    anchors = legacy_anchors(*CANVAS) if generation == "legacy" else fpn_anchors(*CANVAS, FPNFRCNN.strides)
+    anchors = torch.from_numpy(anchors).to(device)
+    batch = synthetic_train_batch(CANVAS, seed, labels=labels, max_gt=max_gt, boxes=boxes)
+    gt, gt_mask = batch["gt_boxes"], batch["gt_mask"]
+    extents = batch["extent"]
+
+    def inside_of(extents):
+        return anchor_inside(anchors, torch.from_numpy(extents).to(device), cfg.rpn_boundary_filter)
+
+    rs = np.random.RandomState(seed)
+    crafted, crafted_mask = gt.copy(), gt_mask.copy()
+    n0 = max(int(gt_mask[0].sum()), 30)
+    fill = ~crafted_mask[0, :n0]
+    crafted[0, :n0][fill] = np.concatenate(
+        [rs.uniform(0.05, 0.6, (int(fill.sum()), 2)), rs.uniform(0.65, 0.85, (int(fill.sum()), 2))], 1
+    )
+    crafted_mask[0, :n0] = True
+    crafted[0, 10:20] = crafted[0, 0:10]
+    inside0 = inside_of(extents)[0].nonzero()[:, 0].cpu().numpy()
+    crafted[0, 20:24] = anchors.cpu().numpy()[inside0[rs.randint(0, len(inside0), 4)]]
+    crafted[0, 24, 2] = crafted[0, 24, 0]
+    padded_mask = crafted_mask.copy()
+    padded_mask[1] = False
+    outside_extents = extents.copy()
+    outside_extents[1] = 0.01
+    outside = inside_of(outside_extents)
+    outside[1] = False
+
+    def dev(*xs):
+        return tuple(torch.from_numpy(x).to(device) for x in xs)
+
+    return anchors, [
+        ("scene", *dev(gt, gt_mask), inside_of(extents)),
+        ("crafted, image 1 padded", *dev(crafted, padded_mask), inside_of(extents)),
+        ("crafted, image 1 all outside", *dev(crafted, crafted_mask), outside),
+    ]
+
+
+def check_rpn_match_kernel(device) -> dict:
+    """Row 8, the anchor match kernel, at the main path's four shapes
+    (``RPN_MATCH_SHAPES``: FPN at 640 and 100 gt slots in ``ties`` mode
+    over every anchor, legacy at 512 and 100 in ``argmax`` mode with the
+    boundary filter) on ``rpn_match_inputs``' scene and crafted batches:
+    ``iou_max`` bit for bit, ``iou_argmax`` and ``best_any`` equal to the
+    plain twin's (``rpn_match_reference``, the eager chain the kernel
+    replaces); at least one FPN case whose tie set holds more anchors than
+    the image has real gt. On the scene, timed one call and back to back
+    (``BURST``), beside the twin and the launch floor (an empty kernel).
+    Bound: the operations of the pairs this data needs (every real gt
+    against every inside anchor, 14 operations a pair, twice in ``ties``
+    mode) at 67 TFLOP/s, or the anchors, gt, masks and the [B, A] outputs at
+    3.35 TB/s. The record's numbers are the FPN dense row's."""
+    empty = extension().empty_kernel
+    floor_ms, floor_burst_ms = _median_ms(empty), _median_ms(empty, burst=BURST)
+    rows, more_ties = [], 0
+    for i, (generation, max_gt, boxes) in enumerate(RPN_MATCH_SHAPES):
+        ties = _train_setup(generation)[0].rpn_allow_ties
+        anchors, cases = rpn_match_inputs(generation, max_gt, boxes, SEED + 30 + i, device)
+        a = anchors.shape[0]
+        for what, gt, gt_mask, inside in cases:
+            got = RPN_MATCH_KERNEL(anchors, gt, gt_mask, inside, ties)
+            torch.cuda.synchronize()
+            want = boxes_mod.rpn_match_reference(anchors, gt, gt_mask, inside, ties)
+            _require(
+                torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+                and torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
+                f"anchor match {generation} {max_gt} slots, {what}: max bits differ at "
+                f"{int((got[0].view(torch.int32) != want[0].view(torch.int32)).sum())}, argmax at "
+                f"{int((got[1] != want[1]).sum())}, best_any at {int((got[2] != want[2]).sum())} anchors",
+            )
+            tied = got[2].sum(1).tolist()
+            real = gt_mask.sum(1).tolist()
+            if ties:
+                more_ties += sum(t > r for t, r in zip(tied, real))
+            print(
+                f"anchor match {generation} [{a}, 4] x [{TRAIN_BATCH}, {max_gt}, 4], {what}: bit-exact with "
+                f"the plain chain ({'ties' if ties else 'argmax'}; real gt {real}, inside anchors "
+                f"{inside.sum(1).tolist()}, best anchors {tied})",
+                flush=True,
+            )
+        _, gt, gt_mask, inside = cases[0]
+        call = lambda: RPN_MATCH_KERNEL(anchors, gt, gt_mask, inside, ties)  # noqa: E731
+        ms, burst_ms = _median_ms(call), _median_ms(call, burst=BURST)
+        plain_ms = _median_ms(lambda: boxes_mod.rpn_match_reference(anchors, gt, gt_mask, inside, ties))
+        real = gt_mask.sum(1)
+        pairs = int((real * inside.sum(1)).sum())
+        n_ops = 14 * pairs * (2 if ties else 1)
+        n_bytes = a * 16 + gt_mask.numel() * 17 + inside.numel() * 14
+        bound_ms, bound_by = _bound(n_bytes, n_ops)
+        rows.append(dict(generation=generation, slots=max_gt, ms=ms, burst_ms=burst_ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, pairs=pairs))
+        print(
+            f"anchor match {generation} {max_gt} slots: kernel {ms:.4f} ms ({burst_ms:.4f} back to back), "
+            f"plain chain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({pairs} pairs x 14 x "
+            f"{2 if ties else 1} operations, {n_bytes / 1e6:.2f} MB, {bound_by}), launch floor "
+            f"{floor_ms:.4f} ({floor_burst_ms:.4f} back to back) (medians of 25)",
+            flush=True,
+        )
+    _require(more_ties > 0, "no FPN case had more tied anchors than real gt")
+    main = rows[0]
+    return {
+        "name": "rpn_match",
+        "route": "cuda",
+        "source": "faster_rcnn_pytorch_tpu_torch/ops/cuda/anchor_match.cu",
+        "replaces": "faster_rcnn_pytorch_tpu/ops/boxes.py:157 and models/targets.py:111 "
+        "(no Pallas kernel: XLA ops)",
+        "max_abs_err": 0.0,  # held bit-exact
+        "ms": main["ms"],
+        "burst_ms": main["burst_ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": None,  # PyTorch has no IoU or anchor-match call (torchvision is not a dependency)
+        "floor_ms": floor_ms,
+        "floor_burst_ms": floor_burst_ms,
+        "shapes": rows,
+    }
 
 
 def exact_align_rois(generator, n: int, canvas=CANVAS) -> torch.Tensor:
@@ -1366,7 +1533,12 @@ def _train_setup(generation: str):
     return FPN_CONFIG, (1, FPN_CLASSES)
 
 
-TRAIN_STAGES = ("backbone+rpn fwd", "propose+targets", "head+loss fwd", "backward", "sgd")
+# A train step's stages, the train targets split at train_targets' own stage marks.
+TRAIN_STAGES = (
+    "backbone+rpn fwd", *(name.replace("_", " ") for name in TRAIN_TARGET_STAGES),
+    "head+loss fwd", "backward", "sgd",
+)
+TARGET_STAGES = slice(1, 1 + len(TRAIN_TARGET_STAGES))  # "propose+targets" together
 
 
 def dense_max_gt(generation: str) -> int:
@@ -1383,8 +1555,9 @@ def _sync(device) -> float:
 def train_stage_rows(state, cfg, batch: dict, dtype, steps: int, generator):
     """``steps`` train steps of ``state`` on ``batch`` (``dtype``: autocast
     unless float32), split into ``TRAIN_STAGES`` by a device sync between
-    them. Returns per step the seconds of each stage and of the whole
-    step, and per step the NMS and IoU match launches."""
+    them (``train_targets``' own stage marks inside it). Returns per step
+    the seconds of each stage and of the whole step, and per step the
+    launches of the NMS, IoU match and anchor match kernels."""
     model = state.model
     device = batch["image"].device
     schedule = make_lr_schedule("constant", TRAIN_LR, 1, steps)
@@ -1392,26 +1565,29 @@ def train_stage_rows(state, cfg, batch: dict, dtype, steps: int, generator):
     anchors = device_anchors(model, *canvas_hw, device)
     n_cand = cfg.post_nms_train + batch["gt_boxes"].shape[1]
     autocast = torch.autocast(device.type, dtype=torch.bfloat16, enabled=dtype != torch.float32)
+    kernels = (NMS_KERNEL, boxes_mod.iou_match_cuda, boxes_mod.rpn_match_cuda)
     rows, launches = [], []
     for _ in range(steps):
-        before = (NMS_KERNEL.launches, boxes_mod.iou_match_cuda.launches)
-        t0 = _sync(device)
+        before = [k.launches for k in kernels]
+        t = [_sync(device)]
         state.optimizer.zero_grad(set_to_none=True)
         with autocast:
             feats = model.features(batch["image"].permute(0, 3, 1, 2).contiguous())
             rpn_cls, rpn_reg = model.rpn_out(feats)
-            t1 = _sync(device)
+            t.append(_sync(device))
             noise = draw_train_noise(generator, batch["image"].shape[0], anchors.shape[0], n_cand, device)
-            targets = train_targets(cfg, anchors, rpn_cls, rpn_reg, *(batch[k] for k in BATCH_KEYS[1:]), noise)
-            t2 = _sync(device)
+            targets = train_targets(
+                cfg, anchors, rpn_cls, rpn_reg, *(batch[k] for k in BATCH_KEYS[1:]), noise,
+                on_stage=lambda name, result: t.append(_sync(device)),
+            )
             out = train_losses(model, cfg, feats, rpn_cls, rpn_reg, *targets, canvas_hw)
-            t3 = _sync(device)
+            t.append(_sync(device))
         out.losses.total.backward()
-        t4 = _sync(device)
+        t.append(_sync(device))
         apply_gradients(state, schedule)
-        t5 = _sync(device)
-        rows.append([t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4, t5 - t0])
-        launches.append((NMS_KERNEL.launches - before[0], boxes_mod.iou_match_cuda.launches - before[1]))
+        t.append(_sync(device))
+        rows.append([t1 - t0 for t0, t1 in zip(t, t[1:])] + [t[-1] - t[0]])
+        launches.append(tuple(k.launches - n for k, n in zip(kernels, before)))
     return rows, launches
 
 
@@ -1444,7 +1620,7 @@ def train_epoch(model, cfg, batch: dict, steps: int, name: str, autocast_dtype=N
 
 def run_train(
     dtype_name: str, device, generation: str = "legacy", dense: bool = False
-) -> tuple[int, int, int, int]:
+) -> tuple[int, int, int, int, int]:
     """20 full-width train steps through ``train_one_epoch``; returns the
     launch counts of the generation's head kernels (forward, backward) and
     of the IoU kernel in the run, and requires the other generation's
@@ -1452,8 +1628,8 @@ def run_train(
     (512 legacy, 640 FPN) with ``DENSE_BOXES`` boxes per image, past the
     IoU kernel's gate, so its match mode runs once per step for the batch
     and its matrix mode never; otherwise (100 slots) neither. The NMS
-    kernel runs once a step (the batch's proposals); its launches are
-    returned last. The peak ``max_memory_allocated`` of the run is
+    kernel (the batch's proposals) and the anchor match kernel run once a
+    step; their launches are returned last. The peak ``max_memory_allocated`` of the run is
     printed; for a dense scene also the stages of ``DENSE_SPLIT_STEPS``
     more steps (``train_stage_rows``) and propose + targets' share."""
     dtype = set_numerics(dtype_name)
@@ -1472,6 +1648,7 @@ def run_train(
     nms = counts.pop(NMS_KERNEL.__name__)
     iou = counts.pop(boxes_mod.iou_match_cuda.__name__)
     matrix = counts.pop(boxes_mod.pairwise_iou_cuda.__name__)
+    rpn = counts.pop(RPN_MATCH_KERNEL.__name__)
     _require(len(losses) == TRAIN_STEPS, f"{len(losses)} of {TRAIN_STEPS} losses logged")
     _require(bool(np.isfinite(losses).all()), f"{name} train: non-finite loss {losses}")
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
@@ -1482,6 +1659,7 @@ def run_train(
     want_iou = TRAIN_STEPS if dense else 0
     _require(iou == want_iou, f"{name} train: {iou} IoU match launches, want {want_iou}")
     _require(matrix == 0, f"{name} train: {matrix} IoU matrix launches, want 0")
+    _require(rpn == TRAIN_STEPS, f"{name} train: {rpn} anchor match launches, want {TRAIN_STEPS}")
     _require(not any(counts.values()), f"{name} train launched another head's kernels: {counts}")
     _require_slots_idle(f"{name} train")
     steady = timer.times[5:]
@@ -1496,7 +1674,8 @@ def run_train(
         f"{f' gt slots {dense_max_gt(generation)}' if dense else ''}: "
         f"{TRAIN_BATCH * len(steady) / sum(steady):.2f} img/s over steps 6-{TRAIN_STEPS} "
         f"(step p50 {1000 * timer.p50():.1f} ms), mean loss steps 1-5 {first:.4f} -> "
-        f"16-20 {last:.4f}, launches fwd {fwd} bwd {bwd} iou {iou} nms {nms}, other kernels {counts}, "
+        f"16-20 {last:.4f}, launches fwd {fwd} bwd {bwd} iou {iou} nms {nms} rpn_match {rpn}, other "
+        f"kernels {counts}, "
         f"peak max_memory_allocated {peak_gib:.2f} GiB",
         flush=True,
     )
@@ -1505,23 +1684,25 @@ def run_train(
             state, cfg, _to_device(batch, device), dtype, DENSE_SPLIT_STEPS,
             torch.Generator(device=device).manual_seed(SEED),
         )
-        _require(all(n == (1, 1) for n in split_launches), f"{name} split: launches {split_launches}")
+        _require(all(n == (1, 1, 1) for n in split_launches), f"{name} split: launches {split_launches}")
         med = [1000 * statistics.median(r[i] for r in rows[1:]) for i in range(len(TRAIN_STAGES) + 1)]
+        targets_ms = sum(med[TARGET_STAGES])
         print(
             f"  stages of {name} (ms a step, median of steps 2-{DENSE_SPLIT_STEPS}, a sync between "
             f"stages): {', '.join(f'{k} {v:.2f}' for k, v in zip(TRAIN_STAGES, med))}, total "
-            f"{med[-1]:.2f}; propose+targets share {med[1] / med[-1]:.3f}",
+            f"{med[-1]:.2f}; propose+targets {targets_ms:.2f}, share {targets_ms / med[-1]:.3f}",
             flush=True,
         )
-    return fwd, bwd, iou, nms
+    return fwd, bwd, iou, nms, rpn
 
 
 def check_dense_targets_kernel_vs_plain(device, generation: str = "legacy") -> None:
     """One float32 dense-scene step of ``generation`` (phase 16: legacy at
     512 gt slots; phase 27: FPN at 640) from the same weights and noise
-    through the IoU kernel and through ``plain=True``: identical RPN and
-    RoI targets (rois, labels, is_pos, valid, reg targets), one launch of
-    the match mode for the batch against none, and identical losses."""
+    through the kernels and through ``plain=True``: identical RPN and RoI
+    targets (rois, labels, is_pos, valid, reg targets), one launch each of
+    the IoU match mode, the NMS kernel and the anchor match kernel for the
+    batch against none, and identical losses."""
     set_numerics("float32")
     cfg, labels = _train_setup(generation)
     max_gt = dense_max_gt(generation)
@@ -1534,22 +1715,22 @@ def check_dense_targets_kernel_vs_plain(device, generation: str = "legacy") -> N
         torch.Generator(device=device).manual_seed(SEED), TRAIN_BATCH, anchors.shape[0],
         cfg.post_nms_train + max_gt, device,
     )
-    iou_k = boxes_mod.iou_match_cuda
+    kernels = (boxes_mod.iou_match_cuda, NMS_KERNEL, RPN_MATCH_KERNEL)
     with torch.no_grad():
         feats = model.features(batch["image"].permute(0, 3, 1, 2).contiguous())
         rpn_cls, rpn_reg = model.rpn_out(feats)
     targets = []
     for plain in (False, True):
-        before = (iou_k.launches, NMS_KERNEL.launches)
+        before = tuple(k.launches for k in kernels)
         targets.append(
             train_targets(
                 cfg, anchors, rpn_cls, rpn_reg, *(batch[k] for k in BATCH_KEYS[1:]), noise, plain=plain
             )
         )
         torch.cuda.synchronize()
-        after = (iou_k.launches, NMS_KERNEL.launches)
+        after = tuple(k.launches for k in kernels)
         want = before if plain else tuple(b + 1 for b in before)
-        _require(after == want, f"IoU match and NMS launches {before} -> {after} (plain={plain})")
+        _require(after == want, f"IoU match, NMS and anchor match launches {before} -> {after} (plain={plain})")
     (k_rpn, k_roi), (p_rpn, p_roi) = targets
     for field in RoITargets._fields:
         _require(torch.equal(getattr(k_roi, field), getattr(p_roi, field)), f"RoI targets differ in {field}")
@@ -1557,16 +1738,19 @@ def check_dense_targets_kernel_vs_plain(device, generation: str = "legacy") -> N
         _require(torch.equal(getattr(k_rpn, field), getattr(p_rpn, field)), f"RPN targets differ in {field}")
     losses = []
     for plain in (False, True):
-        before = iou_k.launches
+        before = tuple(k.launches for k in kernels)
         out = forward_train(model, cfg, *(batch[k] for k in BATCH_KEYS), noise=noise, plain=plain)
         torch.cuda.synchronize()
-        _require(iou_k.launches == before + (0 if plain else 1), "forward_train IoU match launches")
+        after = tuple(k.launches for k in kernels)
+        want = before if plain else tuple(b + 1 for b in before)
+        _require(after == want, f"forward_train IoU match, NMS and anchor match launches {before} -> {after}")
         losses.append(_loss_vector(out))
     _require(torch.equal(*losses), f"dense losses differ: {losses[0].tolist()} vs {losses[1].tolist()}")
     n_real = batch["gt_mask"].sum(1).tolist()
     print(
         f"dense train step {generation} float32 ({n_real} of {max_gt} gt slots real): RoI and RPN "
-        f"targets identical with the IoU match and NMS kernels and with the plain ones ({int(k_roi.is_pos.sum())} "
+        f"targets identical with the IoU match, NMS and anchor match kernels and with the plain ones "
+        f"({int((k_rpn.labels == 1).sum())} positive anchors, {int(k_roi.is_pos.sum())} "
         f"positive rois), losses identical ({', '.join(f'{v:.5f}' for v in losses[0].tolist())})",
         flush=True,
     )
@@ -1848,7 +2032,7 @@ def run_fpn_predict(device) -> tuple[int, int, dict]:
         roi_align_mod.multiscale_roi_align_cuda.launches = 0
         roi_pool_mod.roi_pool_cuda.launches = 0
         NMS_KERNEL.launches = 0
-        for k in IOU_KERNELS:
+        for k in TARGET_KERNELS:
             k.launches = 0
         result, counts = run_predict(model, dtype_name, device, loader, "fpn")
         align = roi_align_mod.multiscale_roi_align_cuda.launches
@@ -1858,7 +2042,7 @@ def run_fpn_predict(device) -> tuple[int, int, dict]:
         _require(nms == 2 * calls, f"{dtype_name} FPN predict: {nms} NMS launches for {calls} calls")
         _require(align == calls, f"{dtype_name} FPN predict: {align} align launches for {calls} calls")
         _require(pool == 0, f"{dtype_name} FPN predict launched RoIPool {pool} times")
-        _require(_iou_launches() == 0, f"{dtype_name} FPN predict launched the IoU kernel")
+        _require(_target_launches() == 0, f"{dtype_name} FPN predict launched a train-target kernel")
         _require_slots_idle(f"{dtype_name} FPN predict")
         _require(min(counts) > 0, f"{dtype_name} FPN predict: an image without detections {counts}")
         launches += align
@@ -2327,7 +2511,7 @@ ALL_KERNELS = (
     roi_pool_mod.roi_pool_backward_cuda,
     roi_align_mod.multiscale_roi_align_cuda,
     roi_align_mod.multiscale_roi_align_backward_cuda,
-    *IOU_KERNELS,
+    *TARGET_KERNELS,
     roi_align_mod.multiscale_roi_align_slots_cuda,
     NMS_KERNEL,
 )
@@ -2335,7 +2519,21 @@ ALL_KERNELS = (
 
 # The main paths' kernels: every kernel but the slot-lattice align, whose
 # count is never reset after phase 2.
-PATH_KERNELS = (*_head_kernels("legacy"), *_head_kernels("fpn"), *IOU_KERNELS, NMS_KERNEL)
+PATH_KERNELS = (*_head_kernels("legacy"), *_head_kernels("fpn"), *TARGET_KERNELS, NMS_KERNEL)
+
+
+def _require_rpn_match_a_step(what: str, counts: dict, steps: int | None = None) -> int:
+    """Row 8 runs once a train step: its launches in ``counts`` equal the
+    head backward kernels' (one a step, either generation), and ``steps``
+    where the phase knows them. Returns them."""
+    n = counts[RPN_MATCH_KERNEL.__name__]
+    bwd = sum(counts[k.__name__] for k in (_head_kernels("legacy")[1], _head_kernels("fpn")[1]))
+    _require(
+        n == bwd and n > 0 and steps in (None, n),
+        f"{what}: {n} anchor match launches against {bwd} head backward launches"
+        + ("" if steps is None else f" and {steps} steps"),
+    )
+    return n
 
 
 def _launch_counts() -> dict:
@@ -2896,7 +3094,7 @@ def check_pretrained(device) -> dict:
             batch = synthetic_train_batch(CANVAS, PRETRAINED_SEED, labels=labels)
             counts, losses, timer, _ = train_epoch(model, cfg, batch, PRETRAINED_STEPS, f"pretrained_{generation}")
             fwd, bwd = _head_kernels(generation)
-            for k in (fwd, bwd, NMS_KERNEL):
+            for k in (fwd, bwd, NMS_KERNEL, RPN_MATCH_KERNEL):
                 _require(counts[k.__name__] == PRETRAINED_STEPS,
                          f"pretrained {generation} train: {counts[k.__name__]} launches of {k.__name__}")
             _require(bool(np.isfinite(losses).all()) and len(losses) == PRETRAINED_STEPS,
@@ -2929,6 +3127,7 @@ def check_pretrained(device) -> dict:
             launches = {k.__name__: k.launches for k in PATH_KERNELS}
             _require(launches[roi_pool_mod.roi_pool_cuda.__name__] > 0, "pretrained predict: no RoIPool launch")
             _require(launches[NMS_KERNEL.__name__] == 2 * N_IMAGES, f"pretrained predict: {launches}")
+            _require(not any(launches[k.__name__] for k in TARGET_KERNELS), f"pretrained predict: {launches}")
             _require(sum(counts) > 0, "pretrained predict found no detections to compare")
             for k, v in launches.items():
                 total[k] += v
@@ -3056,7 +3255,7 @@ def check_preflight_and_tutorial(device, card: str) -> dict:
                      f"census {census}: the model has {n_params} parameters in {len(model.state_dict())} tensors")
             _require(mini["images"] == PREFLIGHT_LIMIT, f"the {dtype_name} drill took {mini['images']} images")
             _require(counts[pool] > 0 and counts[nms] == 2 * PREFLIGHT_LIMIT, f"{dtype_name} drill: {counts}")
-            _require(counts[align] == 0 and not any(counts[k.__name__] for k in IOU_KERNELS),
+            _require(counts[align] == 0 and not any(counts[k.__name__] for k in TARGET_KERNELS),
                      f"{dtype_name} drill: {counts}")
             speeds[f"legacy VOC {dtype_name}"] = reports["img/s"]
             for k, n in counts.items():
@@ -3162,8 +3361,11 @@ def check_fpn_dense(device) -> dict:
     counts = {k.__name__: 0 for k in ALL_KERNELS}
     fwd_k, bwd_k = _head_kernels("fpn")
     for dtype_name in ("float32", "bfloat16"):
-        fwd, bwd, iou, nms = run_train(dtype_name, device, "fpn", dense=True)
-        for k, n in ((fwd_k, fwd), (bwd_k, bwd), (boxes_mod.iou_match_cuda, iou), (NMS_KERNEL, nms)):
+        fwd, bwd, iou, nms, rpn = run_train(dtype_name, device, "fpn", dense=True)
+        for k, n in (
+            (fwd_k, fwd), (bwd_k, bwd), (boxes_mod.iou_match_cuda, iou), (NMS_KERNEL, nms),
+            (RPN_MATCH_KERNEL, rpn),
+        ):
             counts[k.__name__] += n
     check_dense_targets_kernel_vs_plain(device, "fpn")
     return counts
@@ -3221,8 +3423,9 @@ def check_shapes_voc(device) -> dict:
         n_steps = steps * SHAPES_EPOCHS
         _require(run["epochs"] == list(range(SHAPES_EPOCHS)), f"{name}: epochs {run['epochs']} logged")
         _require(run["losses_finite"] and run["losses_logged"] >= n_steps // 10, f"{name}: losses {run}")
-        for k in (*_head_kernels(generation), NMS_KERNEL):
+        for k in (*_head_kernels(generation), NMS_KERNEL, RPN_MATCH_KERNEL):
             _require(counts[k.__name__] >= n_steps, f"{name}: {k.__name__} {counts[k.__name__]} < {n_steps} steps")
+        _require_rpn_match_a_step(name, counts)
         other = _head_kernels("fpn" if generation == "legacy" else "legacy")
         _require(not any(counts[k.__name__] for k in other), f"{name} launched the other head's kernels: {counts}")
         _require(run["best_map"] >= SHAPES_MIN_AP50, f"{name}: best AP50 {run['best_map']} < {SHAPES_MIN_AP50}")
@@ -3281,6 +3484,7 @@ def main() -> int:
     align_record = check_roi_align_kernel(device)
     align_bwd_record = check_roi_align_backward_kernel(device)
     iou_record = check_iou_kernel(device)
+    rpn_record = check_rpn_match_kernel(device)
     slots_record = check_roi_align_slots_kernel(device, align_record)
     check_align_footprint_edges(device)
     roi_align_mod.multiscale_roi_align_slots_cuda.launches = 0
@@ -3295,7 +3499,7 @@ def main() -> int:
         loader = SyntheticImages(N_IMAGES, CANVAS, SEED)
         roi_pool_mod.roi_pool_cuda.launches = 0
         NMS_KERNEL.launches = 0
-        for k in IOU_KERNELS:
+        for k in TARGET_KERNELS:
             k.launches = 0
         result, counts = run_predict(model, dtype_name, device, loader)
         count = roi_pool_mod.roi_pool_cuda.launches
@@ -3303,7 +3507,7 @@ def main() -> int:
         _require(count > 0, f"{dtype_name} predict never launched the RoIPool kernel")
         _require(nms == 2 * N_IMAGES, f"{dtype_name} predict: {nms} NMS launches for {N_IMAGES} calls")
         nms_launches += nms
-        _require(_iou_launches() == 0, f"{dtype_name} predict launched the IoU kernel")
+        _require(_target_launches() == 0, f"{dtype_name} predict launched a train-target kernel")
         _require_slots_idle(f"{dtype_name} predict")
         if dtype_name == "float32":
             _require(sum(counts) > 0, "float32 predict found no detections to compare")
@@ -3326,11 +3530,13 @@ def main() -> int:
     check_small_input_reference(device)
 
     bwd_launches = 0
+    rpn_record["launches"] = 0  # phases 6, 12, 15, 21-23, 25, 27, 28: once a train step
     for dtype_name in ("float32", "bfloat16"):
-        fwd, bwd, _, nms = run_train(dtype_name, device)
+        fwd, bwd, _, nms, rpn = run_train(dtype_name, device)
         launches += fwd
         bwd_launches += bwd
         nms_launches += nms
+        rpn_record["launches"] += rpn
     record["launches"] = launches
     bwd_record["launches"] = bwd_launches
 
@@ -3356,20 +3562,22 @@ def main() -> int:
 
     align_bwd_record["launches"] = 0
     for dtype_name in ("float32", "bfloat16"):
-        fwd, bwd, _, nms = run_train(dtype_name, device, "fpn")
+        fwd, bwd, _, nms, rpn = run_train(dtype_name, device, "fpn")
         align_record["launches"] += fwd
         align_bwd_record["launches"] += bwd
         nms_launches += nms
+        rpn_record["launches"] += rpn
     check_train_step_kernel_vs_plain(device, "fpn")
     check_small_input_train_reference(device, "fpn", FPN_SMALL_CANVAS)
 
     iou_record["launches"] = 0
     for dtype_name in ("float32", "bfloat16"):
-        fwd, bwd, iou, nms = run_train(dtype_name, device, dense=True)
+        fwd, bwd, iou, nms, rpn = run_train(dtype_name, device, dense=True)
         record["launches"] += fwd
         bwd_record["launches"] += bwd
         iou_record["launches"] += iou
         nms_launches += nms
+        rpn_record["launches"] += rpn
     check_dense_targets_kernel_vs_plain(device)
     nms_record["launches"] = nms_launches
 
@@ -3387,10 +3595,14 @@ def main() -> int:
     phase21 = check_ddp_nccl()
     for kernel in (*_head_kernels("legacy"), *_head_kernels("fpn"), NMS_KERNEL):
         _require(phase21[kernel.__name__] > 0, f"phase 21 never launched {kernel.__name__}")
+    _require_rpn_match_a_step("phase 21", phase21)
     phase22 = check_two_ranks_gloo()
+    for rank, counts in enumerate(phase22):
+        _require_rpn_match_a_step(f"phase 22 rank {rank % 2}", counts, 1)
     before = _launch_counts()
     check_remat(device)
     phase23 = {k: v - before[k] for k, v in _launch_counts().items()}
+    _require_rpn_match_a_step("phase 23", phase23, 2 * 2 * 2 * (1 + REMAT_STEPS))
     phase25 = check_pretrained(device)  # resets the counts; returns its own
     phase26 = check_preflight_and_tutorial(device, card)  # likewise
     phase27 = check_fpn_dense(device)
@@ -3402,6 +3614,7 @@ def main() -> int:
             (align_record, (roi_align_mod.multiscale_roi_align_cuda,)),
             (align_bwd_record, (roi_align_mod.multiscale_roi_align_backward_cuda,)),
             (iou_record, IOU_KERNELS),
+            (rpn_record, (RPN_MATCH_KERNEL,)),
             (slots_record, (roi_align_mod.multiscale_roi_align_slots_cuda,)),
             (nms_record, (NMS_KERNEL,)),
         ):
@@ -3422,7 +3635,7 @@ def main() -> int:
             {
                 "kernels": [
                     record, bwd_record, align_record, align_bwd_record, iou_record, slots_record,
-                    nms_record,
+                    nms_record, rpn_record,
                 ]
             }
         ),

@@ -36,13 +36,14 @@ from faster_rcnn_pytorch_tpu_torch.models.targets import (
     REG_STD,
     RoITargets,
     RPNTargets,
+    anchor_inside,
     roi_match,
-    rpn_targets,
+    rpn_labels,
     sample_roi_targets,
 )
 from faster_rcnn_pytorch_tpu_torch.models.resnet import Bottleneck, ResNet50FPN
 from faster_rcnn_pytorch_tpu_torch.models.vgg import VGG16Features
-from faster_rcnn_pytorch_tpu_torch.ops.boxes import cxcy_to_xy, decode, xy_to_cxcy
+from faster_rcnn_pytorch_tpu_torch.ops.boxes import cxcy_to_xy, decode, rpn_match, xy_to_cxcy
 from faster_rcnn_pytorch_tpu_torch.ops.nms import multiclass_nms_batch
 from faster_rcnn_pytorch_tpu_torch.ops.roi_align import multiscale_roi_align_batch
 from faster_rcnn_pytorch_tpu_torch.ops.roi_pool import roi_pool_batch
@@ -394,6 +395,9 @@ def _stack(parts):
     return type(parts[0])(*(torch.stack(t) for t in zip(*parts)))
 
 
+TRAIN_TARGET_STAGES = ("propose", "rpn_match", "rpn_labels", "roi_match", "roi_sample")
+
+
 def train_targets(
     cfg: DetectorConfig,
     anchors: torch.Tensor,
@@ -405,16 +409,21 @@ def train_targets(
     gt_mask: torch.Tensor,
     noise: TrainNoise,
     plain: bool = False,
+    on_stage: Callable[[str, object], None] | None = None,
 ) -> tuple[RPNTargets, RoITargets]:
     """The JAX package's ``vmap`` of proposals, RPN and RoI targets, written
-    out: the train-budget proposals of the batch (one NMS launch), per
-    image the RPN targets; then one
-    :func:`roi_match` for the batch (each image's ``[post_nms_train + G,
-    4]`` candidates against its gt: the IoU kernel's match mode, one
-    launch, where an image's problem passes the JAX package's gate); then
-    per image the sampling. Returns both batched, ``[B, A]`` and ``[B, S]``.
-    No gradient flows through them. ``plain`` (tests only) keeps the plain
-    NMS sweep, and the plain match above the gate."""
+    out: the train-budget proposals of the batch (one NMS launch); one
+    :func:`rpn_match` for the batch (the anchor match kernel, one launch),
+    then per image the RPN labels; one :func:`roi_match` for the batch
+    (each image's ``[post_nms_train + G, 4]`` candidates against its gt: the
+    IoU kernel's match mode, one launch, where an image's problem passes
+    the JAX package's gate); then per image the sampling. Returns both
+    batched, ``[B, A]`` and ``[B, S]``. No gradient flows through them.
+    ``plain`` (tests only) keeps the plain NMS sweep, the plain anchor
+    match, and the plain RoI match above the gate. ``on_stage`` is called
+    as ``on_stage(name, result)`` as each of :data:`TRAIN_TARGET_STAGES`
+    ends, so a timer can sync the device between stages."""
+    mark = on_stage or (lambda name, result: None)
     props = propose_batch(
         rpn_cls,
         rpn_reg,
@@ -427,45 +436,58 @@ def train_targets(
         nms_tile=cfg.rpn_nms_tile_train or cfg.rpn_nms_tile,
         plain=plain,
     )
-    rpn_tg = []
-    for i in range(rpn_cls.shape[0]):
-        rpn_tg.append(
-            rpn_targets(
+    mark("propose", props)
+    inside = anchor_inside(anchors, extents, cfg.rpn_boundary_filter)
+    rpn_max, rpn_argmax, best_any = rpn_match(
+        anchors, gt_boxes, gt_mask, inside, cfg.rpn_allow_ties, plain=plain
+    )
+    mark("rpn_match", best_any)
+    rpn_tg = _stack(
+        [
+            rpn_labels(
                 anchors,
                 gt_boxes[i],
                 gt_mask[i],
-                extents[i],
+                inside[i],
+                rpn_max[i],
+                rpn_argmax[i],
+                best_any[i],
                 noise.rpn_pos[i],
                 noise.rpn_neg[i],
                 pos_iou=cfg.rpn_pos_iou,
                 neg_iou=cfg.rpn_neg_iou,
                 pos_quota=cfg.rpn_pos_quota,
                 total_quota=cfg.rpn_total_quota,
-                allow_ties=cfg.rpn_allow_ties,
-                boundary_filter=cfg.rpn_boundary_filter,
             )
-        )
+            for i in range(rpn_cls.shape[0])
+        ]
+    )
+    mark("rpn_labels", rpn_tg)
     cand = torch.cat([props.rois, gt_boxes], dim=1)
     cand_valid = torch.cat([props.valid, gt_mask], dim=1)
     iou_max, iou_argmax = roi_match(cand, cand_valid, gt_boxes, gt_mask, plain=plain)
-    roi_tg = [
-        sample_roi_targets(
-            cand[i],
-            cand_valid[i],
-            iou_max[i],
-            iou_argmax[i],
-            gt_boxes[i],
-            gt_labels[i],
-            noise.roi_pos[i],
-            noise.roi_neg[i],
-            num_samples=cfg.roi_samples,
-            pos_quota=cfg.roi_pos_quota,
-            pos_iou=cfg.roi_pos_iou,
-            label_offset=cfg.label_offset,
-        )
-        for i in range(cand.shape[0])
-    ]
-    return _stack(rpn_tg), _stack(roi_tg)
+    mark("roi_match", iou_max)
+    roi_tg = _stack(
+        [
+            sample_roi_targets(
+                cand[i],
+                cand_valid[i],
+                iou_max[i],
+                iou_argmax[i],
+                gt_boxes[i],
+                gt_labels[i],
+                noise.roi_pos[i],
+                noise.roi_neg[i],
+                num_samples=cfg.roi_samples,
+                pos_quota=cfg.roi_pos_quota,
+                pos_iou=cfg.roi_pos_iou,
+                label_offset=cfg.label_offset,
+            )
+            for i in range(cand.shape[0])
+        ]
+    )
+    mark("roi_sample", roi_tg)
+    return rpn_tg, roi_tg
 
 
 def train_losses(

@@ -19,7 +19,7 @@ from faster_rcnn_pytorch_tpu_torch.ops.boxes import (
     encode,
     iou_match,
     masked_iou,
-    masked_iou_gt_major,
+    rpn_match,
     xy_to_cxcy,
 )
 from faster_rcnn_pytorch_tpu_torch.ops.sampling import _group_rank_topk, sample_pos_neg
@@ -41,63 +41,47 @@ class RoITargets(NamedTuple):
     valid: torch.Tensor  # [S] bool
 
 
+def anchor_inside(
+    anchors: torch.Tensor, extents: torch.Tensor, boundary_filter: bool
+) -> torch.Tensor:
+    """``[B, A]``: with ``boundary_filter`` (legacy) the anchors of ``[A, 4]``
+    that lie inside each image's ``extents [B, 2]`` (w_frac, h_frac); the
+    others are ignored (-1) and never a gt's best anchor. Without it (FPN)
+    every anchor."""
+    if not boundary_filter:
+        shape = (extents.shape[0], anchors.shape[0])
+        return torch.ones(shape, dtype=torch.bool, device=anchors.device)
+    return (
+        (anchors[None, :, 0] >= 0.0)
+        & (anchors[None, :, 1] >= 0.0)
+        & (anchors[None, :, 2] <= extents[:, 0:1])
+        & (anchors[None, :, 3] <= extents[:, 1:2])
+    )
+
+
 @torch.no_grad()
-def rpn_targets(
+def rpn_labels(
     anchors: torch.Tensor,
     gt_boxes: torch.Tensor,
     gt_mask: torch.Tensor,
-    extent: torch.Tensor,
+    inside: torch.Tensor,
+    iou_max: torch.Tensor,
+    iou_argmax: torch.Tensor,
+    best_any: torch.Tensor,
     pos_noise: torch.Tensor,
     neg_noise: torch.Tensor,
     pos_iou: float = 0.7,
     neg_iou: float = 0.3,
     pos_quota: int = 128,
     total_quota: int = 256,
-    allow_ties: bool = False,
-    boundary_filter: bool = True,
 ) -> RPNTargets:
-    """{-1, 0, 1} labels and regression targets for every anchor.
-
-    Args:
-      anchors: ``[A, 4]`` xyxy in [0, 1] canvas coords.
-      gt_boxes: ``[G, 4]`` padded gt boxes; gt_mask: ``[G]`` validity.
-      extent: ``[2]`` (w_frac, h_frac); with ``boundary_filter`` anchors
-        crossing it are ignored (-1) and never a gt's best anchor.
-      pos_noise / neg_noise: ``[A]`` uniform noise of the two quotas.
-      allow_ties: every anchor tied at a gt's max IoU is positive (the FPN
-        variant); otherwise one argmax per gt (legacy).
-    """
+    """One image's labels and regression targets from its row of
+    :func:`rpn_match`: labels from ``iou_max``, ``best_any`` and ``inside``
+    ``[A]``, the two quotas (``pos_noise`` / ``neg_noise`` ``[A]``), and the
+    deltas of the positives against their gt ``iou_argmax``."""
     a = anchors.shape[0]
-    if boundary_filter:
-        inside = (
-            (anchors[:, 0] >= 0.0)
-            & (anchors[:, 1] >= 0.0)
-            & (anchors[:, 2] <= extent[0])
-            & (anchors[:, 3] <= extent[1])
-        )
-    else:
-        inside = torch.ones(a, dtype=torch.bool, device=anchors.device)
-
-    iou = masked_iou_gt_major(gt_boxes, gt_mask, anchors)  # [G, A]
-    iou = torch.where(inside[None, :], iou, -1.0)
-    iou_max, iou_argmax = iou.max(dim=0)  # [A]; ties -> first index
-
     labels = torch.full((a,), -1, dtype=torch.int32, device=anchors.device)
     labels = torch.where(inside & (iou_max < neg_iou) & (iou_max >= 0.0), 0, labels)
-
-    per_gt_max, per_gt_argmax = iou.max(dim=1)  # [G]
-    real = gt_mask & (per_gt_max > -1.0)
-    if allow_ties:
-        best_any = ((iou == per_gt_max[:, None]) & real[:, None]).any(dim=0)
-    else:
-        # amax, not an overwrite: a padded gt's argmax over an all(-1) row
-        # is 0 and must not clobber a real gt whose best anchor is also 0.
-        best_any = (
-            torch.zeros(a, dtype=torch.int32, device=anchors.device).scatter_reduce(
-                0, per_gt_argmax, real.to(torch.int32), reduce="amax"
-            )
-            > 0
-        )
     labels = torch.where(best_any & inside, 1, labels)
     labels = torch.where(inside & (iou_max >= pos_iou), 1, labels)
 
@@ -124,6 +108,44 @@ def rpn_targets(
     tw = torch.where(pos, torch.log((mx2 - mx1).clamp(min=1e-8) / aw), 0.0)
     th = torch.where(pos, torch.log((my2 - my1).clamp(min=1e-8) / ah), 0.0)
     return RPNTargets(labels=labels, reg_targets=torch.stack([tx, ty, tw, th], dim=-1))
+
+
+@torch.no_grad()
+def rpn_targets(
+    anchors: torch.Tensor,
+    gt_boxes: torch.Tensor,
+    gt_mask: torch.Tensor,
+    extent: torch.Tensor,
+    pos_noise: torch.Tensor,
+    neg_noise: torch.Tensor,
+    pos_iou: float = 0.7,
+    neg_iou: float = 0.3,
+    pos_quota: int = 128,
+    total_quota: int = 256,
+    allow_ties: bool = False,
+    boundary_filter: bool = True,
+) -> RPNTargets:
+    """{-1, 0, 1} labels and regression targets for every anchor of one
+    image: :func:`rpn_match`, then :func:`rpn_labels`.
+
+    Args:
+      anchors: ``[A, 4]`` xyxy in [0, 1] canvas coords.
+      gt_boxes: ``[G, 4]`` padded gt boxes; gt_mask: ``[G]`` validity.
+      extent: ``[2]`` (w_frac, h_frac); with ``boundary_filter`` anchors
+        crossing it are ignored (-1) and never a gt's best anchor.
+      pos_noise / neg_noise: ``[A]`` uniform noise of the two quotas.
+      allow_ties: every anchor tied at a gt's max IoU is positive (the FPN
+        variant); otherwise one argmax per gt (legacy).
+    """
+    inside = anchor_inside(anchors, extent[None], boundary_filter)
+    iou_max, iou_argmax, best_any = rpn_match(
+        anchors, gt_boxes[None], gt_mask[None], inside, allow_ties
+    )
+    return rpn_labels(
+        anchors, gt_boxes, gt_mask, inside[0], iou_max[0], iou_argmax[0], best_any[0],
+        pos_noise, neg_noise, pos_iou=pos_iou, neg_iou=neg_iou, pos_quota=pos_quota,
+        total_quota=total_quota,
+    )
 
 
 @torch.no_grad()

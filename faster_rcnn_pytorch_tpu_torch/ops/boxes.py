@@ -8,7 +8,9 @@ sends a large 2-D problem to the IoU kernel's matrix mode
 (``ops/cuda/iou.cu``) on a CUDA tensor, as the JAX package sends it to its
 Pallas kernel; :func:`iou_match` gives the row max and argmax of the masked
 matrix (``frcnn_targets``' use of it) in the kernel's match mode, which
-never writes the matrix.
+never writes the matrix. :func:`rpn_match` is the RPN's anchor assignment
+for a batch (``ops/cuda/anchor_match.cu`` on a CUDA tensor), which never
+writes the ``[G, A]`` IoU of :func:`masked_iou_gt_major` either.
 """
 
 from __future__ import annotations
@@ -238,6 +240,92 @@ def masked_iou_gt_major(
     inter = iw * ih
     union = (gx2 - gx1) * (gy2 - gy1) + (bx2 - bx1) * (by2 - by1) - inter + eps
     return torch.where(gt_mask[:, None], inter / union, -1.0)
+
+
+def rpn_match_reference(
+    anchors: torch.Tensor,
+    gt: torch.Tensor,
+    gt_mask: torch.Tensor,
+    inside: torch.Tensor,
+    allow_ties: bool,
+    eps: float = 1e-5,
+):
+    """Plain twin of the anchor match kernel: per image of ``gt [B, G, 4]``
+    (``gt_mask [B, G]``) against the shared ``anchors [A, 4]``, the chain
+    ``rpn_targets`` runs on the ``[G, A]`` IoU of :func:`masked_iou_gt_major`
+    with -1 where ``inside [B, A]`` is False. Returns ``[B, A]``:
+
+    * ``iou_max`` and ``iou_argmax``: each anchor's max over gt and the
+      first slot that reaches it ((-1, 0) where the column is all -1);
+    * ``best_any``: the "allow low-quality matches" set. A gt is real where
+      ``gt_mask`` holds and its max over anchors ``per_gt_max`` exceeds -1.
+      With ``allow_ties`` every anchor whose IoU equals a real gt's
+      ``per_gt_max`` (the FPN variant); otherwise each real gt's first
+      argmax, set with an ``amax`` scatter that a padded gt's argmax 0
+      cannot clobber (legacy)."""
+    a = anchors.shape[0]
+    outs = []
+    for i in range(gt.shape[0]):
+        iou = masked_iou_gt_major(gt[i], gt_mask[i], anchors, eps)  # [G, A]
+        iou = torch.where(inside[i][None, :], iou, -1.0)
+        iou_max, iou_argmax = iou.max(dim=0)  # ties -> first index
+        per_gt_max, per_gt_argmax = iou.max(dim=1)
+        real = gt_mask[i] & (per_gt_max > -1.0)
+        if allow_ties:
+            best_any = ((iou == per_gt_max[:, None]) & real[:, None]).any(dim=0)
+        else:
+            best_any = (
+                torch.zeros(a, dtype=torch.int32, device=anchors.device).scatter_reduce(
+                    0, per_gt_argmax, real.to(torch.int32), reduce="amax"
+                )
+                > 0
+            )
+        outs.append((iou_max, iou_argmax, best_any))
+    return tuple(torch.stack(t) for t in zip(*outs))
+
+
+def rpn_match_cuda(
+    anchors: torch.Tensor,
+    gt: torch.Tensor,
+    gt_mask: torch.Tensor,
+    inside: torch.Tensor,
+    allow_ties: bool,
+    eps: float = 1e-5,
+):
+    """The hand-written Hopper kernel (``ops/cuda/anchor_match.cu``):
+    :func:`rpn_match_reference` for the whole batch in one call, the
+    ``[G, A]`` IoU never in device memory. Contiguous float32 boxes and
+    bool masks on one card; the binding raises on anything else. Counts
+    its calls in ``rpn_match_cuda.launches``, one a call however many CUDA
+    kernels the call runs."""
+    if not anchors.is_cuda:
+        raise ValueError("rpn_match_cuda needs CUDA tensors")
+    out = extension().rpn_match(anchors, gt, gt_mask, inside, eps, allow_ties)
+    rpn_match_cuda.launches += 1
+    return out
+
+
+rpn_match_cuda.launches = 0
+
+
+def rpn_match(
+    anchors: torch.Tensor,
+    gt: torch.Tensor,
+    gt_mask: torch.Tensor,
+    inside: torch.Tensor,
+    allow_ties: bool = False,
+    eps: float = 1e-5,
+    plain: bool = False,
+):
+    """The RPN's anchor assignment of a batch, ``(iou_max, iou_argmax,
+    best_any)`` ``[B, A]`` (:func:`rpn_match_reference`): a CUDA tensor runs
+    the kernel at every size (the JAX package has no gate here), a CPU
+    tensor (or the test-only ``plain``) the plain chain."""
+    if anchors.is_cuda and not plain:
+        return rpn_match_cuda(anchors, gt, gt_mask, inside, allow_ties, eps)
+    if anchors.device.type != "cpu" and not plain:
+        raise NotImplementedError(f"no anchor match kernel for {anchors.device}")
+    return rpn_match_reference(anchors, gt, gt_mask, inside, allow_ties, eps)
 
 
 def clip_boxes(xy: torch.Tensor, lo: float = 0.0, hi: float = 1.0):

@@ -13,7 +13,8 @@ import os
 import threading
 
 _SOURCES = (
-    "roi_pool.cu", "roi_align.cu", "roi_align_slots.cu", "iou.cu", "nms.cu", "binding.cpp"
+    "roi_pool.cu", "roi_align.cu", "roi_align_slots.cu", "iou.cu", "nms.cu", "anchor_match.cu",
+    "binding.cpp",
 )
 _BUILD_DIR = os.path.join(
     os.path.dirname(

@@ -1,5 +1,5 @@
 // PyTorch binding of the kernels in roi_pool.cu, roi_align.cu,
-// roi_align_slots.cu, iou.cu and nms.cu. The only source that includes
+// roi_align_slots.cu, iou.cu, nms.cu and anchor_match.cu. The only source that includes
 // PyTorch's headers; it checks the tensors the Python wrappers allocated (the
 // IoU and NMS kernels' outputs it allocates itself) and launches on the
 // current CUDA stream.
@@ -45,6 +45,11 @@ int iou_match_launch(const float* a, const float* b, int batch, int n, int m, fl
                      float union_floor, const bool* row_mask, const bool* col_mask,
                      float* best_val, int64_t* best_idx, void* stream);
 int empty_kernel_launch(void* stream);
+int64_t anchor_match_initial_key();
+int anchor_match_launch(const float* anchors, int a_count, const float* gt, const bool* gt_mask,
+                        int batch, int g_count, const bool* inside, float eps, bool ties,
+                        float* iou_max, int64_t* iou_argmax, unsigned long long* gt_key,
+                        bool* best_any, void* stream);
 int nms_segments_shared_bytes(int share);
 int nms_segments_max_active_clusters(int width, int share);
 int nms_segments_launch(const float* boxes, const bool* valid, int segments, int n, float thr,
@@ -291,6 +296,48 @@ std::tuple<at::Tensor, at::Tensor> iou_match(const at::Tensor& a_in, const at::T
   return {best, index};
 }
 
+// anchors [A, 4], gt [B, G, 4] float32 (no cast: both are float32 under
+// autocast too), gt_mask [B, G] and inside [B, A] bool, all contiguous on one
+// card -> (iou_max [B, A] float32, iou_argmax [B, A] int64, best_any [B, A]
+// bool): ops/boxes.py::rpn_match_reference's anchor assignment of the batch,
+// allow_ties choosing the tie set (FPN) or the per-gt first argmax (legacy).
+std::tuple<at::Tensor, at::Tensor, at::Tensor> rpn_match(const at::Tensor& anchors,
+                                                         const at::Tensor& gt,
+                                                         const at::Tensor& gt_mask,
+                                                         const at::Tensor& inside, double eps,
+                                                         bool allow_ties) {
+  TORCH_CHECK(anchors.is_cuda() && gt.is_cuda(), "rpn_match: tensors must be on a CUDA device");
+  TORCH_CHECK(anchors.dim() == 2 && anchors.size(1) == 4 && gt.dim() == 3 && gt.size(2) == 4,
+              "rpn_match: anchors must be [A, 4] and gt [B, G, 4]");
+  TORCH_CHECK(anchors.scalar_type() == at::kFloat && gt.scalar_type() == at::kFloat,
+              "rpn_match: anchors and gt must be float32");
+  TORCH_CHECK(anchors.is_contiguous() && gt.is_contiguous(), "rpn_match: boxes must be contiguous");
+  TORCH_CHECK(reinterpret_cast<uintptr_t>(anchors.data_ptr()) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(gt.data_ptr()) % 16 == 0,
+              "rpn_match: boxes must start on a 16-byte boundary");
+  TORCH_CHECK(anchors.get_device() == gt.get_device(), "rpn_match: tensors must share one device");
+  const int64_t a = anchors.size(0), batch = gt.size(0), g = gt.size(1);
+  TORCH_CHECK(g > 0, "rpn_match: no gt slots to reduce");
+  TORCH_CHECK(batch <= 65535 && a < (int64_t{1} << 31) - 1024 && g < (int64_t{1} << 31),
+              "rpn_match: too many anchors or images");
+  check_mask(gt_mask, gt, {batch, g}, "rpn_match");
+  check_mask(inside, gt, {batch, a}, "rpn_match");
+  const c10::cuda::CUDAGuard guard(gt.device());
+  at::Tensor best = at::empty({batch, a}, gt.options());
+  at::Tensor index = at::empty({batch, a}, gt.options().dtype(at::kLong));
+  at::Tensor best_any = allow_ties ? at::empty({batch, a}, gt.options().dtype(at::kBool))
+                                   : at::zeros({batch, a}, gt.options().dtype(at::kBool));
+  at::Tensor keys = at::full({batch, g}, anchor_match_initial_key(), gt.options().dtype(at::kLong));
+  const int err = anchor_match_launch(
+      anchors.data_ptr<float>(), static_cast<int>(a), gt.data_ptr<float>(),
+      gt_mask.data_ptr<bool>(), static_cast<int>(batch), static_cast<int>(g),
+      inside.data_ptr<bool>(), static_cast<float>(eps), allow_ties, best.data_ptr<float>(),
+      index.data_ptr<int64_t>(), reinterpret_cast<unsigned long long*>(keys.data_ptr<int64_t>()),
+      best_any.data_ptr<bool>(), static_cast<void*>(at::cuda::getCurrentCUDAStream()));
+  TORCH_CHECK(err == 0, "rpn_match launch failed: ", roi_pool_error_string(err));
+  return {best, index, best_any};
+}
+
 // boxes [S, n, 4] (cast to float32), each segment sorted by descending score;
 // valid [S, n] bool -> (keep [S, post_k] int32, count [S] int32): the sorted
 // positions of each segment's first post_k greedy survivors of iou > thr,
@@ -400,6 +447,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "Pairwise IoU [n, 4] x [m, 4] -> [n, m], -1 where a column mask is False (CUDA)");
   m.def("iou_match", &iou_match,
         "Row max and first argmax of the masked IoU, [B, n, 4] x [B, m, 4] -> [B, n] (CUDA)");
+  m.def("rpn_match", &rpn_match,
+        "The RPN's anchor assignment of a batch: each anchor's max IoU and first gt, and the "
+        "per-gt best anchors (ties or first argmax), [A, 4] x [B, G, 4] -> [B, A] (CUDA)");
   m.def("nms_segments", &nms_segments,
         "Segmented exact greedy NMS, [S, n, 4] sorted boxes -> [S, post_k] kept positions, "
         "a cluster of CTAs a segment (CUDA)");

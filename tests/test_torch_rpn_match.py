@@ -1,0 +1,189 @@
+"""The RPN's anchor assignment for a batch, without the ``[G, A]`` IoU.
+
+``rpn_targets`` reads three things of each image's gt-major masked IoU:
+every anchor's max and first argmax over gt, and the "allow low-quality
+matches" set built from each gt's max over anchors. The port computes them
+for the whole batch in one step (``ops/boxes.py::rpn_match``; on a card
+``ops/cuda/anchor_match.cu``, one call), and ``train_targets`` runs it once
+a step before the per-image labels (``models/targets.py::rpn_labels``).
+Held here:
+
+* the plain match (``rpn_match_reference``, the kernel's twin) against the
+  JAX package's chain, op by op on the CPU: ``masked_iou_gt_major``,
+  ``where(inside)``, ``max`` / ``argmax`` over each axis, then the tie set
+  (``allow_ties``, FPN) or the ``.at[argmax].max`` scatter (legacy), in
+  both modes, for 1, 7 and 24 gt slots on the port's legacy and FPN
+  anchors at small canvases, on a batch that holds duplicated gt slots,
+  gt boxes equal to anchors, zero-area gt (its max is 0: every inside
+  anchor ties), padded slots, an image with every slot padded and an image
+  with every anchor outside: the maxima bit for bit, the indices and the
+  sets equal;
+* ``train_targets`` (both generations' configs, a batch of 3 with 0, 5
+  and 11 real gt of 12 slots) calls the match once for the batch and gives
+  the RPN targets of per-image ``rpn_targets``;
+* ``rpn_match_cuda`` refuses CPU tensors, and ``rpn_match`` any device
+  without a kernel;
+* on a card only (skipped here): the kernel equals its twin bit for bit at
+  the dense FPN and legacy shapes, in both modes.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from faster_rcnn_pytorch_tpu.ops import boxes as jb
+from faster_rcnn_pytorch_tpu_torch.models import faster_rcnn as pfr
+from faster_rcnn_pytorch_tpu_torch.models import targets as pt
+from faster_rcnn_pytorch_tpu_torch.models.anchors import fpn_anchors, legacy_anchors
+from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import FPN_CONFIG, LEGACY_CONFIG
+from faster_rcnn_pytorch_tpu_torch.ops import boxes as pb
+from tests.conftest import boxes_fixture
+
+ANCHORS = {
+    "legacy": lambda: legacy_anchors(160, 224),  # 1260 anchors
+    "fpn": lambda: fpn_anchors(64, 96),  # 1536 anchors over P2..P6
+}
+
+
+def match_batch(seed, anchors, slots):
+    """Four images against ``anchors``: (0) gt from the fixture, with slot
+    0 copied into the last real slot, slot 1 an anchor's own box, slot 2 of
+    zero area, the rest of the slots padded; (1) every slot padded; (2)
+    image 0's gt with every anchor outside; (3) image 0's gt with the
+    anchors inside a cropped extent (the legacy boundary filter)."""
+    rs = np.random.RandomState(seed)
+    real = max(1, slots - slots // 4)
+    gt = np.zeros((4, slots, 4), np.float32)
+    gt[0, :real] = boxes_fixture(rs, real)
+    if slots > 2:
+        gt[0, 1] = anchors[rs.randint(len(anchors))]
+        gt[0, 2, 2] = gt[0, 2, 0]
+        gt[0, real - 1] = gt[0, 0]
+    gt[2:] = gt[0]
+    gt_mask = np.zeros((4, slots), bool)
+    gt_mask[[0, 2, 3], :real] = True
+    inside = np.ones((4, len(anchors)), bool)
+    inside[2] = False
+    inside[3] = (anchors[:, :2] >= 0).all(1) & (anchors[:, 2] <= 0.85) & (anchors[:, 3] <= 0.7)
+    return gt, gt_mask, inside
+
+
+def jax_chain(anchors, gt, gt_mask, inside, allow_ties):
+    """``faster_rcnn_pytorch_tpu/models/targets.py::rpn_targets``' match,
+    for one image."""
+    iou = jb.masked_iou_gt_major(jnp.asarray(gt), jnp.asarray(gt_mask), jnp.asarray(anchors))
+    iou = jnp.where(jnp.asarray(inside)[None, :], iou, -1.0)
+    per_gt_max = iou.max(axis=1)
+    real = jnp.asarray(gt_mask) & (per_gt_max > -1.0)
+    if allow_ties:
+        best_any = ((iou == per_gt_max[:, None]) & real[:, None]).any(axis=0)
+    else:
+        best_any = jnp.zeros((anchors.shape[0],), jnp.int32).at[iou.argmax(axis=1)].max(
+            real.astype(jnp.int32)
+        ) > 0
+    return (np.asarray(iou.max(axis=0)), np.asarray(iou.argmax(axis=0)), np.asarray(best_any),
+            np.asarray(iou), np.asarray(per_gt_max), np.asarray(real))
+
+
+@pytest.mark.parametrize("allow_ties", [True, False], ids=["ties", "argmax"])
+@pytest.mark.parametrize("generation", ["legacy", "fpn"])
+@pytest.mark.parametrize("slots", [1, 7, 24])
+def test_plain_match_matches_the_jax_chain(slots, generation, allow_ties):
+    anchors = ANCHORS[generation]()
+    gt, gt_mask, inside = match_batch(slots, anchors, slots)
+    got = pb.rpn_match(*(torch.tensor(x) for x in (anchors, gt, gt_mask, inside)), allow_ties)
+    assert [t.dtype for t in got] == [torch.float32, torch.int64, torch.bool]
+    assert all(t.shape == (4, len(anchors)) for t in got)
+    for i in range(4):
+        want_max, want_arg, want_any, iou, per_gt_max, real = jax_chain(
+            anchors, gt[i], gt_mask[i], inside[i], allow_ties
+        )
+        np.testing.assert_array_equal(got[0][i].numpy().view(np.int32), want_max.view(np.int32))
+        np.testing.assert_array_equal(got[1][i].numpy(), want_arg)
+        np.testing.assert_array_equal(got[2][i].numpy(), want_any)
+        if i == 0:  # the inputs reach the cases the kernel's reductions must get right
+            assert real.any() and want_any.any()
+            if slots > 2:
+                assert per_gt_max[1] > 0.99 and per_gt_max[2] == 0.0  # area / (area + eps)
+                n_tied = int(((iou == per_gt_max[:, None]) & real[:, None]).any(0).sum())
+                if allow_ties:  # the zero-area gt ties every anchor
+                    assert want_any.sum() == n_tied == inside[i].sum() > real.sum()
+        elif i in (1, 2):  # nothing real: every column -1 at slot 0, no best anchor
+            assert (want_max == -1).all() and (want_arg == 0).all() and not want_any.any()
+        else:
+            assert not want_any[~inside[i]].any() and (want_max[~inside[i]] == -1).all()
+
+
+@pytest.mark.parametrize("cfg", [LEGACY_CONFIG, FPN_CONFIG], ids=["legacy", "fpn"])
+def test_train_targets_match_once_for_the_batch_as_rpn_targets_per_image(cfg, monkeypatch):
+    rs = np.random.RandomState(5)
+    anchors = torch.tensor(ANCHORS["fpn" if cfg.rpn_allow_ties else "legacy"]())
+    a, b, slots = anchors.shape[0], 3, 12
+    rpn_cls = torch.tensor(rs.normal(size=(b, a, 2)).astype(np.float32))
+    rpn_reg = torch.tensor(rs.normal(0, 0.2, size=(b, a, 4)).astype(np.float32))
+    extents = torch.tensor([[1.0, 1.0], [0.8, 0.9], [0.7, 1.0]])
+    gt = np.zeros((b, slots, 4), np.float32)
+    gt_mask = np.zeros((b, slots), bool)
+    for i, real in enumerate((0, 5, 11)):
+        gt[i, :real] = boxes_fixture(rs, real, scale=0.7)
+        gt_mask[i, :real] = True
+    gt_labels = torch.tensor(rs.randint(1, 20, size=(b, slots)).astype(np.int32))
+    gt, gt_mask = torch.tensor(gt), torch.tensor(gt_mask)
+    n_cand = cfg.post_nms_train + slots
+    noise = pfr.TrainNoise(
+        *(torch.tensor(rs.uniform(size=(b, n)).astype(np.float32)) for n in (a, a, n_cand, n_cand))
+    )
+
+    calls = []
+    match = pb.rpn_match_reference
+
+    def spy(anchors, gt, *args, **kwargs):
+        calls.append(tuple(gt.shape))
+        return match(anchors, gt, *args, **kwargs)
+
+    monkeypatch.setattr(pb, "rpn_match_reference", spy)
+    stages = []
+    rpn_tg, _ = pfr.train_targets(
+        cfg, anchors, rpn_cls, rpn_reg, extents, gt, gt_labels, gt_mask, noise,
+        on_stage=lambda name, result: stages.append(name),
+    )
+    assert calls == [(b, slots, 4)]
+    assert tuple(stages) == pfr.TRAIN_TARGET_STAGES
+    assert int((rpn_tg.labels == 1).sum()) > 0
+    for i in range(b):
+        want = pt.rpn_targets(
+            anchors, gt[i], gt_mask[i], extents[i], noise.rpn_pos[i], noise.rpn_neg[i],
+            pos_iou=cfg.rpn_pos_iou, neg_iou=cfg.rpn_neg_iou, pos_quota=cfg.rpn_pos_quota,
+            total_quota=cfg.rpn_total_quota, allow_ties=cfg.rpn_allow_ties,
+            boundary_filter=cfg.rpn_boundary_filter,
+        )
+        for field in pt.RPNTargets._fields:
+            assert torch.equal(getattr(rpn_tg, field)[i], getattr(want, field)), field
+    assert len(calls) == 1 + b  # one for the batch, then one per image for rpn_targets
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    anchors = ANCHORS["legacy"]()
+    args = [torch.tensor(x) for x in (anchors, *match_batch(0, anchors, 7))]
+    with pytest.raises(ValueError, match="CUDA"):
+        pb.rpn_match_cuda(*args, True)
+    with pytest.raises(NotImplementedError):
+        pb.rpn_match(*(t.to("meta") for t in args), True)
+
+
+@pytest.mark.parametrize("allow_ties", [True, False], ids=["ties", "argmax"])
+def test_cuda_match_equals_its_twin(allow_ties):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    canvas = (800, 1344)
+    anchors = fpn_anchors(*canvas) if allow_ties else legacy_anchors(*canvas)
+    slots = 640 if allow_ties else 512
+    gt, gt_mask, inside = (torch.tensor(x).cuda() for x in match_batch(9, anchors, slots))
+    anchors = torch.tensor(anchors).cuda()
+    before = pb.rpn_match_cuda.launches
+    got = pb.rpn_match(anchors, gt, gt_mask, inside, allow_ties)
+    torch.cuda.synchronize()
+    assert pb.rpn_match_cuda.launches == before + 1
+    want = pb.rpn_match(anchors, gt, gt_mask, inside, allow_ties, plain=True)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))

@@ -63,5 +63,6 @@ def test_train_stages_splits_the_fpn_step_on_the_cpu_when_asked(monkeypatch, cap
     lines = [line for line in out.splitlines() if line.startswith("stages float32")]
     assert len(lines) == 1  # one split: cuDNN's modes are the card's
     assert "median of steps 2-2" in lines[0]
-    for name in ("backbone+rpn fwd", "propose+targets", "head+loss fwd", "backward", "sgd", "total"):
+    names = ("backbone+rpn fwd", "propose+targets", "head+loss fwd", "backward", "sgd", "total")
+    for name in (*names, "propose", "rpn match", "rpn labels", "roi match", "roi sample"):
         assert f"{name} " in lines[0]

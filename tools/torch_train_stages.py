@@ -16,12 +16,17 @@ and prints, per dtype (float32 with TF32 off, bfloat16 autocast):
    ``--warmup`` (5; steps 6 on, as the smoke counts them), step p50,
    and the number of NMS kernel launches (``ops/cuda/nms.cu``, one a step
    for the batch's proposals; 0 on the CPU, which runs the plain sweep) in
-   those steps, with both per step;
+   those steps, with both per step, and the run's peak
+   ``max_memory_allocated``;
 2. stages: the same steps with a device sync between backbone + RPN
-   forward, propose + targets, head + loss forward, backward and the SGD
-   update, once with cuDNN deterministic (as the smoke runs) and once with
-   its defaults (as the CLIs run; once only on the CPU): the median per
-   stage over the steps after the warm-up;
+   forward, the train targets' five stages (propose: the NMS launch; RPN
+   match: the anchor match kernel, one launch for the batch; RPN labels
+   and sampling, per image; RoI match; RoI sampling, per image), head +
+   loss forward, backward and the SGD update (``chip_smoke.TRAIN_STAGES``),
+   once with cuDNN deterministic (as the smoke runs) and once with its
+   defaults (as the CLIs run; once only on the CPU): the median per stage
+   over the steps after the warm-up, and propose + targets, the sum of
+   the five;
 3. busy share: ``torch.profiler`` over 3 whole steps, device kernel time
    (user annotations excluded) over wall time, the proposal NMS kernel's
    time and share of the step, and the top kernels.
@@ -88,6 +93,8 @@ def run_rate(model, init, cfg, dtype, device, batch, steps, repeats, warmup) -> 
         model.load_state_dict(init)
         state = init_train_state(model, make_optimizer(model))
         gen = epoch_generator(cs.SEED, 0, device)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
         times, launches, losses = [], [], []
         for _ in range(steps):
             nms_mod.nms_segments_cuda.launches = 0
@@ -99,7 +106,12 @@ def run_rate(model, init, cfg, dtype, device, batch, steps, repeats, warmup) -> 
         print(
             f"rate {name} run {r + 1}/{repeats}: "
             f"{_steady_summary(times, launches, cs.TRAIN_BATCH, warmup)}, "
-            f"loss step 1 {losses[0]:.4f} -> step {steps} {losses[-1]:.4f}",
+            f"loss step 1 {losses[0]:.4f} -> step {steps} {losses[-1]:.4f}"
+            + (
+                f", peak max_memory_allocated {torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB"
+                if device.type == "cuda"
+                else ""
+            ),
             flush=True,
         )
         print(
@@ -117,13 +129,16 @@ def run_stages(model, init, cfg, dtype, device, batch, steps, warmup, determinis
     rows, launches = cs.train_stage_rows(
         state, cfg, batch, dtype, steps, epoch_generator(cs.SEED, 0, device)
     )
-    med = [1000 * statistics.median(r[i] for r in rows[warmup:]) for i in range(6)]
-    nms = [n for n, _ in launches[warmup:]]
+    med = [
+        1000 * statistics.median(r[i] for r in rows[warmup:]) for i in range(len(cs.TRAIN_STAGES) + 1)
+    ]
+    nms = [n for n, _, _ in launches[warmup:]]
     print(
         f"stages {name} cudnn deterministic={deterministic}, ms per step (median of steps "
         f"{warmup + 1}-{steps}): {', '.join(f'{k} {v:.2f}' for k, v in zip(cs.TRAIN_STAGES, med))}, "
-        f"total {med[5]:.2f}; NMS launches per step {min(nms)}-{max(nms)}; "
-        f"IoU kernel launches {sum(i for _, i in launches)} in {steps} steps",
+        f"total {med[-1]:.2f}; propose+targets {sum(med[cs.TARGET_STAGES]):.2f}; NMS launches per "
+        f"step {min(nms)}-{max(nms)}; IoU match launches {sum(n[1] for n in launches)} and anchor "
+        f"match launches {sum(n[2] for n in launches)} in {steps} steps",
         flush=True,
     )
 
