@@ -52,18 +52,24 @@ CUDA card, builds the port's kernels from the sources in the checkout
      per-image chain (matrix, ``where``, ``max``) that the match replaces;
    * the anchor match kernel (row 8, ``ops/cuda/anchor_match.cu``: the
      RPN's per-anchor max and first argmax and per-gt best anchors for the
-     batch) at the main path's four shapes (``RPN_MATCH_SHAPES``: the FPN's
+     batch) at the main path's six shapes (``RPN_MATCH_SHAPES``: the FPN's
      268,569 anchors against 2 x 640 and 2 x 100 gt slots in ``ties`` mode
      with no boundary filter; legacy's 37,800 against 2 x 512 and 2 x 100
-     in ``argmax`` mode with the boundary filter on cropped extents), on the
+     in ``argmax`` mode with the boundary filter on cropped extents; both
+     generations at phase 28's 320x512 canvas, 8 x 100 slots), on the
      train phases' scenes (``DENSE_BOXES`` boxes, or 1-3) and on crafted
      batches (duplicated slots, gt equal to anchors, a zero-area gt, an
-     image with every slot padded, an image with every anchor outside):
-     ``iou_max`` bit for bit, ``iou_argmax`` and ``best_any`` equal to the
-     plain twin's, and at least one FPN image whose tie set holds more
-     anchors than it has real gt; timed one call and back to back beside
-     the twin (the eager ``[G, A]`` chain it replaces) and the launch floor,
-     with its bound;
+     image with every slot padded, an image with every anchor outside),
+     then on cases aimed at its culling and gt split in both modes (a gt
+     whose non-zero IoUs lie in one tile, gt that meet no inside anchor,
+     inverted and zero-area gt at eps 1e-5 and 0, 1100 and 4000 slots, a
+     ragged last tile): ``iou_max`` bit for bit, ``iou_argmax`` and
+     ``best_any`` equal to the plain twin's, each printed with its launch
+     plan (``ops/boxes.py::rpn_match_plan``), and at least one FPN image
+     whose tie set holds more anchors than it has real gt; timed one call
+     and back to back beside the twin (the eager ``[G, A]`` chain it
+     replaces) and the launch floor, with its bound (the pairs whose boxes
+     intersect) and the all-pairs bound beside it;
    * the slot-lattice MultiScaleRoIAlign forward (no main path runs it) on
      the forward's predict shapes and rois, float32 and bfloat16: bit-exact
      with its plain version, within 1e-5 * max|ref| of the forward kernel
@@ -1187,32 +1193,48 @@ def check_iou_kernel(device) -> dict:
     return record
 
 
-# Row 8's shapes, the main path's: (generation, gt slots, real boxes an image [low, high)).
+# Row 8's shapes, the main path's: (generation, canvas, images, gt slots, real boxes an image [low, high)).
+SHAPES_CANVAS = (320, 512)  # phase 28: the shapes recipe's --resize 320 --max_size 512
+SHAPES_BATCH = 8  # its --batch_size
 RPN_MATCH_SHAPES = (
-    ("fpn", FPN_DENSE_MAX_GT, DENSE_BOXES),  # phase 27
-    ("fpn", MAX_GT, (1, 4)),  # phase 12
-    ("legacy", DENSE_MAX_GT, DENSE_BOXES),  # phase 15
-    ("legacy", MAX_GT, (1, 4)),  # phase 6
+    ("fpn", CANVAS, TRAIN_BATCH, FPN_DENSE_MAX_GT, DENSE_BOXES),  # phase 27
+    ("fpn", CANVAS, TRAIN_BATCH, MAX_GT, (1, 4)),  # phase 12
+    ("legacy", CANVAS, TRAIN_BATCH, DENSE_MAX_GT, DENSE_BOXES),  # phase 15
+    ("legacy", CANVAS, TRAIN_BATCH, MAX_GT, (1, 4)),  # phase 6
+    ("fpn", SHAPES_CANVAS, SHAPES_BATCH, MAX_GT, (1, 4)),  # phase 28
+    ("legacy", SHAPES_CANVAS, SHAPES_BATCH, MAX_GT, (1, 4)),  # phase 28
 )
+RPN_MATCH_LONG_GT = {"fpn": 1100, "legacy": 4000}  # slots past the kernel's chunk of 512 gt
 
 
-def rpn_match_inputs(generation: str, max_gt: int, boxes, seed: int, device):
+def rpn_match_scene(generation: str, canvas, batch: int, max_gt: int, boxes, seed: int, device):
     """The anchor match's operands as the train step hands them over: the
-    generation's anchors on the 800x1344 canvas, a ``TRAIN_BATCH`` of
-    ``synthetic_train_batch`` scenes (``boxes`` real gt an image, ``max_gt``
-    slots) and each image's inside mask (legacy: the boundary filter against
-    its cropped extent; FPN: every anchor). Then two crafted batches: image 0
-    with 30 or more real slots, slots 10-19 copies of 0-9, 20-23 equal to
+    generation's anchors on ``canvas``, ``batch`` ``synthetic_train_batch``
+    scenes (``boxes`` real gt an image, ``max_gt`` slots) and each image's
+    inside mask (legacy: the boundary filter against its cropped extent;
+    FPN: every anchor). Returns ``(anchors, gt, gt_mask, inside, extents)``."""
+    cfg, labels = _train_setup(generation)
+    anchors = legacy_anchors(*canvas) if generation == "legacy" else fpn_anchors(*canvas, FPNFRCNN.strides)
+    anchors = torch.from_numpy(anchors).to(device)
+    b = synthetic_train_batch(canvas, seed, batch=batch, labels=labels, max_gt=max_gt, boxes=boxes)
+    extents = torch.from_numpy(b["extent"]).to(device)
+    inside = anchor_inside(anchors, extents, cfg.rpn_boundary_filter)
+    gt, gt_mask = (torch.from_numpy(b[k]).to(device) for k in ("gt_boxes", "gt_mask"))
+    return anchors, gt, gt_mask, inside, extents
+
+
+def rpn_match_inputs(generation: str, canvas, batch: int, max_gt: int, boxes, seed: int, device):
+    """``rpn_match_scene``'s scene, then two crafted batches: image 0 with
+    30 or more real slots, slots 10-19 copies of 0-9, 20-23 equal to
     (inside) anchors, 24 of zero area (its max is 0: every inside anchor
     ties with it in ``ties`` mode); image 1 with every slot padded, or with
     every anchor outside (legacy: an extent of 0.01, FPN: the mask set
     False). Returns ``(anchors, [(what, gt, gt_mask, inside), ...])``."""
-    cfg, labels = _train_setup(generation)
-    anchors = legacy_anchors(*CANVAS) if generation == "legacy" else fpn_anchors(*CANVAS, FPNFRCNN.strides)
-    anchors = torch.from_numpy(anchors).to(device)
-    batch = synthetic_train_batch(CANVAS, seed, labels=labels, max_gt=max_gt, boxes=boxes)
-    gt, gt_mask = batch["gt_boxes"], batch["gt_mask"]
-    extents = batch["extent"]
+    cfg = _train_setup(generation)[0]
+    anchors, gt_t, mask_t, inside, extents_t = rpn_match_scene(
+        generation, canvas, batch, max_gt, boxes, seed, device
+    )
+    gt, gt_mask, extents = (t.cpu().numpy() for t in (gt_t, mask_t, extents_t))
 
     def inside_of(extents):
         return anchor_inside(anchors, torch.from_numpy(extents).to(device), cfg.rpn_boundary_filter)
@@ -1226,7 +1248,7 @@ def rpn_match_inputs(generation: str, max_gt: int, boxes, seed: int, device):
     )
     crafted_mask[0, :n0] = True
     crafted[0, 10:20] = crafted[0, 0:10]
-    inside0 = inside_of(extents)[0].nonzero()[:, 0].cpu().numpy()
+    inside0 = inside[0].nonzero()[:, 0].cpu().numpy()
     crafted[0, 20:24] = anchors.cpu().numpy()[inside0[rs.randint(0, len(inside0), 4)]]
     crafted[0, 24, 2] = crafted[0, 24, 0]
     padded_mask = crafted_mask.copy()
@@ -1240,72 +1262,200 @@ def rpn_match_inputs(generation: str, max_gt: int, boxes, seed: int, device):
         return tuple(torch.from_numpy(x).to(device) for x in xs)
 
     return anchors, [
-        ("scene", *dev(gt, gt_mask), inside_of(extents)),
-        ("crafted, image 1 padded", *dev(crafted, padded_mask), inside_of(extents)),
+        ("scene", gt_t, mask_t, inside),
+        ("crafted, image 1 padded", *dev(crafted, padded_mask), inside),
         ("crafted, image 1 all outside", *dev(crafted, crafted_mask), outside),
     ]
 
 
+def _meets(box: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
+    """``[A]``: the anchors whose intersection with ``box [4]`` is positive."""
+    iw = torch.minimum(box[2], anchors[:, 2]) - torch.maximum(box[0], anchors[:, 0])
+    ih = torch.minimum(box[3], anchors[:, 3]) - torch.maximum(box[1], anchors[:, 1])
+    return (iw > 0) & (ih > 0)
+
+
+def rpn_match_crafted(generation: str, seed: int, device) -> list:
+    """Cases aimed at the anchor match kernel's culling and gt split, on
+    the generation's 800x1344 anchors (``rpn_match_scene``'s 100-slot
+    scene unless said), each to run in both modes. Returns ``[(what,
+    anchors, gt, gt_mask, inside, eps), ...]``:
+
+    * one tile: image 0 adds a 4x4 px gt inside a mid-canvas anchor, every
+      anchor it meets outside that anchor's tile (``RPN_MATCH_TILE``) set
+      outside, so its only non-zero IoUs lie in one tile;
+    * no inside anchor meets it: image 0 adds a gt beyond the canvas
+      (every anchor's IoU with it is +0: its max is 0, its first argmax the
+      first inside anchor, and it ties with every inside anchor), image 1
+      a gt past its extent (legacy: beside every inside anchor);
+    * degenerate gt, eps 1e-5 and 0: image 0's first slots inverted in x,
+      in y and in both, of zero width, zero height and a point, slot 0 of
+      a large negative area (its IoUs are -0, and slot 0 comes first);
+    * ``RPN_MATCH_LONG_GT`` slots, 90% real (small and large boxes): past
+      the chunk of 512 and not a multiple of the plan's split;
+    * 10,007 anchors: a count that is not a multiple of the tile."""
+    anchors, gt, gt_mask, inside, extents = rpn_match_scene(
+        generation, CANVAS, TRAIN_BATCH, MAX_GT, (1, 4), seed, device
+    )
+    rs = np.random.RandomState(seed)
+    n_real = gt_mask.sum(1)
+    cases = []
+
+    def add_slot(g, m, i, box):
+        g[i, int(n_real[i])] = torch.tensor(box, device=device)
+        m[i, int(n_real[i])] = True
+
+    # one tile
+    g, m, ins = gt.clone(), gt_mask.clone(), inside.clone()
+    inside0 = ins[0].nonzero()[:, 0]
+    a0 = int(inside0[len(inside0) // 2])
+    cx, cy = ((anchors[a0, :2] + anchors[a0, 2:]) / 2).tolist()
+    box = [cx - 2 / CANVAS[1], cy - 2 / CANVAS[0], cx + 2 / CANVAS[1], cy + 2 / CANVAS[0]]
+    add_slot(g, m, 0, box)
+    tile = torch.arange(anchors.shape[0], device=device) // boxes_mod.RPN_MATCH_TILE
+    ins[0] &= ~(_meets(g[0, int(n_real[0])], anchors) & (tile != a0 // boxes_mod.RPN_MATCH_TILE))
+    cases.append((f"one tile (anchor {a0})", anchors, g, m, ins, 1e-5))
+    # no inside anchor meets it
+    g, m = gt.clone(), gt_mask.clone()
+    add_slot(g, m, 0, [2.0, 2.0, 2.1, 2.1])
+    ex, ey = extents[1].tolist()
+    add_slot(g, m, 1, [min(ex + 0.02, 0.97), 0.1, min(ex + 0.03, 0.98), 0.2])
+    cases.append(("no inside anchor meets it", anchors, g, m, inside, 1e-5))
+    # degenerate gt
+    g, m = gt.clone(), gt_mask.clone()
+    degenerate = torch.tensor(
+        [[0.9, 0.1, 0.1, 0.9], [0.3, 0.2, 0.2, 0.4], [0.5, 0.3, 0.6, 0.2], [0.4, 0.4, 0.3, 0.3],
+         [0.2, 0.2, 0.2, 0.5], [0.6, 0.3, 0.8, 0.3], [0.7, 0.7, 0.7, 0.7]],
+        device=device,
+    )
+    k = len(degenerate)
+    g[0, k : k + MAX_GT - k] = gt[0, : MAX_GT - k]
+    m[0, k : k + MAX_GT - k] = gt_mask[0, : MAX_GT - k]
+    g[0, :k], m[0, :k] = degenerate, True
+    for eps in (1e-5, 0.0):
+        cases.append((f"inverted and zero-area gt, eps {eps}", anchors, g, m, inside, eps))
+    # many slots
+    long_gt = RPN_MATCH_LONG_GT[generation]
+    xy = rs.uniform(0.0, 0.9, (TRAIN_BATCH, long_gt, 2))
+    wh = np.where(rs.uniform(size=(TRAIN_BATCH, long_gt, 1)) < 0.8, rs.uniform(0.01, 0.08, (TRAIN_BATCH, long_gt, 2)),
+                  rs.uniform(0.1, 0.6, (TRAIN_BATCH, long_gt, 2)))
+    g = torch.from_numpy(np.concatenate([xy, np.minimum(xy + wh, 1.0)], 2).astype(np.float32)).to(device)
+    m = torch.from_numpy(rs.uniform(size=(TRAIN_BATCH, long_gt)) < 0.9).to(device)
+    cases.append((f"{long_gt} slots", anchors, g, m, inside, 1e-5))
+    # a ragged last tile
+    cut = 10_007
+    cases.append((f"{cut} anchors", anchors[:cut].contiguous(), gt, gt_mask, inside[:, :cut].contiguous(), 1e-5))
+    return cases
+
+
+def _intersecting_pairs(anchors, gt, gt_mask, inside) -> int:
+    """The pairs of a real gt and an inside anchor whose boxes intersect
+    (the twin's ``inter > 0``): the work a kernel that skips the others
+    must still do."""
+    n = 0
+    for i in range(gt.shape[0]):
+        a = anchors[inside[i]]
+        for g in gt[i][gt_mask[i]].split(64):
+            iw = (torch.minimum(g[:, None, 2], a[None, :, 2]) - torch.maximum(g[:, None, 0], a[None, :, 0])).clamp(min=0)
+            ih = (torch.minimum(g[:, None, 3], a[None, :, 3]) - torch.maximum(g[:, None, 1], a[None, :, 1])).clamp(min=0)
+            n += int(((iw * ih) > 0).sum())
+    return n
+
+
+def _check_rpn_match(what: str, anchors, gt, gt_mask, inside, ties: bool, eps: float = 1e-5):
+    """Runs the kernel and its twin on one case; requires ``iou_max`` bit
+    for bit and ``iou_argmax`` and ``best_any`` equal; returns the kernel's
+    outputs and its plan."""
+    plan = boxes_mod.rpn_match_launch_plan(anchors, gt)
+    got = RPN_MATCH_KERNEL(anchors, gt, gt_mask, inside, ties, eps)
+    torch.cuda.synchronize()
+    want = boxes_mod.rpn_match_reference(anchors, gt, gt_mask, inside, ties, eps)
+    _require(
+        torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+        and torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
+        f"anchor match {what} ({'ties' if ties else 'argmax'}, {plan}): max bits differ at "
+        f"{int((got[0].view(torch.int32) != want[0].view(torch.int32)).sum())}, argmax at "
+        f"{int((got[1] != want[1]).sum())}, best_any at {int((got[2] != want[2]).sum())} anchors",
+    )
+    return got, plan
+
+
 def check_rpn_match_kernel(device) -> dict:
-    """Row 8, the anchor match kernel, at the main path's four shapes
+    """Row 8, the anchor match kernel, at the main path's six shapes
     (``RPN_MATCH_SHAPES``: FPN at 640 and 100 gt slots in ``ties`` mode
     over every anchor, legacy at 512 and 100 in ``argmax`` mode with the
-    boundary filter) on ``rpn_match_inputs``' scene and crafted batches:
-    ``iou_max`` bit for bit, ``iou_argmax`` and ``best_any`` equal to the
-    plain twin's (``rpn_match_reference``, the eager chain the kernel
-    replaces); at least one FPN case whose tie set holds more anchors than
-    the image has real gt. On the scene, timed one call and back to back
-    (``BURST``), beside the twin and the launch floor (an empty kernel).
-    Bound: the operations of the pairs this data needs (every real gt
-    against every inside anchor, 14 operations a pair, twice in ``ties``
-    mode) at 67 TFLOP/s, or the anchors, gt, masks and the [B, A] outputs at
-    3.35 TB/s. The record's numbers are the FPN dense row's."""
+    boundary filter, both at phase 28's 320x512 canvas, batch 8, 100 slots)
+    on ``rpn_match_inputs``' scene and crafted batches, then each
+    generation's ``rpn_match_crafted`` cases in both modes: ``iou_max`` bit
+    for bit, ``iou_argmax`` and ``best_any`` equal to the plain twin's
+    (``rpn_match_reference``, the eager chain the kernel replaces), each
+    printed with ``rpn_match_plan``'s launch plan; at least one FPN case
+    whose tie set holds more anchors than the image has real gt. On the
+    scene, timed one call and back to back (``BURST``), beside the twin and
+    the launch floor (an empty kernel). Bound: the operations of the pairs
+    whose boxes intersect (``_intersecting_pairs``, 14 operations a pair,
+    twice in ``ties`` mode) at 67 TFLOP/s, or the anchors, gt, masks and
+    the [B, A] outputs at 3.35 TB/s; the bound of every real gt against
+    every inside anchor (the kernel before it culled) is printed beside
+    it, and the kernel must not read under the bound. The record's numbers
+    are the FPN dense row's."""
+    tile = extension().rpn_match_tile()
+    _require(tile == boxes_mod.RPN_MATCH_TILE, f"anchor match: the kernel's tile {tile} is not the plan's")
     empty = extension().empty_kernel
     floor_ms, floor_burst_ms = _median_ms(empty), _median_ms(empty, burst=BURST)
     rows, more_ties = [], 0
-    for i, (generation, max_gt, boxes) in enumerate(RPN_MATCH_SHAPES):
+    for i, (generation, canvas, batch, max_gt, boxes) in enumerate(RPN_MATCH_SHAPES):
         ties = _train_setup(generation)[0].rpn_allow_ties
-        anchors, cases = rpn_match_inputs(generation, max_gt, boxes, SEED + 30 + i, device)
+        anchors, cases = rpn_match_inputs(generation, canvas, batch, max_gt, boxes, SEED + 30 + i, device)
         a = anchors.shape[0]
+        shape = f"{generation} {canvas[0]}x{canvas[1]} [{a}, 4] x [{batch}, {max_gt}, 4]"
         for what, gt, gt_mask, inside in cases:
-            got = RPN_MATCH_KERNEL(anchors, gt, gt_mask, inside, ties)
-            torch.cuda.synchronize()
-            want = boxes_mod.rpn_match_reference(anchors, gt, gt_mask, inside, ties)
-            _require(
-                torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
-                and torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
-                f"anchor match {generation} {max_gt} slots, {what}: max bits differ at "
-                f"{int((got[0].view(torch.int32) != want[0].view(torch.int32)).sum())}, argmax at "
-                f"{int((got[1] != want[1]).sum())}, best_any at {int((got[2] != want[2]).sum())} anchors",
-            )
+            got, plan = _check_rpn_match(f"{shape}, {what}", anchors, gt, gt_mask, inside, ties)
             tied = got[2].sum(1).tolist()
             real = gt_mask.sum(1).tolist()
             if ties:
                 more_ties += sum(t > r for t, r in zip(tied, real))
             print(
-                f"anchor match {generation} [{a}, 4] x [{TRAIN_BATCH}, {max_gt}, 4], {what}: bit-exact with "
-                f"the plain chain ({'ties' if ties else 'argmax'}; real gt {real}, inside anchors "
-                f"{inside.sum(1).tolist()}, best anchors {tied})",
+                f"anchor match {shape}, {what}: bit-exact with the plain chain ({'ties' if ties else 'argmax'}; "
+                f"real gt {real}, inside anchors {inside.sum(1).tolist()}, best anchors {tied}; {plan})",
                 flush=True,
             )
         _, gt, gt_mask, inside = cases[0]
         call = lambda: RPN_MATCH_KERNEL(anchors, gt, gt_mask, inside, ties)  # noqa: E731
         ms, burst_ms = _median_ms(call), _median_ms(call, burst=BURST)
         plain_ms = _median_ms(lambda: boxes_mod.rpn_match_reference(anchors, gt, gt_mask, inside, ties))
-        real = gt_mask.sum(1)
-        pairs = int((real * inside.sum(1)).sum())
-        n_ops = 14 * pairs * (2 if ties else 1)
+        passes = 2 if ties else 1
+        pairs = int((gt_mask.sum(1) * inside.sum(1)).sum())
+        meeting = _intersecting_pairs(anchors, gt, gt_mask, inside)
         n_bytes = a * 16 + gt_mask.numel() * 17 + inside.numel() * 14
-        bound_ms, bound_by = _bound(n_bytes, n_ops)
-        rows.append(dict(generation=generation, slots=max_gt, ms=ms, burst_ms=burst_ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by, pairs=pairs))
+        bound_ms, bound_by = _bound(n_bytes, 14 * meeting * passes)
+        all_pairs_ms, all_pairs_by = _bound(n_bytes, 14 * pairs * passes)
+        plan = boxes_mod.rpn_match_launch_plan(anchors, gt)
+        rows.append(dict(generation=generation, canvas=list(canvas), batch=batch, slots=max_gt, ms=ms,
+                         burst_ms=burst_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         all_pairs_bound_ms=all_pairs_ms, pairs=pairs, intersecting_pairs=meeting,
+                         split=plan.split, blocks=plan.blocks, per_lane=plan.per_lane))
         print(
-            f"anchor match {generation} {max_gt} slots: kernel {ms:.4f} ms ({burst_ms:.4f} back to back), "
-            f"plain chain {plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({pairs} pairs x 14 x "
-            f"{2 if ties else 1} operations, {n_bytes / 1e6:.2f} MB, {bound_by}), launch floor "
-            f"{floor_ms:.4f} ({floor_burst_ms:.4f} back to back) (medians of 25)",
+            f"anchor match {shape}: kernel {ms:.4f} ms ({burst_ms:.4f} back to back), plain chain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({meeting} intersecting pairs x 14 x {passes} "
+            f"operations, {n_bytes / 1e6:.2f} MB, {bound_by}; all {pairs} pairs: {all_pairs_ms:.5f} ms, "
+            f"{all_pairs_by}), launch floor {floor_ms:.4f} ({floor_burst_ms:.4f} back to back) (medians "
+            f"of 25; {plan})",
             flush=True,
         )
+        _require(min(ms, burst_ms) >= bound_ms, f"anchor match {shape} reads under its bound: {ms} < {bound_ms}")
+    for j, generation in enumerate(("fpn", "legacy")):
+        for what, anchors, gt, gt_mask, inside, eps in rpn_match_crafted(generation, SEED + 40 + j, device):
+            for ties in (True, False):
+                got, plan = _check_rpn_match(f"{generation} crafted, {what}", anchors, gt, gt_mask, inside, ties, eps)
+                if ties and generation == "fpn":
+                    more_ties += sum(t > r for t, r in zip(got[2].sum(1).tolist(), gt_mask.sum(1).tolist()))
+                print(
+                    f"anchor match {generation} crafted, {what} ([{anchors.shape[0]}, 4] x "
+                    f"{list(gt.shape)}, {'ties' if ties else 'argmax'}): bit-exact with the plain chain "
+                    f"(best anchors {got[2].sum(1).tolist()}; {plan})",
+                    flush=True,
+                )
     _require(more_ties > 0, "no FPN case had more tied anchors than real gt")
     main = rows[0]
     return {
@@ -1320,6 +1470,7 @@ def check_rpn_match_kernel(device) -> dict:
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
+        "all_pairs_bound_ms": main["all_pairs_bound_ms"],
         "library_ms": None,  # PyTorch has no IoU or anchor-match call (torchvision is not a dependency)
         "floor_ms": floor_ms,
         "floor_burst_ms": floor_burst_ms,

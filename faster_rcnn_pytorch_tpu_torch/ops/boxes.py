@@ -15,9 +15,19 @@ writes the ``[G, A]`` IoU of :func:`masked_iou_gt_major` either.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from faster_rcnn_pytorch_tpu_torch.ops.cuda import extension
+
+# The anchor match kernel's launch plan (ops/cuda/anchor_match.cu).
+RPN_MATCH_TILE = 128  # anchors a block holds (kTile)
+RPN_MATCH_BLOCKS_PER_SM = 32  # pass-1 blocks an SM the plan aims at: two waves of 16 resident
+RPN_MATCH_MIN_SHARE = 24  # gt slots a pass-1 block walks at least, where G has them
+RPN_MATCH_MAX_SPLIT = 65535  # the grid's y dimension
+RPN_MATCH_DENSE_SLOTS = 256  # from this many gt slots: the gt split, and every warp on the whole tile
 
 
 def cxcy_to_xy(cxcy: torch.Tensor) -> torch.Tensor:
@@ -284,6 +294,62 @@ def rpn_match_reference(
     return tuple(torch.stack(t) for t in zip(*outs))
 
 
+class RpnMatchPlan(NamedTuple):
+    """A call of the anchor match kernel: ``tiles`` tiles of ``tile``
+    anchors an image; pass 1 runs a block per (tile, share, image), each
+    walking ``share`` gt slots of ``split`` (the last may hold fewer);
+    ``blocks`` pass 1's grid, ``second`` pass 2's (a block per tile and
+    image); ``per_lane`` the anchors a lane holds: 1, each of a block's four
+    warps a quarter of the tile and every surviving gt, or 4, every warp the
+    whole tile and a quarter of the survivors."""
+
+    tile: int
+    tiles: int
+    split: int
+    share: int
+    blocks: int
+    second: int
+    per_lane: int
+
+
+@functools.lru_cache(maxsize=64)  # asked on every call, from the train step's host path
+def rpn_match_plan(a_count: int, g_count: int, batch: int, sms: int = 132) -> RpnMatchPlan:
+    """The launch plan of :func:`rpn_match_cuda` for ``a_count`` anchors
+    and ``batch`` images of ``g_count`` gt slots on a card of ``sms`` SMs.
+
+    Below ``RPN_MATCH_DENSE_SLOTS`` slots a block walks them all and a lane
+    holds 1 anchor: the fewest blocks and registers for little work. From
+    it (the dense scenes) a lane holds 4, so that a coarse FPN tile that
+    keeps hundreds of gt is walked by four warps at once, and the gt axis
+    is split where the tiles alone give fewer than
+    ``RPN_MATCH_BLOCKS_PER_SM`` blocks an SM, into as many shares as make
+    up that count, each of at least ``RPN_MATCH_MIN_SHARE`` slots (legacy's
+    37,800 anchors at 800x1344, batch 2, 512 slots: 592 tiles, so 7 shares
+    of 74; FPN's 268,569: 4198 tiles, one share). The shares cover the
+    slots in order, ``share`` each."""
+    tiles = -(-a_count // RPN_MATCH_TILE)
+    dense = g_count >= RPN_MATCH_DENSE_SLOTS
+    want = (RPN_MATCH_BLOCKS_PER_SM * sms) // max(1, tiles * batch) if dense else 1
+    split = max(1, min(want, g_count // RPN_MATCH_MIN_SHARE, RPN_MATCH_MAX_SPLIT))
+    share = max(1, -(-g_count // split))
+    split = max(1, -(-g_count // share))
+    per_lane = 4 if dense else 1
+    return RpnMatchPlan(
+        RPN_MATCH_TILE, tiles, split, share, tiles * split * batch, tiles * batch, per_lane
+    )
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def rpn_match_launch_plan(anchors: torch.Tensor, gt: torch.Tensor) -> RpnMatchPlan:
+    """:func:`rpn_match_plan` for these CUDA operands on their card."""
+    index = anchors.device.index if anchors.device.index is not None else torch.cuda.current_device()
+    return rpn_match_plan(anchors.shape[0], gt.shape[1], gt.shape[0], _sm_count(index))
+
+
 def rpn_match_cuda(
     anchors: torch.Tensor,
     gt: torch.Tensor,
@@ -294,13 +360,17 @@ def rpn_match_cuda(
 ):
     """The hand-written Hopper kernel (``ops/cuda/anchor_match.cu``):
     :func:`rpn_match_reference` for the whole batch in one call, the
-    ``[G, A]`` IoU never in device memory. Contiguous float32 boxes and
-    bool masks on one card; the binding raises on anything else. Counts
-    its calls in ``rpn_match_cuda.launches``, one a call however many CUDA
-    kernels the call runs."""
+    ``[G, A]`` IoU never in device memory, launched as
+    :func:`rpn_match_launch_plan` says. Contiguous float32 boxes and bool
+    masks on one card, ``eps >= 0``; the binding raises on anything else.
+    Counts its calls in ``rpn_match_cuda.launches``, one a call however
+    many CUDA kernels the call runs."""
     if not anchors.is_cuda:
         raise ValueError("rpn_match_cuda needs CUDA tensors")
-    out = extension().rpn_match(anchors, gt, gt_mask, inside, eps, allow_ties)
+    plan = rpn_match_launch_plan(anchors, gt)
+    out = extension().rpn_match(
+        anchors, gt, gt_mask, inside, eps, allow_ties, plan.share, plan.per_lane
+    )
     rpn_match_cuda.launches += 1
     return out
 

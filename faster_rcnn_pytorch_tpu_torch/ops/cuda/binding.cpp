@@ -45,11 +45,12 @@ int iou_match_launch(const float* a, const float* b, int batch, int n, int m, fl
                      float union_floor, const bool* row_mask, const bool* col_mask,
                      float* best_val, int64_t* best_idx, void* stream);
 int empty_kernel_launch(void* stream);
-int64_t anchor_match_initial_key();
+int anchor_match_tile();
 int anchor_match_launch(const float* anchors, int a_count, const float* gt, const bool* gt_mask,
-                        int batch, int g_count, const bool* inside, float eps, bool ties,
-                        float* iou_max, int64_t* iou_argmax, unsigned long long* gt_key,
-                        bool* best_any, void* stream);
+                        int batch, int g_count, int g_share, int per_lane, const bool* inside,
+                        float eps, bool ties, float* iou_max, int64_t* iou_argmax, bool* best_any,
+                        unsigned long long* gt_key, float* part_max, int* part_argmax,
+                        void* stream);
 int nms_segments_shared_bytes(int share);
 int nms_segments_max_active_clusters(int width, int share);
 int nms_segments_launch(const float* boxes, const bool* valid, int segments, int n, float thr,
@@ -301,11 +302,14 @@ std::tuple<at::Tensor, at::Tensor> iou_match(const at::Tensor& a_in, const at::T
 // card -> (iou_max [B, A] float32, iou_argmax [B, A] int64, best_any [B, A]
 // bool): ops/boxes.py::rpn_match_reference's anchor assignment of the batch,
 // allow_ties choosing the tie set (FPN) or the per-gt first argmax (legacy).
+// gt_share and per_lane: the gt slots a pass-1 block walks and the anchors a
+// lane holds (ops/boxes.py::rpn_match_plan).
 std::tuple<at::Tensor, at::Tensor, at::Tensor> rpn_match(const at::Tensor& anchors,
                                                          const at::Tensor& gt,
                                                          const at::Tensor& gt_mask,
                                                          const at::Tensor& inside, double eps,
-                                                         bool allow_ties) {
+                                                         bool allow_ties, int64_t gt_share,
+                                                         int64_t per_lane) {
   TORCH_CHECK(anchors.is_cuda() && gt.is_cuda(), "rpn_match: tensors must be on a CUDA device");
   TORCH_CHECK(anchors.dim() == 2 && anchors.size(1) == 4 && gt.dim() == 3 && gt.size(2) == 4,
               "rpn_match: anchors must be [A, 4] and gt [B, G, 4]");
@@ -320,20 +324,35 @@ std::tuple<at::Tensor, at::Tensor, at::Tensor> rpn_match(const at::Tensor& ancho
   TORCH_CHECK(g > 0, "rpn_match: no gt slots to reduce");
   TORCH_CHECK(batch <= 65535 && a < (int64_t{1} << 31) - 1024 && g < (int64_t{1} << 31),
               "rpn_match: too many anchors or images");
+  TORCH_CHECK(gt_share > 0 && (g + gt_share - 1) / gt_share <= 65535,
+              "rpn_match: gt_share must split the gt slots into 1..65535 shares");
+  TORCH_CHECK(per_lane == 1 || per_lane == 4, "rpn_match: per_lane must be 1 or 4");
+  TORCH_CHECK(eps >= 0.0, "rpn_match: eps must be >= 0");
   check_mask(gt_mask, gt, {batch, g}, "rpn_match");
   check_mask(inside, gt, {batch, a}, "rpn_match");
   const c10::cuda::CUDAGuard guard(gt.device());
+  const int64_t split = (g + gt_share - 1) / gt_share;
   at::Tensor best = at::empty({batch, a}, gt.options());
   at::Tensor index = at::empty({batch, a}, gt.options().dtype(at::kLong));
-  at::Tensor best_any = allow_ties ? at::empty({batch, a}, gt.options().dtype(at::kBool))
-                                   : at::zeros({batch, a}, gt.options().dtype(at::kBool));
-  at::Tensor keys = at::full({batch, g}, anchor_match_initial_key(), gt.options().dtype(at::kLong));
+  // Scratch the kernel zeroes with one memset: the keys, a word an image, then best_any.
+  const int64_t key_bytes = batch * (g + 1) * static_cast<int64_t>(sizeof(int64_t));
+  at::Tensor scratch = at::empty({key_bytes + batch * a}, gt.options().dtype(at::kByte));
+  at::Tensor best_any = scratch.narrow(0, key_bytes, batch * a).view(at::kBool).view({batch, a});
+  at::Tensor part_max, part_argmax;  // the shares' partial results, where the gt are split
+  if (split > 1) {
+    part_max = at::empty({split, batch, a}, gt.options());
+    part_argmax = at::empty({split, batch, a}, gt.options().dtype(at::kInt));
+  }
   const int err = anchor_match_launch(
       anchors.data_ptr<float>(), static_cast<int>(a), gt.data_ptr<float>(),
       gt_mask.data_ptr<bool>(), static_cast<int>(batch), static_cast<int>(g),
-      inside.data_ptr<bool>(), static_cast<float>(eps), allow_ties, best.data_ptr<float>(),
-      index.data_ptr<int64_t>(), reinterpret_cast<unsigned long long*>(keys.data_ptr<int64_t>()),
-      best_any.data_ptr<bool>(), static_cast<void*>(at::cuda::getCurrentCUDAStream()));
+      static_cast<int>(std::min<int64_t>(gt_share, g)), static_cast<int>(per_lane),
+      inside.data_ptr<bool>(),
+      static_cast<float>(eps), allow_ties, best.data_ptr<float>(), index.data_ptr<int64_t>(),
+      best_any.data_ptr<bool>(), reinterpret_cast<unsigned long long*>(scratch.data_ptr<uint8_t>()),
+      split > 1 ? part_max.data_ptr<float>() : nullptr,
+      split > 1 ? part_argmax.data_ptr<int32_t>() : nullptr,
+      static_cast<void*>(at::cuda::getCurrentCUDAStream()));
   TORCH_CHECK(err == 0, "rpn_match launch failed: ", roi_pool_error_string(err));
   return {best, index, best_any};
 }
@@ -449,7 +468,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "Row max and first argmax of the masked IoU, [B, n, 4] x [B, m, 4] -> [B, n] (CUDA)");
   m.def("rpn_match", &rpn_match,
         "The RPN's anchor assignment of a batch: each anchor's max IoU and first gt, and the "
-        "per-gt best anchors (ties or first argmax), [A, 4] x [B, G, 4] -> [B, A] (CUDA)");
+        "per-gt best anchors (ties or first argmax), [A, 4] x [B, G, 4] -> [B, A], gt_share "
+        "slots a pass-1 block (CUDA)");
+  m.def("rpn_match_tile", &anchor_match_tile, "Anchors a block of the anchor match holds");
   m.def("nms_segments", &nms_segments,
         "Segmented exact greedy NMS, [S, n, 4] sorted boxes -> [S, post_k] kept positions, "
         "a cluster of CTAs a segment (CUDA)");
