@@ -1,0 +1,11 @@
+"""Median host self time a train step of the program's ``train.propose``
+span: the train-budget proposals of the batch, the first stage of
+``train_targets`` (``lib/program_spans.py``)."""
+
+from benchmark.lib import program_spans
+
+
+def read(record):
+    if record.kind != "train":
+        return None
+    return program_spans.host_ms("train.propose")

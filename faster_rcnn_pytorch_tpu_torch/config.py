@@ -104,7 +104,7 @@ class Options:
     # drill's float32 leg sets it); production train/eval keep "default".
     matmul_precision: str = "default"  # default | high | highest
     # observability
-    profile: bool = False  # jax.profiler trace around the first epoch
+    profile: bool = False  # torch.profiler trace of the first epoch, with the frcnn.* ranges
 
 
 def parse_config_file(path: str) -> dict[str, str]:

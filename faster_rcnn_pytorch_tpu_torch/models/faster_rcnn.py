@@ -47,6 +47,7 @@ from faster_rcnn_pytorch_tpu_torch.ops.boxes import cxcy_to_xy, decode, rpn_matc
 from faster_rcnn_pytorch_tpu_torch.ops.nms import multiclass_nms_batch
 from faster_rcnn_pytorch_tpu_torch.ops.roi_align import multiscale_roi_align_batch
 from faster_rcnn_pytorch_tpu_torch.ops.roi_pool import roi_pool_batch
+from faster_rcnn_pytorch_tpu_torch.utils.logging import span, stage_spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -346,9 +347,9 @@ def init_weights(model, generator: torch.Generator):
     distribution (that is :func:`init_detector_weights`, which every CLI
     uses): N(0, std) weights with the model's ``init_stds`` and He-normal
     elsewhere, zero biases. FrozenBN keeps its identity statistics (scale
-    1, bias 0, mean 0, var 1). Tests that only need random weights,
-    ``tools/predict_stages.py`` and ``chip_smoke.py``'s kernel phases use
-    it: its detections at random weights are free of ties."""
+    1, bias 0, mean 0, var 1). Tests that only need random weights and
+    ``chip_smoke.py``'s kernel phases use it: its detections at random
+    weights are free of ties."""
     small = model.init_stds()
     with torch.no_grad():
         for m in model.modules():
@@ -420,74 +421,76 @@ def train_targets(
     the JAX package's gate); then per image the sampling. Returns both
     batched, ``[B, A]`` and ``[B, S]``. No gradient flows through them.
     ``plain`` (tests only) keeps the plain NMS sweep, the plain anchor
-    match, and the plain RoI match above the gate. ``on_stage`` is called
-    as ``on_stage(name, result)`` as each of :data:`TRAIN_TARGET_STAGES`
-    ends, so a timer can sync the device between stages."""
-    mark = on_stage or (lambda name, result: None)
-    props = propose_batch(
-        rpn_cls,
-        rpn_reg,
-        anchors,
-        extents,
-        pre_k=cfg.pre_nms_train,
-        post_k=cfg.post_nms_train,
-        nms_iou=cfg.rpn_nms_iou,
-        min_size=cfg.proposal_min_size,
-        nms_tile=cfg.rpn_nms_tile_train or cfg.rpn_nms_tile,
-        plain=plain,
-    )
-    mark("propose", props)
-    inside = anchor_inside(anchors, extents, cfg.rpn_boundary_filter)
-    rpn_max, rpn_argmax, best_any = rpn_match(
-        anchors, gt_boxes, gt_mask, inside, cfg.rpn_allow_ties, plain=plain
-    )
-    mark("rpn_match", best_any)
-    rpn_tg = _stack(
-        [
-            rpn_labels(
-                anchors,
-                gt_boxes[i],
-                gt_mask[i],
-                inside[i],
-                rpn_max[i],
-                rpn_argmax[i],
-                best_any[i],
-                noise.rpn_pos[i],
-                noise.rpn_neg[i],
-                pos_iou=cfg.rpn_pos_iou,
-                neg_iou=cfg.rpn_neg_iou,
-                pos_quota=cfg.rpn_pos_quota,
-                total_quota=cfg.rpn_total_quota,
-            )
-            for i in range(rpn_cls.shape[0])
-        ]
-    )
-    mark("rpn_labels", rpn_tg)
-    cand = torch.cat([props.rois, gt_boxes], dim=1)
-    cand_valid = torch.cat([props.valid, gt_mask], dim=1)
-    iou_max, iou_argmax = roi_match(cand, cand_valid, gt_boxes, gt_mask, plain=plain)
-    mark("roi_match", iou_max)
-    roi_tg = _stack(
-        [
-            sample_roi_targets(
-                cand[i],
-                cand_valid[i],
-                iou_max[i],
-                iou_argmax[i],
-                gt_boxes[i],
-                gt_labels[i],
-                noise.roi_pos[i],
-                noise.roi_neg[i],
-                num_samples=cfg.roi_samples,
-                pos_quota=cfg.roi_pos_quota,
-                pos_iou=cfg.roi_pos_iou,
-                label_offset=cfg.label_offset,
-            )
-            for i in range(cand.shape[0])
-        ]
-    )
-    mark("roi_sample", roi_tg)
-    return rpn_tg, roi_tg
+    match, and the plain RoI match above the gate. Each of
+    :data:`TRAIN_TARGET_STAGES` is the program's span ``train.<stage>``
+    under ``train.targets`` (``utils/logging.py``), ended by its mark;
+    ``on_stage`` is called as ``on_stage(name, result)`` as each stage
+    ends. The spans read the host clock alone: no device sync."""
+    with span("train.targets"), stage_spans("train", TRAIN_TARGET_STAGES, on_stage) as mark:
+        props = propose_batch(
+            rpn_cls,
+            rpn_reg,
+            anchors,
+            extents,
+            pre_k=cfg.pre_nms_train,
+            post_k=cfg.post_nms_train,
+            nms_iou=cfg.rpn_nms_iou,
+            min_size=cfg.proposal_min_size,
+            nms_tile=cfg.rpn_nms_tile_train or cfg.rpn_nms_tile,
+            plain=plain,
+        )
+        mark("propose", props)
+        inside = anchor_inside(anchors, extents, cfg.rpn_boundary_filter)
+        rpn_max, rpn_argmax, best_any = rpn_match(
+            anchors, gt_boxes, gt_mask, inside, cfg.rpn_allow_ties, plain=plain
+        )
+        mark("rpn_match", best_any)
+        rpn_tg = _stack(
+            [
+                rpn_labels(
+                    anchors,
+                    gt_boxes[i],
+                    gt_mask[i],
+                    inside[i],
+                    rpn_max[i],
+                    rpn_argmax[i],
+                    best_any[i],
+                    noise.rpn_pos[i],
+                    noise.rpn_neg[i],
+                    pos_iou=cfg.rpn_pos_iou,
+                    neg_iou=cfg.rpn_neg_iou,
+                    pos_quota=cfg.rpn_pos_quota,
+                    total_quota=cfg.rpn_total_quota,
+                )
+                for i in range(rpn_cls.shape[0])
+            ]
+        )
+        mark("rpn_labels", rpn_tg)
+        cand = torch.cat([props.rois, gt_boxes], dim=1)
+        cand_valid = torch.cat([props.valid, gt_mask], dim=1)
+        iou_max, iou_argmax = roi_match(cand, cand_valid, gt_boxes, gt_mask, plain=plain)
+        mark("roi_match", iou_max)
+        roi_tg = _stack(
+            [
+                sample_roi_targets(
+                    cand[i],
+                    cand_valid[i],
+                    iou_max[i],
+                    iou_argmax[i],
+                    gt_boxes[i],
+                    gt_labels[i],
+                    noise.roi_pos[i],
+                    noise.roi_neg[i],
+                    num_samples=cfg.roi_samples,
+                    pos_quota=cfg.roi_pos_quota,
+                    pos_iou=cfg.roi_pos_iou,
+                    label_offset=cfg.label_offset,
+                )
+                for i in range(cand.shape[0])
+            ]
+        )
+        mark("roi_sample", roi_tg)
+        return rpn_tg, roi_tg
 
 
 def train_losses(
@@ -535,6 +538,7 @@ def forward_train(
     noise: TrainNoise | None = None,
     plain: bool = False,
     count_reduce: CountReduce | None = None,
+    on_stage: Callable[[str, object], None] | None = None,
 ) -> TrainStepOutput:
     """One training forward pass: the losses of a padded batch.
 
@@ -553,6 +557,11 @@ def forward_train(
         targets in place of the kernels.
       count_reduce: data parallelism: the loss's counts over the data
         group (``models/losses.py``).
+      on_stage: :func:`train_targets`' marks.
+
+    The program's spans (``utils/logging.py``): ``train.forward`` (the
+    backbone and the RPN head), ``train.targets`` and its stages,
+    ``train.head_loss``.
 
     The JAX package's slab-batched VGG stem (``train=True``) is a TPU
     layout with the same numbers; this is the plain stack.
@@ -560,18 +569,21 @@ def forward_train(
     b, canvas_h, canvas_w = images.shape[:3]
     dev = images.device
     anchors = device_anchors(model, canvas_h, canvas_w, dev)
-    feats = model.features(images.permute(0, 3, 1, 2).contiguous())
-    rpn_cls, rpn_reg = model.rpn_out(feats)
+    with span("train.forward"):
+        feats = model.features(images.permute(0, 3, 1, 2).contiguous())
+        rpn_cls, rpn_reg = model.rpn_out(feats)
     if noise is None:
         n_cand = cfg.post_nms_train + gt_boxes.shape[1]
         noise = draw_train_noise(generator, b, anchors.shape[0], n_cand, dev)
     rpn_tg, roi_tg = train_targets(
-        cfg, anchors, rpn_cls, rpn_reg, extents, gt_boxes, gt_labels, gt_mask, noise, plain
+        cfg, anchors, rpn_cls, rpn_reg, extents, gt_boxes, gt_labels, gt_mask, noise, plain,
+        on_stage,
     )
-    return train_losses(
-        model, cfg, feats, rpn_cls, rpn_reg, rpn_tg, roi_tg, (canvas_h, canvas_w), plain,
-        count_reduce,
-    )
+    with span("train.head_loss"):
+        return train_losses(
+            model, cfg, feats, rpn_cls, rpn_reg, rpn_tg, roi_tg, (canvas_h, canvas_w), plain,
+            count_reduce,
+        )
 
 
 class Detections(NamedTuple):
@@ -615,35 +627,41 @@ def predict(
         or MultiScaleRoIAlign and the plain NMS sweep.
       on_stage: called as ``on_stage(name, result)`` as each of
         :data:`PREDICT_STAGES` ends (``h2d`` is the anchors' copy;
-        ``decode`` hands over the class probabilities), so a timer can
-        sync the device between stages.
-    """
-    mark = on_stage or (lambda name, result: None)
-    canvas_h, canvas_w = images.shape[1:3]
-    dev = images.device
-    dtype = next(model.parameters()).dtype
-    anchors = device_anchors(model, canvas_h, canvas_w, dev)
-    thres = cfg.score_threshold if score_threshold is None else score_threshold
-    mark("h2d", anchors)
+        ``decode`` hands over the class probabilities).
 
-    feats = model.features(images.permute(0, 3, 1, 2).to(dtype).contiguous())
-    mark("backbone", feats)
-    rpn_cls, rpn_reg = model.rpn_out(feats)
-    mark("rpn_head", rpn_cls)
-    props = propose_batch(
-        rpn_cls,
-        rpn_reg,
-        anchors,
-        extents,
-        pre_k=cfg.pre_nms_test,
-        post_k=cfg.post_nms_test,
-        nms_iou=cfg.rpn_nms_iou,
-        min_size=cfg.proposal_min_size,
-        nms_tile=cfg.rpn_nms_tile,
-        plain=plain,
-    )
-    mark("propose", props.rois)
-    return detect(model, cfg, feats, props.rois, props.valid, (canvas_h, canvas_w), thres, plain, mark)
+    The call is the program's span ``predict.call`` and each stage its
+    child ``predict.<stage>``, ended by the stage's mark
+    (``utils/logging.py``); the spans read the host clock alone: no
+    device sync.
+    """
+    with span("predict.call"), stage_spans("predict", PREDICT_STAGES, on_stage) as mark:
+        canvas_h, canvas_w = images.shape[1:3]
+        dev = images.device
+        dtype = next(model.parameters()).dtype
+        anchors = device_anchors(model, canvas_h, canvas_w, dev)
+        thres = cfg.score_threshold if score_threshold is None else score_threshold
+        mark("h2d", anchors)
+
+        feats = model.features(images.permute(0, 3, 1, 2).to(dtype).contiguous())
+        mark("backbone", feats)
+        rpn_cls, rpn_reg = model.rpn_out(feats)
+        mark("rpn_head", rpn_cls)
+        props = propose_batch(
+            rpn_cls,
+            rpn_reg,
+            anchors,
+            extents,
+            pre_k=cfg.pre_nms_test,
+            post_k=cfg.post_nms_test,
+            nms_iou=cfg.rpn_nms_iou,
+            min_size=cfg.proposal_min_size,
+            nms_tile=cfg.rpn_nms_tile,
+            plain=plain,
+        )
+        mark("propose", props.rois)
+        return detect(
+            model, cfg, feats, props.rois, props.valid, (canvas_h, canvas_w), thres, plain, mark
+        )
 
 
 @torch.no_grad()

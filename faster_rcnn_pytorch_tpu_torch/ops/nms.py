@@ -41,6 +41,7 @@ import torch
 from faster_rcnn_pytorch_tpu_torch.ops import library  # noqa: F401  (registers frcnn::*)
 from faster_rcnn_pytorch_tpu_torch.ops.boxes import box_iou
 from faster_rcnn_pytorch_tpu_torch.ops.roi_pool import H100_SMS, SHARED_MEMORY_BYTES
+from faster_rcnn_pytorch_tpu_torch.utils.logging import count
 
 _NEG_INF = float("-inf")
 
@@ -386,6 +387,10 @@ def multiclass_nms_batch(
     its ``n_fg`` class segments, padded to one length with invalid
     entries), the pass not taken with every entry invalid, and
     ``torch.where`` picks each image's result.
+
+    While a profiler records, the counter ``class_nms.candidates``
+    (``utils/logging.py``) adds the (class, roi) pairs over the
+    threshold, over the ``B`` images.
     """
     b, n = cls_probs.shape[:2]
     dev = cls_boxes.device
@@ -394,6 +399,7 @@ def multiclass_nms_batch(
     fg_boxes = cls_boxes[:, :, 1:num_classes, :].transpose(1, 2).float()  # [B, C-1, n, 4]
     fg_probs = cls_probs[:, :, 1:num_classes].transpose(1, 2)  # [B, C-1, n]
     fg_valid = fg_probs > score_threshold
+    count("class_nms.candidates", fg_valid, b)
     flat_boxes = fg_boxes.reshape(b, n_fg * n, 4)
     flat_probs = fg_probs.reshape(b, n_fg * n)
     flat_valid = fg_valid.reshape(b, n_fg * n)

@@ -52,6 +52,7 @@ from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import (
 )
 from faster_rcnn_pytorch_tpu_torch.parallel.mesh import layout
 from faster_rcnn_pytorch_tpu_torch.parallel.tensor_parallel import split_parameters
+from faster_rcnn_pytorch_tpu_torch.utils.logging import span
 
 METRIC_KEYS = (
     "loss",
@@ -277,6 +278,10 @@ def make_train_step(
 
     With a process group up (``parallel/mesh.py``) the step runs the model
     under DDP (module docstring), made at the first call.
+
+    Each call is the program's span ``train.step`` (``utils/logging.py``),
+    one step id, around ``train.backward`` and ``train.update`` and the
+    forward's spans (``forward_train``), once a micro-batch.
     """
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, not {grad_accum}")
@@ -305,7 +310,8 @@ def make_train_step(
         )
         with autocast:
             out = fwd(batch, noise)
-        out.losses.total.backward()
+        with span("train.backward"):
+            out.losses.total.backward()
         return torch.stack(
             [
                 *(t.detach().float() for t in out.losses),
@@ -315,30 +321,34 @@ def make_train_step(
         )
 
     def step_fn(state: TrainState, batch: dict, generator: torch.Generator) -> dict:
-        state.optimizer.zero_grad(set_to_none=True)
-        fwd = forward(state)
-        if grad_accum == 1:
-            values = loss_and_backward(fwd, state.model, batch, generator)
-        else:
-            values = 0
-            for i in range(grad_accum):
-                micro = {k: v[i::grad_accum] for k, v in batch.items()}
-                last = i == grad_accum - 1
-                sync = contextlib.nullcontext() if last or not lay.distributed else fwd.no_sync()
-                with sync:
-                    values = values + loss_and_backward(fwd, state.model, micro, generator)
-            values = values / grad_accum
-        if lay.distributed:
-            _reduce_outside_ddp(state.model, lay)
-            values = values.clone()
-            dist.all_reduce(values, group=lay.data_group)
-            values[:5] /= lay.data_size
-        if grad_accum > 1:
-            for p in state.model.parameters():
-                if p.grad is not None:
-                    p.grad.div_(grad_accum)
-        apply_gradients(state, schedule)
-        return dict(zip(METRIC_KEYS, values.unbind()))
+        with span("train.step"):
+            state.optimizer.zero_grad(set_to_none=True)
+            fwd = forward(state)
+            if grad_accum == 1:
+                values = loss_and_backward(fwd, state.model, batch, generator)
+            else:
+                values = 0
+                for i in range(grad_accum):
+                    micro = {k: v[i::grad_accum] for k, v in batch.items()}
+                    last = i == grad_accum - 1
+                    sync = (
+                        contextlib.nullcontext() if last or not lay.distributed else fwd.no_sync()
+                    )
+                    with sync:
+                        values = values + loss_and_backward(fwd, state.model, micro, generator)
+                values = values / grad_accum
+            if lay.distributed:
+                _reduce_outside_ddp(state.model, lay)
+                values = values.clone()
+                dist.all_reduce(values, group=lay.data_group)
+                values[:5] /= lay.data_size
+            if grad_accum > 1:
+                for p in state.model.parameters():
+                    if p.grad is not None:
+                        p.grad.div_(grad_accum)
+            with span("train.update"):
+                apply_gradients(state, schedule)
+            return dict(zip(METRIC_KEYS, values.unbind()))
 
     return step_fn
 

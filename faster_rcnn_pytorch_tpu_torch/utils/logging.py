@@ -3,8 +3,9 @@
 Counterpart of ``faster_rcnn_pytorch_tpu/utils/logging.py``: smoothed
 console step logs with an ETA (:class:`MetricLogger`), TensorBoard and
 CSV scalars (:class:`ScalarWriter`), images/s counters
-(:class:`StepTimer`) and a ``torch.profiler`` trace around a block
-(:func:`trace_context`). :func:`is_main` is global rank 0: with several
+(:class:`StepTimer`), a ``torch.profiler`` trace around a block
+(:func:`trace_context`) and the program's own spans and counters
+(:class:`SpanRecorder`). :func:`is_main` is global rank 0: with several
 ranks (``parallel/mesh.py``) only it prints step logs and writes scalars.
 """
 
@@ -14,8 +15,11 @@ import collections
 import contextlib
 import csv
 import datetime
+import itertools
 import os
+import threading
 import time
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -143,7 +147,8 @@ class ScalarWriter:
 @contextlib.contextmanager
 def trace_context(log_dir: str, enabled: bool = False):
     """``torch.profiler`` trace (CPU, plus CUDA when a card is present)
-    around a block, written as a Chrome trace to ``log_dir/trace.json``."""
+    around a block, written as a Chrome trace to ``log_dir/trace.json``.
+    The trace holds the program's ``frcnn.*`` ranges (:class:`SpanRecorder`)."""
     if not enabled:
         yield
         return
@@ -154,6 +159,184 @@ def trace_context(log_dir: str, enabled: bool = False):
     with torch.profiler.profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+# The last spans kept of each name: a 20 s window holds some 200 train
+# steps or 350 predict calls.
+SPANS_KEPT = 4096
+
+
+class Span(NamedTuple):
+    """One closed span of :class:`SpanRecorder`."""
+
+    name: str
+    start_ns: int  # time.perf_counter_ns()
+    end_ns: int
+    parent: str | None  # the name of the span open around it
+    step: int  # shared by every span of one train step or predict call
+    self_ns: int  # the duration less what its child spans cover
+    profiled: bool  # a torch.profiler recorded it
+
+
+class Counter(NamedTuple):
+    """A counter of :class:`SpanRecorder`: its sum over ``n`` items."""
+
+    value: float
+    n: int
+
+
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` records (a flag read, 0.15 us)."""
+    return torch.autograd.profiler._is_profiler_enabled
+
+
+class _OpenSpan:
+    __slots__ = ("recorder", "name", "parent", "step", "start", "child_ns", "range")
+
+    def __init__(self, recorder: "SpanRecorder", name: str):
+        self.recorder, self.name = recorder, name
+
+    def __enter__(self):
+        stack = self.recorder._stack()
+        if stack:
+            self.parent, self.step = stack[-1].name, stack[-1].step
+        else:
+            self.parent, self.step = None, next(self.recorder._ids)
+        self.child_ns = 0
+        self.range = None
+        if profiling():
+            self.range = torch.profiler.record_function("frcnn." + self.name)
+            self.range.__enter__()
+        stack.append(self)
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        stack = self.recorder._stack()
+        stack.pop()
+        if self.range is not None:
+            self.range.__exit__(None, None, None)
+        took = end - self.start
+        if stack:
+            stack[-1].child_ns += took
+        spans = self.recorder._spans.get(self.name)
+        if spans is None:
+            spans = self.recorder._spans.setdefault(self.name, collections.deque(maxlen=SPANS_KEPT))
+        spans.append(
+            (self.start, end, self.parent, self.step, took - self.child_ns, self.range is not None)
+        )
+        return False
+
+
+class _StageSpans:
+    """The spans ``<prefix>.<stage>`` of a chain of ``on_stage`` marks: the
+    first opens on entry, each mark closes the stage that ended, calls the
+    caller's ``on_stage`` with the same arguments and opens the next."""
+
+    def __init__(self, recorder, prefix: str, stages, on_stage):
+        self.recorder, self.stages, self.on_stage = recorder, tuple(stages), on_stage
+        self.names = tuple(f"{prefix}.{s}" for s in self.stages)
+        self.current = None
+
+    def _open(self, i: int) -> None:
+        if i < len(self.names):
+            self.current = self.recorder.span(self.names[i])
+            self.current.__enter__()
+
+    def mark(self, name: str, result) -> None:
+        if self.current is not None:
+            self.current.__exit__(None, None, None)
+            self.current = None
+        if self.on_stage is not None:
+            self.on_stage(name, result)
+        self._open(self.stages.index(name) + 1)
+
+    def __enter__(self):
+        self._open(0)
+        return self.mark
+
+    def __exit__(self, *exc):
+        if self.current is not None:
+            self.current.__exit__(*exc)
+            self.current = None
+        return False
+
+
+class SpanRecorder:
+    """The program's spans and counters, kept in memory.
+
+    A span (:meth:`span`) always takes two reads of the host clock and
+    records its name, start, end, parent, step id and self time; the
+    last :data:`SPANS_KEPT` spans of each name stay. While a
+    ``torch.profiler`` records, a span also opens the range ``frcnn.<name>``, so the
+    program's stages sit on the profiler's timeline, and counters
+    (:meth:`count`) add up on the device with no sync; with no profiler
+    they cost nothing. A span opened with none open around it (on its
+    thread) starts a new step id. :meth:`snapshot` reads everything
+    (syncing for the counters), :meth:`reset` empties it.
+    """
+
+    def __init__(self):
+        self._local = threading.local()
+        self._ids = itertools.count()
+        self._spans: dict[str, collections.deque] = {}
+        self._counters: dict[str, list] = {}
+
+    def _stack(self) -> list:
+        try:
+            return self._local.stack
+        except AttributeError:
+            self._local.stack = []
+            return self._local.stack
+
+    def span(self, name: str) -> _OpenSpan:
+        """``with recorder.span(name): ...``"""
+        return _OpenSpan(self, name)
+
+    def stage_spans(
+        self, prefix: str, stages, on_stage: Callable[[str, object], None] | None = None
+    ):
+        """``with recorder.stage_spans(prefix, stages, on_stage) as mark``:
+        ``mark`` is the ``on_stage`` to hand to a function whose marks end
+        each of ``stages`` in order (:class:`_StageSpans`)."""
+        return _StageSpans(self, prefix, stages, on_stage)
+
+    def count(self, name: str, value: torch.Tensor, n: int) -> None:
+        """Add ``value.sum()`` over ``n`` items to the counter ``name``,
+        while a profiler records."""
+        if not profiling():
+            return
+        total = value.sum()
+        entry = self._counters.get(name)
+        if entry is None:
+            self._counters[name] = [total, n]
+        else:
+            entry[0] = entry[0] + total
+            entry[1] += n
+
+    def snapshot(self) -> dict:
+        """``{"spans": {name: [Span]}, "counters": {name: Counter}}``."""
+        return {
+            "spans": {name: [Span(name, *s) for s in q] for name, q in list(self._spans.items())},
+            "counters": {
+                name: Counter(float(v), n) for name, (v, n) in list(self._counters.items())
+            },
+        }
+
+    def reset(self) -> None:
+        self._spans = {}
+        self._counters = {}
+
+
+# The process's recorder: the program's spans are read after the work
+# (the benchmark, a test) without a handle being passed down the calls.
+RECORDER = SpanRecorder()
+span = RECORDER.span
+stage_spans = RECORDER.stage_spans
+count = RECORDER.count
+snapshot = RECORDER.snapshot
+reset = RECORDER.reset
 
 
 class StepTimer:
