@@ -392,10 +392,6 @@ def draw_train_noise(
     )
 
 
-def _stack(parts):
-    return type(parts[0])(*(torch.stack(t) for t in zip(*parts)))
-
-
 TRAIN_TARGET_STAGES = ("propose", "rpn_match", "rpn_labels", "roi_match", "roi_sample")
 
 
@@ -413,19 +409,21 @@ def train_targets(
     on_stage: Callable[[str, object], None] | None = None,
 ) -> tuple[RPNTargets, RoITargets]:
     """The JAX package's ``vmap`` of proposals, RPN and RoI targets, written
-    out: the train-budget proposals of the batch (one NMS launch); one
-    :func:`rpn_match` for the batch (the anchor match kernel, one launch),
-    then per image the RPN labels; one :func:`roi_match` for the batch
-    (each image's ``[post_nms_train + G, 4]`` candidates against its gt: the
-    IoU kernel's match mode, one launch, where an image's problem passes
-    the JAX package's gate); then per image the sampling. Returns both
-    batched, ``[B, A]`` and ``[B, S]``. No gradient flows through them.
-    ``plain`` (tests only) keeps the plain NMS sweep, the plain anchor
-    match, and the plain RoI match above the gate. Each of
-    :data:`TRAIN_TARGET_STAGES` is the program's span ``train.<stage>``
-    under ``train.targets`` (``utils/logging.py``), ended by its mark;
-    ``on_stage`` is called as ``on_stage(name, result)`` as each stage
-    ends. The spans read the host clock alone: no device sync."""
+    out for the whole batch, one stage at a time: the train-budget
+    proposals (one NMS launch); :func:`rpn_match` (the anchor match
+    kernel, one launch); :func:`rpn_labels`, both quotas ranked over ``[B,
+    A]``; :func:`roi_match` (each image's ``[post_nms_train + G, 4]``
+    candidates against its gt: the IoU kernel's match mode, one launch,
+    where an image's problem passes the JAX package's gate); then
+    :func:`sample_roi_targets` over ``[B, post_nms_train + G]``. No stage
+    loops over the images or waits for the device. Returns ``[B, A]`` and
+    ``[B, S]`` targets; no gradient flows through them. ``plain`` (tests
+    only) keeps the plain NMS sweep, the plain anchor match, and the plain
+    RoI match above the gate. Each of :data:`TRAIN_TARGET_STAGES` is the
+    program's span ``train.<stage>`` under ``train.targets``
+    (``utils/logging.py``), ended by its mark; ``on_stage`` is called as
+    ``on_stage(name, result)`` as each stage ends. The spans read the host
+    clock alone: no device sync."""
     with span("train.targets"), stage_spans("train", TRAIN_TARGET_STAGES, on_stage) as mark:
         props = propose_batch(
             rpn_cls,
@@ -445,49 +443,39 @@ def train_targets(
             anchors, gt_boxes, gt_mask, inside, cfg.rpn_allow_ties, plain=plain
         )
         mark("rpn_match", best_any)
-        rpn_tg = _stack(
-            [
-                rpn_labels(
-                    anchors,
-                    gt_boxes[i],
-                    gt_mask[i],
-                    inside[i],
-                    rpn_max[i],
-                    rpn_argmax[i],
-                    best_any[i],
-                    noise.rpn_pos[i],
-                    noise.rpn_neg[i],
-                    pos_iou=cfg.rpn_pos_iou,
-                    neg_iou=cfg.rpn_neg_iou,
-                    pos_quota=cfg.rpn_pos_quota,
-                    total_quota=cfg.rpn_total_quota,
-                )
-                for i in range(rpn_cls.shape[0])
-            ]
+        rpn_tg = rpn_labels(
+            anchors,
+            gt_boxes,
+            gt_mask,
+            inside,
+            rpn_max,
+            rpn_argmax,
+            best_any,
+            noise.rpn_pos,
+            noise.rpn_neg,
+            pos_iou=cfg.rpn_pos_iou,
+            neg_iou=cfg.rpn_neg_iou,
+            pos_quota=cfg.rpn_pos_quota,
+            total_quota=cfg.rpn_total_quota,
         )
         mark("rpn_labels", rpn_tg)
         cand = torch.cat([props.rois, gt_boxes], dim=1)
         cand_valid = torch.cat([props.valid, gt_mask], dim=1)
         iou_max, iou_argmax = roi_match(cand, cand_valid, gt_boxes, gt_mask, plain=plain)
         mark("roi_match", iou_max)
-        roi_tg = _stack(
-            [
-                sample_roi_targets(
-                    cand[i],
-                    cand_valid[i],
-                    iou_max[i],
-                    iou_argmax[i],
-                    gt_boxes[i],
-                    gt_labels[i],
-                    noise.roi_pos[i],
-                    noise.roi_neg[i],
-                    num_samples=cfg.roi_samples,
-                    pos_quota=cfg.roi_pos_quota,
-                    pos_iou=cfg.roi_pos_iou,
-                    label_offset=cfg.label_offset,
-                )
-                for i in range(cand.shape[0])
-            ]
+        roi_tg = sample_roi_targets(
+            cand,
+            cand_valid,
+            iou_max,
+            iou_argmax,
+            gt_boxes,
+            gt_labels,
+            noise.roi_pos,
+            noise.roi_neg,
+            num_samples=cfg.roi_samples,
+            pos_quota=cfg.roi_pos_quota,
+            pos_iou=cfg.roi_pos_iou,
+            label_offset=cfg.label_offset,
         )
         mark("roi_sample", roi_tg)
         return rpn_tg, roi_tg

@@ -6,10 +6,16 @@ filtered out, and subsampling is the noise-keyed ranking of
 :mod:`..ops.sampling`. The noise vectors are arguments; the JAX package
 draws them as ``uniform(k_pos)`` / ``uniform(k_neg)`` after
 ``split(rng)`` of the per-image key.
+
+The labels and the sampling take the whole batch, ``[B, ...]``, in one
+chain of ops that never waits for the device (the JAX package's ``vmap``
+written out); the one-image entry points :func:`rpn_targets` and
+:func:`frcnn_targets` run it on a batch of one.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -29,16 +35,35 @@ REG_STD = (0.1, 0.1, 0.2, 0.2)
 
 
 class RPNTargets(NamedTuple):
-    labels: torch.Tensor  # [A] int32 in {-1, 0, 1}
-    reg_targets: torch.Tensor  # [A, 4] encoded deltas (defined where labels == 1)
+    labels: torch.Tensor  # [B, A] int32 in {-1, 0, 1}
+    reg_targets: torch.Tensor  # [B, A, 4] encoded deltas (defined where labels == 1)
 
 
 class RoITargets(NamedTuple):
-    rois: torch.Tensor  # [S, 4] sampled rois (xyxy, canvas coords)
-    labels: torch.Tensor  # [S] int32 class target, 0 = background, -1 = invalid
-    reg_targets: torch.Tensor  # [S, 4] normalised encoded deltas
-    is_pos: torch.Tensor  # [S] bool
-    valid: torch.Tensor  # [S] bool
+    rois: torch.Tensor  # [B, S, 4] sampled rois (xyxy, canvas coords)
+    labels: torch.Tensor  # [B, S] int32 class target, 0 = background, -1 = invalid
+    reg_targets: torch.Tensor  # [B, S, 4] normalised encoded deltas
+    is_pos: torch.Tensor  # [B, S] bool
+    valid: torch.Tensor  # [B, S] bool
+
+
+def _first(targets):
+    """Image 0 of batched targets: the one-image entry points' result."""
+    return type(targets)(*(t[0] for t in targets))
+
+
+def _take_boxes(boxes: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``boxes [B, n, 4]`` at ``index [B, m]``, row by row: ``[B, m, 4]``."""
+    return boxes.gather(-2, index[..., None].expand(*index.shape, boxes.shape[-1]))
+
+
+@functools.lru_cache(maxsize=None)
+def _reg_std(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """:data:`REG_STD` as a ``[4]`` tensor on ``device``, made once a dtype
+    and device by fills: a copy from the host would wait for the stream.
+    A divisor tensor, not Python numbers: CUDA divides by a Python number
+    as a product with its reciprocal, which can differ in the last bit."""
+    return torch.stack([torch.full((), s, dtype=dtype, device=device) for s in REG_STD])
 
 
 def anchor_inside(
@@ -75,30 +100,30 @@ def rpn_labels(
     pos_quota: int = 128,
     total_quota: int = 256,
 ) -> RPNTargets:
-    """One image's labels and regression targets from its row of
-    :func:`rpn_match`: labels from ``iou_max``, ``best_any`` and ``inside``
-    ``[A]``, the two quotas (``pos_noise`` / ``neg_noise`` ``[A]``), and the
-    deltas of the positives against their gt ``iou_argmax``."""
-    a = anchors.shape[0]
-    labels = torch.full((a,), -1, dtype=torch.int32, device=anchors.device)
+    """The batch's labels and regression targets from :func:`rpn_match`'s
+    rows: labels from ``iou_max``, ``best_any`` and ``inside`` ``[B, A]``,
+    the two quotas of each image (``pos_noise`` / ``neg_noise`` ``[B,
+    A]``), and the deltas of the positives of ``anchors [A, 4]`` against
+    their gt ``iou_argmax`` of ``gt_boxes [B, G, 4]`` (``gt_mask [B,
+    G]``)."""
+    labels = torch.full(iou_max.shape, -1, dtype=torch.int32, device=iou_max.device)
     labels = torch.where(inside & (iou_max < neg_iou) & (iou_max >= 0.0), 0, labels)
     labels = torch.where(best_any & inside, 1, labels)
     labels = torch.where(inside & (iou_max >= pos_iou), 1, labels)
 
     # Subsample: demote excess positives, then negatives, to ignore.
     pos_mask = labels == 1
-    n_pos = pos_mask.sum()
+    n_pos_kept = pos_mask.sum(-1, keepdim=True).clamp(max=pos_quota)
     pos_rank = _group_rank_topk(pos_noise, pos_mask, pos_quota)
     labels = torch.where(pos_mask & (pos_rank >= pos_quota), -1, labels)
-    n_pos_kept = n_pos.clamp(max=pos_quota)
     neg_mask = labels == 0
     neg_rank = _group_rank_topk(neg_noise, neg_mask, total_quota)
     labels = torch.where(neg_mask & (neg_rank >= total_quota - n_pos_kept), -1, labels)
 
     # The JAX package selects the matched gt with a one-hot matvec, which
     # is an exact gather.
-    safe_arg = torch.where(gt_mask.any(), iou_argmax, 0)
-    mx1, my1, mx2, my2 = gt_boxes[safe_arg].unbind(-1)
+    safe_arg = torch.where(gt_mask.any(-1, keepdim=True), iou_argmax, 0)
+    mx1, my1, mx2, my2 = _take_boxes(gt_boxes, safe_arg).unbind(-1)
     ax1, ay1, ax2, ay2 = anchors.unbind(-1)
     aw = (ax2 - ax1).clamp(min=1e-8)
     ah = (ay2 - ay1).clamp(min=1e-8)
@@ -126,7 +151,8 @@ def rpn_targets(
     boundary_filter: bool = True,
 ) -> RPNTargets:
     """{-1, 0, 1} labels and regression targets for every anchor of one
-    image: :func:`rpn_match`, then :func:`rpn_labels`.
+    image, ``[A]`` and ``[A, 4]``: :func:`rpn_match`, then
+    :func:`rpn_labels`, on a batch of one.
 
     Args:
       anchors: ``[A, 4]`` xyxy in [0, 1] canvas coords.
@@ -141,11 +167,11 @@ def rpn_targets(
     iou_max, iou_argmax, best_any = rpn_match(
         anchors, gt_boxes[None], gt_mask[None], inside, allow_ties
     )
-    return rpn_labels(
-        anchors, gt_boxes, gt_mask, inside[0], iou_max[0], iou_argmax[0], best_any[0],
-        pos_noise, neg_noise, pos_iou=pos_iou, neg_iou=neg_iou, pos_quota=pos_quota,
-        total_quota=total_quota,
-    )
+    return _first(rpn_labels(
+        anchors, gt_boxes[None], gt_mask[None], inside, iou_max, iou_argmax, best_any,
+        pos_noise[None], neg_noise[None], pos_iou=pos_iou, neg_iou=neg_iou,
+        pos_quota=pos_quota, total_quota=total_quota,
+    ))
 
 
 @torch.no_grad()
@@ -189,22 +215,24 @@ def sample_roi_targets(
     pos_iou: float = 0.5,
     label_offset: int = 1,
 ) -> RoITargets:
-    """One image's sampling half of :func:`frcnn_targets`, from
-    :func:`roi_match`'s ``iou_max`` / ``iou_argmax`` of its candidates."""
+    """The batch's sampling half of :func:`frcnn_targets`, from
+    :func:`roi_match`'s ``iou_max`` / ``iou_argmax`` ``[B, R+G]`` of the
+    candidates ``cand [B, R+G, 4]``, against ``gt_boxes [B, G, 4]`` and
+    ``gt_labels [B, G]``, with ``pos_noise`` / ``neg_noise`` ``[B,
+    R+G]``."""
     pos_mask = cand_valid & (iou_max >= pos_iou)
     neg_mask = cand_valid & (iou_max < pos_iou) & (iou_max >= 0.0)
     idx, is_pos, valid = sample_pos_neg(
         pos_noise, neg_noise, pos_mask, neg_mask, num_samples, pos_quota
     )
-    sample_rois = cand[idx]
-    matched = iou_argmax[idx]
-    matched_label = gt_labels[matched].to(torch.int32) + label_offset
+    sample_rois = _take_boxes(cand, idx)
+    matched = iou_argmax.gather(-1, idx)
+    matched_label = gt_labels.gather(-1, matched).to(torch.int32) + label_offset
     labels = torch.where(is_pos, matched_label, 0)
     labels = torch.where(valid, labels, -1)
 
-    std = torch.tensor(REG_STD, dtype=cand.dtype, device=cand.device)
-    reg = encode(xy_to_cxcy(gt_boxes[matched]), xy_to_cxcy(sample_rois), eps=1e-8)
-    reg = torch.where(is_pos[:, None], reg / std, 0.0)
+    reg = encode(xy_to_cxcy(_take_boxes(gt_boxes, matched)), xy_to_cxcy(sample_rois), eps=1e-8)
+    reg = torch.where(is_pos[..., None], reg / _reg_std(cand.dtype, cand.device), 0.0)
     return RoITargets(
         rois=sample_rois, labels=labels, reg_targets=reg, is_pos=is_pos, valid=valid
     )
@@ -225,8 +253,9 @@ def frcnn_targets(
     label_offset: int = 1,
     plain: bool = False,
 ) -> RoITargets:
-    """Sample ``num_samples`` rois and their class and box targets:
-    :func:`roi_match`, then :func:`sample_roi_targets`.
+    """Sample ``num_samples`` rois and their class and box targets for one
+    image: :func:`roi_match`, then :func:`sample_roi_targets`, on a batch
+    of one.
 
     Args:
       rois: ``[R, 4]`` proposals; the gt boxes are appended as candidates,
@@ -237,10 +266,12 @@ def frcnn_targets(
       plain: tests only: the plain match where :func:`roi_match` would
         launch the kernel.
     """
-    cand = torch.cat([rois, gt_boxes], dim=0)
-    cand_valid = torch.cat([roi_valid, gt_mask], dim=0)
+    cand = torch.cat([rois, gt_boxes], dim=0)[None]
+    cand_valid = torch.cat([roi_valid, gt_mask], dim=0)[None]
+    gt_boxes, gt_mask = gt_boxes[None], gt_mask[None]
     iou_max, iou_argmax = roi_match(cand, cand_valid, gt_boxes, gt_mask, plain=plain)
-    return sample_roi_targets(
-        cand, cand_valid, iou_max, iou_argmax, gt_boxes, gt_labels, pos_noise, neg_noise,
-        num_samples=num_samples, pos_quota=pos_quota, pos_iou=pos_iou, label_offset=label_offset,
-    )
+    return _first(sample_roi_targets(
+        cand, cand_valid, iou_max, iou_argmax, gt_boxes, gt_labels[None], pos_noise[None],
+        neg_noise[None], num_samples=num_samples, pos_quota=pos_quota, pos_iou=pos_iou,
+        label_offset=label_offset,
+    ))

@@ -17,8 +17,10 @@ gate. Held here:
   bit for bit, the argmax equal;
 * ``roi_match`` below the gate is the old chain in the inputs' dtype
   (bfloat16 here);
-* ``train_targets`` above the gate (legacy, 512 gt slots, ``plain=True``
-  on the CPU) calls the match once for the batch and gives, target for
+* ``train_targets`` above the gate (``plain=True`` on the CPU; legacy at
+  512 gt slots, FPN at 640 with an image without gt, one whose positives
+  exceed each quota and one whose candidates cannot fill the RoI budget)
+  calls the match once for the batch and gives, bit for bit, target for
   target, what the per-image ``propose``, ``rpn_targets`` and
   ``frcnn_targets`` give;
 * on a card only (skipped here): the match mode and the matrix mode with
@@ -33,11 +35,11 @@ import torch
 from faster_rcnn_pytorch_tpu.ops import boxes as jb
 from faster_rcnn_pytorch_tpu_torch.models import faster_rcnn as pfr
 from faster_rcnn_pytorch_tpu_torch.models import targets as pt
-from faster_rcnn_pytorch_tpu_torch.models.anchors import legacy_anchors
-from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import LEGACY_CONFIG
-from faster_rcnn_pytorch_tpu_torch.models.rpn import propose
+from faster_rcnn_pytorch_tpu_torch.models.anchors import fpn_anchors, legacy_anchors
+from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import FPN_CONFIG, LEGACY_CONFIG
 from faster_rcnn_pytorch_tpu_torch.ops import boxes as pb
 from tests.conftest import boxes_fixture
+from tests.torch_train_batches import assert_equal_targets, per_image_targets, train_batch
 
 
 def match_inputs(seed, n_cand=300, slots=64, real=48):
@@ -110,27 +112,25 @@ def test_roi_match_below_the_gate_is_the_plain_chain_in_the_inputs_dtype():
     assert torch.equal(got_max, want.values) and torch.equal(got_arg, want.indices)
 
 
-def test_train_targets_match_once_for_the_batch_as_frcnn_targets_per_image(monkeypatch):
-    cfg = LEGACY_CONFIG
-    slots = 512  # (2000 + 512) * 512 pairs: past the gate
-    assert (cfg.post_nms_train + slots) * slots >= pb.IOU_KERNEL_MIN_PAIRS
-    rs = np.random.RandomState(2)
-    anchors = torch.tensor(legacy_anchors(96, 128))
-    a, b = anchors.shape[0], 2
-    rpn_cls = torch.tensor(rs.normal(size=(b, a, 2)).astype(np.float32))
-    rpn_reg = torch.tensor(rs.normal(0, 0.2, size=(b, a, 4)).astype(np.float32))
-    extents = torch.tensor([[1.0, 1.0], [0.75, 0.9]])
-    gt = np.zeros((b, slots, 4), np.float32)
-    gt_mask = np.zeros((b, slots), bool)
-    for i, real in enumerate((300, 450)):
-        gt[i, :real] = boxes_fixture(rs, real, scale=0.7)
-        gt_mask[i, :real] = True
-    gt_labels = torch.tensor(rs.randint(0, 20, size=(b, slots)).astype(np.int32))
-    gt, gt_mask = torch.tensor(gt), torch.tensor(gt_mask)
+# train_targets' batches past the gate: (config, canvas, gt slots, real gt
+# an image, extents, seed). "legacy": 300 and 450 real gt of 512 slots;
+# "fpn": ties, 640 slots, an image without gt, one whose positives exceed
+# each quota, and one whose extent leaves too few candidates to fill the
+# RoI budget.
+DENSE_SCENES = {
+    "legacy": (LEGACY_CONFIG, (96, 128), 512, (300, 450), [[1.0, 1.0], [0.75, 0.9]], 2),
+    "fpn": (FPN_CONFIG, (64, 96), 640, (0, 500, 3), [[1.0, 1.0], [1.0, 1.0], [0.2, 0.2]], 7),
+}
+
+
+@pytest.mark.parametrize("scene", list(DENSE_SCENES))
+def test_train_targets_match_once_for_the_batch_as_frcnn_targets_per_image(scene, monkeypatch):
+    cfg, canvas, slots, reals, extents, seed = DENSE_SCENES[scene]
     n_cand = cfg.post_nms_train + slots
-    noise = pfr.TrainNoise(
-        *(torch.tensor(rs.uniform(size=(b, n)).astype(np.float32)) for n in (a, a, n_cand, n_cand))
-    )
+    assert n_cand * slots >= pb.IOU_KERNEL_MIN_PAIRS  # past the gate
+    anchors = torch.tensor((fpn_anchors if cfg.rpn_allow_ties else legacy_anchors)(*canvas))
+    batch = train_batch(cfg, anchors, slots, reals, extents, seed)
+    b = len(reals)
 
     calls = []
     match = pb.iou_match_reference
@@ -140,32 +140,23 @@ def test_train_targets_match_once_for_the_batch_as_frcnn_targets_per_image(monke
         return match(boxes, *args, **kwargs)
 
     monkeypatch.setattr(pb, "iou_match_reference", spy)
+    stages = {}
     rpn_tg, roi_tg = pfr.train_targets(
-        cfg, anchors, rpn_cls, rpn_reg, extents, gt, gt_labels, gt_mask, noise, plain=True
+        cfg, anchors, *batch, plain=True,
+        on_stage=lambda name, result: stages.__setitem__(name, result),
     )
     assert calls == [(b, n_cand, 4)]
     assert int(roi_tg.is_pos.sum()) > 0
-    for i in range(b):
-        props = propose(
-            rpn_cls[i], rpn_reg[i], anchors, extents[i], pre_k=cfg.pre_nms_train,
-            post_k=cfg.post_nms_train, nms_iou=cfg.rpn_nms_iou, min_size=cfg.proposal_min_size,
-            nms_tile=cfg.rpn_nms_tile_train or cfg.rpn_nms_tile,
-        )
-        want_roi = pt.frcnn_targets(
-            props.rois, props.valid, gt[i], gt_labels[i], gt_mask[i], noise.roi_pos[i],
-            noise.roi_neg[i], num_samples=cfg.roi_samples, pos_quota=cfg.roi_pos_quota,
-            pos_iou=cfg.roi_pos_iou, label_offset=cfg.label_offset, plain=True,
-        )
-        want_rpn = pt.rpn_targets(
-            anchors, gt[i], gt_mask[i], extents[i], noise.rpn_pos[i], noise.rpn_neg[i],
-            pos_iou=cfg.rpn_pos_iou, neg_iou=cfg.rpn_neg_iou, pos_quota=cfg.rpn_pos_quota,
-            total_quota=cfg.rpn_total_quota, allow_ties=cfg.rpn_allow_ties,
-            boundary_filter=cfg.rpn_boundary_filter,
-        )
-        for field in pt.RoITargets._fields:
-            assert torch.equal(getattr(roi_tg, field)[i], getattr(want_roi, field)), field
-        for field in pt.RPNTargets._fields:
-            assert torch.equal(getattr(rpn_tg, field)[i], getattr(want_rpn, field)), field
+    assert not roi_tg.valid.all()  # an image's pools cannot fill the budget
+    if scene == "fpn":  # each quota binds in image 1
+        assert not roi_tg.valid[0].any()
+        assert int(stages["rpn_match"][1].sum()) > cfg.rpn_pos_quota
+        assert int((rpn_tg.labels[1] == 1).sum()) == cfg.rpn_pos_quota
+        assert int((stages["roi_match"][1] >= cfg.roi_pos_iou).sum()) > cfg.roi_pos_quota
+        assert int(roi_tg.is_pos[1].sum()) == cfg.roi_pos_quota
+    for i, (want_rpn, want_roi) in enumerate(per_image_targets(cfg, anchors, batch, plain=True)):
+        assert_equal_targets(roi_tg, want_roi, i)
+        assert_equal_targets(rpn_tg, want_rpn, i)
     assert len(calls) == 1 + b  # one per image for frcnn_targets, one for the batch
 
 

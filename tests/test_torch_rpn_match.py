@@ -5,7 +5,7 @@ every anchor's max and first argmax over gt, and the "allow low-quality
 matches" set built from each gt's max over anchors. The port computes them
 for the whole batch in one step (``ops/boxes.py::rpn_match``; on a card
 ``ops/cuda/anchor_match.cu``, one call), and ``train_targets`` runs it once
-a step before the per-image labels (``models/targets.py::rpn_labels``).
+a step before the batch's labels (``models/targets.py::rpn_labels``).
 Held here:
 
 * the plain match (``rpn_match_reference``, the kernel's twin) against the
@@ -18,9 +18,11 @@ Held here:
   anchor ties), padded slots, an image with every slot padded and an image
   with every anchor outside: the maxima bit for bit, the indices and the
   sets equal;
-* ``train_targets`` (both generations' configs, a batch of 3 with 0, 5
-  and 11 real gt of 12 slots) calls the match once for the batch and gives
-  the RPN targets of per-image ``rpn_targets``;
+* ``train_targets`` (both generations' configs; a batch of 3 with 0, 5
+  and 11 real gt of 12 slots, and a crowded one: an image whose positives
+  exceed each quota, one without gt, one whose candidates cannot fill the
+  RoI budget) calls the match once for the batch and gives, bit for bit,
+  the targets of per-image ``rpn_targets`` and ``frcnn_targets``;
 * the cases aimed at the kernel's culling and gt split (``crafted``): a
   gt whose only non-zero IoUs lie in one tile, gt that meet no inside
   anchor (max 0), inverted and zero-area gt at eps 1e-5 and 0, more slots
@@ -45,11 +47,11 @@ import torch
 
 from faster_rcnn_pytorch_tpu.ops import boxes as jb
 from faster_rcnn_pytorch_tpu_torch.models import faster_rcnn as pfr
-from faster_rcnn_pytorch_tpu_torch.models import targets as pt
 from faster_rcnn_pytorch_tpu_torch.models.anchors import fpn_anchors, legacy_anchors
 from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import FPN_CONFIG, LEGACY_CONFIG
 from faster_rcnn_pytorch_tpu_torch.ops import boxes as pb
 from tests.conftest import boxes_fixture
+from tests.torch_train_batches import assert_equal_targets, per_image_targets, train_batch
 
 ANCHORS = {
     "legacy": lambda: legacy_anchors(160, 224),  # 1260 anchors
@@ -126,25 +128,27 @@ def test_plain_match_matches_the_jax_chain(slots, generation, allow_ties):
             assert not want_any[~inside[i]].any() and (want_max[~inside[i]] == -1).all()
 
 
+# train_targets' batches: (canvas of each generation, gt slots, real gt an
+# image, extents, seed, gt scale). "ragged": 0, 5 and 11 real gt of 12
+# slots; "crowded": an image whose positives exceed the RPN's and the
+# RoI head's positive quotas, one without gt, and one whose extent leaves
+# too few candidates to fill the RoI budget.
+TRAIN_SCENES = {
+    "ragged": ({"legacy": (160, 224), "fpn": (64, 96)}, 12, (0, 5, 11),
+               [[1.0, 1.0], [0.8, 0.9], [0.7, 1.0]], 5, 0.7),
+    "crowded": ({"legacy": (480, 640), "fpn": (64, 96)}, 200, (200, 0, 3),
+                [[1.0, 1.0], [0.2, 0.2], [0.05, 0.08]], 6, 1.0),
+}
+
+
+@pytest.mark.parametrize("scene", list(TRAIN_SCENES))
 @pytest.mark.parametrize("cfg", [LEGACY_CONFIG, FPN_CONFIG], ids=["legacy", "fpn"])
-def test_train_targets_match_once_for_the_batch_as_rpn_targets_per_image(cfg, monkeypatch):
-    rs = np.random.RandomState(5)
-    anchors = torch.tensor(ANCHORS["fpn" if cfg.rpn_allow_ties else "legacy"]())
-    a, b, slots = anchors.shape[0], 3, 12
-    rpn_cls = torch.tensor(rs.normal(size=(b, a, 2)).astype(np.float32))
-    rpn_reg = torch.tensor(rs.normal(0, 0.2, size=(b, a, 4)).astype(np.float32))
-    extents = torch.tensor([[1.0, 1.0], [0.8, 0.9], [0.7, 1.0]])
-    gt = np.zeros((b, slots, 4), np.float32)
-    gt_mask = np.zeros((b, slots), bool)
-    for i, real in enumerate((0, 5, 11)):
-        gt[i, :real] = boxes_fixture(rs, real, scale=0.7)
-        gt_mask[i, :real] = True
-    gt_labels = torch.tensor(rs.randint(1, 20, size=(b, slots)).astype(np.int32))
-    gt, gt_mask = torch.tensor(gt), torch.tensor(gt_mask)
-    n_cand = cfg.post_nms_train + slots
-    noise = pfr.TrainNoise(
-        *(torch.tensor(rs.uniform(size=(b, n)).astype(np.float32)) for n in (a, a, n_cand, n_cand))
-    )
+def test_train_targets_match_once_for_the_batch_as_rpn_targets_per_image(cfg, scene, monkeypatch):
+    canvas, slots, reals, extents, seed, scale = TRAIN_SCENES[scene]
+    generation = "fpn" if cfg.rpn_allow_ties else "legacy"
+    anchors = torch.tensor((fpn_anchors if cfg.rpn_allow_ties else legacy_anchors)(*canvas[generation]))
+    batch = train_batch(cfg, anchors, slots, reals, extents, seed, scale)
+    b = len(reals)
 
     calls = []
     match = pb.rpn_match_reference
@@ -154,23 +158,22 @@ def test_train_targets_match_once_for_the_batch_as_rpn_targets_per_image(cfg, mo
         return match(anchors, gt, *args, **kwargs)
 
     monkeypatch.setattr(pb, "rpn_match_reference", spy)
-    stages = []
-    rpn_tg, _ = pfr.train_targets(
-        cfg, anchors, rpn_cls, rpn_reg, extents, gt, gt_labels, gt_mask, noise,
-        on_stage=lambda name, result: stages.append(name),
+    stages = {}
+    rpn_tg, roi_tg = pfr.train_targets(
+        cfg, anchors, *batch, on_stage=lambda name, result: stages.__setitem__(name, result)
     )
     assert calls == [(b, slots, 4)]
     assert tuple(stages) == pfr.TRAIN_TARGET_STAGES
     assert int((rpn_tg.labels == 1).sum()) > 0
-    for i in range(b):
-        want = pt.rpn_targets(
-            anchors, gt[i], gt_mask[i], extents[i], noise.rpn_pos[i], noise.rpn_neg[i],
-            pos_iou=cfg.rpn_pos_iou, neg_iou=cfg.rpn_neg_iou, pos_quota=cfg.rpn_pos_quota,
-            total_quota=cfg.rpn_total_quota, allow_ties=cfg.rpn_allow_ties,
-            boundary_filter=cfg.rpn_boundary_filter,
-        )
-        for field in pt.RPNTargets._fields:
-            assert torch.equal(getattr(rpn_tg, field)[i], getattr(want, field)), field
+    if scene == "crowded":  # each quota binds in image 0; image 2 leaves slots invalid
+        assert int(stages["rpn_match"][0].sum()) > cfg.rpn_pos_quota
+        assert int((rpn_tg.labels[0] == 1).sum()) == cfg.rpn_pos_quota
+        assert int((stages["roi_match"][0] >= cfg.roi_pos_iou).sum()) > cfg.roi_pos_quota
+        assert int(roi_tg.is_pos[0].sum()) == cfg.roi_pos_quota
+        assert not roi_tg.valid[1].any() and not roi_tg.valid[2].all()
+    for i, (want_rpn, want_roi) in enumerate(per_image_targets(cfg, anchors, batch)):
+        assert_equal_targets(rpn_tg, want_rpn, i)
+        assert_equal_targets(roi_tg, want_roi, i)
     assert len(calls) == 1 + b  # one for the batch, then one per image for rpn_targets
 
 
