@@ -1714,7 +1714,7 @@ def train_stage_rows(state, cfg, batch: dict, dtype, steps: int, generator):
     schedule = make_lr_schedule("constant", TRAIN_LR, 1, steps)
     canvas_hw = tuple(batch["image"].shape[1:3])
     anchors = device_anchors(model, *canvas_hw, device)
-    n_cand = cfg.post_nms_train + batch["gt_boxes"].shape[1]
+    gt_slots = batch["gt_boxes"].shape[1]
     autocast = torch.autocast(device.type, dtype=torch.bfloat16, enabled=dtype != torch.float32)
     kernels = (NMS_KERNEL, boxes_mod.iou_match_cuda, boxes_mod.rpn_match_cuda)
     rows, launches = [], []
@@ -1726,7 +1726,7 @@ def train_stage_rows(state, cfg, batch: dict, dtype, steps: int, generator):
             feats = model.features(batch["image"].permute(0, 3, 1, 2).contiguous())
             rpn_cls, rpn_reg = model.rpn_out(feats)
             t.append(_sync(device))
-            noise = draw_train_noise(generator, batch["image"].shape[0], anchors.shape[0], n_cand, device)
+            noise = draw_train_noise(generator, cfg, batch["image"].shape[0], anchors.shape[0], gt_slots, device)
             targets = train_targets(
                 cfg, anchors, rpn_cls, rpn_reg, *(batch[k] for k in BATCH_KEYS[1:]), noise,
                 on_stage=lambda name, result: t.append(_sync(device)),
@@ -1863,8 +1863,8 @@ def check_dense_targets_kernel_vs_plain(device, generation: str = "legacy") -> N
     )
     anchors = torch.from_numpy(model.canvas_anchors(*CANVAS)).to(device)
     noise = draw_train_noise(
-        torch.Generator(device=device).manual_seed(SEED), TRAIN_BATCH, anchors.shape[0],
-        cfg.post_nms_train + max_gt, device,
+        torch.Generator(device=device).manual_seed(SEED), cfg, TRAIN_BATCH, anchors.shape[0],
+        max_gt, device,
     )
     kernels = (boxes_mod.iou_match_cuda, NMS_KERNEL, RPN_MATCH_KERNEL)
     with torch.no_grad():
@@ -1943,11 +1943,7 @@ def check_train_step_kernel_vs_plain(device, generation: str = "legacy") -> None
     batch = _to_device(synthetic_train_batch(CANVAS, SEED + 2, labels=labels), device)
     n_anchors = model.canvas_anchors(*CANVAS).shape[0]
     noise = draw_train_noise(
-        torch.Generator(device=device).manual_seed(SEED),
-        TRAIN_BATCH,
-        n_anchors,
-        cfg.post_nms_train + MAX_GT,
-        device,
+        torch.Generator(device=device).manual_seed(SEED), cfg, TRAIN_BATCH, n_anchors, MAX_GT, device
     )
     fwd_k, bwd_k = _head_kernels(generation)
     runs = []
@@ -2030,8 +2026,7 @@ def check_small_input_train_reference(device, generation: str = "legacy", canvas
     cpu_model, gpu_model = _new_model(generation), _new_model(generation).to(device)
     anchors = torch.from_numpy(cpu_model.canvas_anchors(*canvas))
     noise = draw_train_noise(
-        torch.Generator().manual_seed(SEED), TRAIN_BATCH, anchors.shape[0],
-        cfg.post_nms_train + MAX_GT, "cpu",
+        torch.Generator().manual_seed(SEED), cfg, TRAIN_BATCH, anchors.shape[0], MAX_GT, "cpu"
     )
     results = []
     targets = None
@@ -2958,8 +2953,8 @@ def _per_image_grads(batch: dict) -> dict:
     batch of one."""
     model = _new_model().to("cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    noise = draw_train_noise(gen, TRAIN_BATCH, model.canvas_anchors(*CANVAS).shape[0],
-                             LEGACY_CONFIG.post_nms_train + MAX_GT, "cuda")
+    noise = draw_train_noise(gen, LEGACY_CONFIG, TRAIN_BATCH, model.canvas_anchors(*CANVAS).shape[0],
+                             MAX_GT, "cuda")
     counts = []
     forward_train(model, LEGACY_CONFIG, *(batch[k] for k in BATCH_KEYS), noise=noise,
                   count_reduce=lambda c: (counts.append(c) or c, 1))

@@ -74,7 +74,7 @@ class Options:
     demo_image_type: str = "jpg"
     demo_vis: bool = True
     # model
-    model_generation: str = "legacy"  # legacy | fpn
+    model_generation: str = "legacy"  # legacy | fpn | cascade (Cascade R-CNN R50-FPN)
     pretrained_backbone: str = ""  # path to converted backbone params
     checkpoint: str = ""  # resume / eval checkpoint path
     # parallelism (replaces gpu_ids/rank/world_size/distributed,

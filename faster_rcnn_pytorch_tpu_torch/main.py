@@ -2,8 +2,8 @@
 
 ``python -m faster_rcnn_pytorch_tpu_torch.main --data_root ./data``
 
-Either generation (``--model_generation legacy|fpn``) on VOC or COCO
-(``--data_type``). Orchestration: options -> processes -> loaders ->
+Either generation, or Cascade R-CNN R50-FPN (``--model_generation
+legacy|fpn|cascade``), on VOC or COCO (``--data_type``). Orchestration: options -> processes -> loaders ->
 model (with the dataset's label offset) -> weights (``utils.checkpoint.
 init_params``: a seeded fresh init, its backbone from ``--pretrained_backbone``
 if given, or a reference-layout ``.pth``/``.pth.tar`` of either

@@ -1,4 +1,4 @@
-"""Both Faster R-CNN generations and their predict.
+"""Both Faster R-CNN generations, Cascade R-CNN, and their predict.
 
 Counterpart of ``faster_rcnn_pytorch_tpu/models/faster_rcnn.py``:
 
@@ -6,6 +6,9 @@ Counterpart of ``faster_rcnn_pytorch_tpu/models/faster_rcnn.py``:
   RPN, 7x7 RoIPool head with the shared 4096-wide FC trunk.
 * :class:`FPNFRCNN`: ResNet50-FPN, a 3-anchor RPN shared over P2..P6,
   7x7 MultiScaleRoIAlign over P2..P5, 1024-wide FC trunk.
+* :class:`CascadeRCNN` (no JAX counterpart): the FPN trunk and RPN, then
+  three RoI heads, each trained on the boxes the one before it refined,
+  at rising IoU thresholds (Cai & Vasconcelos 2018, arXiv:1712.00726).
 
 Images live on a padded canvas; box coordinates are normalised to
 [0, 1] of the canvas, and each image's valid extent (w_frac, h_frac)
@@ -22,6 +25,7 @@ the shared classifier twice (``classifier.*`` and
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import math
 from typing import Callable, NamedTuple
@@ -30,7 +34,12 @@ import torch
 from torch import nn
 
 from faster_rcnn_pytorch_tpu_torch.models.anchors import fpn_anchors, legacy_anchors
-from faster_rcnn_pytorch_tpu_torch.models.losses import CountReduce, LossBreakdown, frcnn_loss
+from faster_rcnn_pytorch_tpu_torch.models.losses import (
+    CountReduce,
+    LossBreakdown,
+    frcnn_loss,
+    stage_sums,
+)
 from faster_rcnn_pytorch_tpu_torch.models.rpn import RPNHead, propose_batch, softmax
 from faster_rcnn_pytorch_tpu_torch.models.targets import (
     REG_STD,
@@ -47,7 +56,7 @@ from faster_rcnn_pytorch_tpu_torch.ops.boxes import cxcy_to_xy, decode, rpn_matc
 from faster_rcnn_pytorch_tpu_torch.ops.nms import multiclass_nms_batch
 from faster_rcnn_pytorch_tpu_torch.ops.roi_align import multiscale_roi_align_batch
 from faster_rcnn_pytorch_tpu_torch.ops.roi_pool import roi_pool_batch
-from faster_rcnn_pytorch_tpu_torch.utils.logging import span, stage_spans
+from faster_rcnn_pytorch_tpu_torch.utils.logging import count, span, stage_spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +86,12 @@ class DetectorConfig:
     score_threshold: float = 0.05
     nms_iou: float = 0.3
     max_detections: int = 100
+    # Cascade R-CNN's RoI stages (empty: one head, :func:`roi_stages`):
+    # each stage's IoU threshold, its regression stds (flat, four a stage)
+    # and its weight in the loss.
+    stage_ious: tuple = ()
+    stage_reg_stds: tuple = ()
+    stage_loss_weights: tuple = ()
 
 
 LEGACY_CONFIG = DetectorConfig(rpn_nms_tile_train=1024)
@@ -94,6 +109,43 @@ FPN_CONFIG = DetectorConfig(
     rpn_allow_ties=True,
     rpn_boundary_filter=False,
 )
+
+# mmdetection's cascade-rcnn_r50_fpn_1x_coco: the FPN budgets, three stages.
+CASCADE_CONFIG = dataclasses.replace(
+    FPN_CONFIG,
+    stage_ious=(0.5, 0.6, 0.7),
+    stage_reg_stds=(0.1, 0.1, 0.2, 0.2, 0.05, 0.05, 0.1, 0.1, 0.033, 0.033, 0.067, 0.067),
+    stage_loss_weights=(1.0, 0.5, 0.25),
+)
+
+# The largest log-scale a box regression may take (mmdetection's and
+# Detectron2's ``log(1000 / 16)``): a cascade decodes boxes it trains on.
+BOX_SCALE_CLAMP = math.log(1000.0 / 16.0)
+
+
+class RoIStage(NamedTuple):
+    """One RoI head stage: the IoU at which a candidate turns positive,
+    the four stds of its regression, its weight in the loss."""
+
+    iou: float
+    reg_std: tuple
+    weight: float
+
+
+def roi_stages(cfg) -> tuple[RoIStage, ...]:
+    """The RoI stages in order: a cascade's from its ``stage_*`` fields,
+    otherwise one head at ``roi_pos_iou`` with :data:`REG_STD` and weight
+    1 (also for a config without the fields, the JAX package's, which the
+    parity tests hand over). Every choice between one head and a cascade
+    reads this."""
+    ious = getattr(cfg, "stage_ious", ())
+    if not ious:
+        return (RoIStage(cfg.roi_pos_iou, REG_STD, 1.0),)
+    stds = cfg.stage_reg_stds
+    return tuple(
+        RoIStage(iou, tuple(stds[4 * t : 4 * t + 4]), w)
+        for t, (iou, w) in enumerate(zip(ious, cfg.stage_loss_weights))
+    )
 
 
 def scale_columns(x: torch.Tensor, factors) -> torch.Tensor:
@@ -138,19 +190,20 @@ def _trunk(in_features: int, width: int) -> nn.Sequential:
 
 
 class FastRCNNHead(nn.Module):
-    """RoI head: the shared classifier, then class scores and boxes."""
+    """RoI head: the shared classifier, then class scores and boxes (one
+    box a class, or one for all with ``class_agnostic``)."""
 
-    def __init__(self, classifier: nn.Sequential, num_classes: int):
+    def __init__(self, classifier: nn.Sequential, num_classes: int, class_agnostic: bool = False):
         super().__init__()
         width = classifier[2].out_features
         self.classifier = classifier
         self.cls_head = nn.Linear(width, num_classes)
-        self.reg_head = nn.Linear(width, num_classes * 4)
+        self.reg_head = nn.Linear(width, 4 if class_agnostic else num_classes * 4)
 
     def forward(self, pooled: torch.Tensor):
         """``[B, S, C, 7, 7]`` pooled rois -> float32 ``([B, S, classes],
-        [B, S, 4 * classes])``; the ``(C, 7, 7)`` flatten meets fc6 in the
-        reference layout."""
+        [B, S, 4 * classes])`` (``[B, S, 4]`` class-agnostic); the ``(C, 7,
+        7)`` flatten meets fc6 in the reference layout."""
         b, s = pooled.shape[:2]
         x = self.classifier(pooled.reshape(b, s, -1))
         return self.cls_head(x).float(), self.reg_head(x).float()
@@ -225,6 +278,9 @@ class FPNFRCNN(nn.Module):
         self.num_classes = num_classes
         self.backbone = ResNet50FPN()
         self.rpn = nn.ModuleDict({"rpn_head": RPNHead(num_anchors=3, channels=256)})
+        self._add_roi_heads(num_classes)
+
+    def _add_roi_heads(self, num_classes: int) -> None:
         self.classifier = _trunk(256 * 7 * 7, 1024)
         self.frcnn_head = FastRCNNHead(self.classifier, num_classes)
 
@@ -238,14 +294,19 @@ class FPNFRCNN(nn.Module):
         outs = [self.rpn["rpn_head"](f) for f in feats]
         return torch.cat([o[0] for o in outs], 1), torch.cat([o[1] for o in outs], 1)
 
-    def head(self, feats, rois: torch.Tensor, canvas_hw, plain: bool = False):
-        """RoI head over P2..P5: rois ``[B, S, 4]`` in [0, 1] are scaled by
-        the canvas (w, h, w, h) to pixels for MultiScaleRoIAlign. ``plain``
-        is for tests only: the plain align in place of the kernel."""
+    def head(self, feats, rois: torch.Tensor, canvas_hw, plain: bool = False, stage: int = 0):
+        """RoI head (``stage_heads()[stage]``) over P2..P5: rois ``[B, S,
+        4]`` in [0, 1] are scaled by the canvas (w, h, w, h) to pixels for
+        MultiScaleRoIAlign. ``plain`` is for tests only: the plain align
+        in place of the kernel."""
         h, w = canvas_hw
         scaled = scale_columns(rois, (w, h, w, h))
         pooled = multiscale_roi_align_batch(feats[:4], scaled, plain=plain)
-        return self.frcnn_head(pooled)
+        return self.stage_heads()[stage](pooled)
+
+    def stage_heads(self) -> list:
+        """The RoI head of each stage of :func:`roi_stages`."""
+        return [self.frcnn_head]
 
     def canvas_anchors(self, height: int, width: int):
         return fpn_anchors(height, width, strides=self.strides)
@@ -273,21 +334,38 @@ class FPNFRCNN(nn.Module):
             if isinstance(conv, nn.Conv2d):
                 stds[conv] = 1.0 / math.sqrt(conv.weight[0].numel())
         stds.update(self.head_stds())
-        stds[self.frcnn_head.cls_head] = 0.02
+        stds.update({layer: 0.02 for layer in self.class_layers()})
         return stds
+
+    def class_layers(self) -> list:
+        return [h.cls_head for h in self.stage_heads()]
 
     def head_stds(self) -> dict:
         """The heads' N(0, std) inits, the JAX package's (and the
-        reference's): the shared RPN head's convs at 0.01, the class head
-        at 0.01, the box head at 0.001."""
+        reference's): the shared RPN head's convs at 0.01, each stage's
+        class head at 0.01 and box head at 0.001."""
         head = self.rpn["rpn_head"]
-        return {
-            head.inter_layer: 0.01,
-            head.cls_layer: 0.01,
-            head.reg_layer: 0.01,
-            self.frcnn_head.cls_head: 0.01,
-            self.frcnn_head.reg_head: 0.001,
-        }
+        stds = {head.inter_layer: 0.01, head.cls_layer: 0.01, head.reg_layer: 0.01}
+        for h in self.stage_heads():
+            stds.update({h.cls_head: 0.01, h.reg_head: 0.001})
+        return stds
+
+
+class CascadeRCNN(FPNFRCNN):
+    """Cascade R-CNN R50-FPN: :class:`FPNFRCNN`'s trunk and RPN, then one
+    RoI head a stage (``roi_heads[t]``: MultiScaleRoIAlign 7x7, two fc
+    layers of 1024, a class layer and a class-agnostic box layer), each
+    with its own weights. Stage ``t + 1`` pools the boxes that stage ``t``
+    regressed (:func:`train_losses`, :func:`detect`)."""
+
+    def _add_roi_heads(self, num_classes: int) -> None:
+        self.roi_heads = nn.ModuleList(
+            FastRCNNHead(_trunk(256 * 7 * 7, 1024), num_classes, class_agnostic=True)
+            for _ in CASCADE_CONFIG.stage_ious
+        )
+
+    def stage_heads(self) -> list:
+        return list(self.roi_heads)
 
 
 def _he_std(m: nn.Module) -> float:
@@ -381,14 +459,39 @@ class TrainNoise(NamedTuple):
     roi_neg: torch.Tensor  # [B, post_nms_train + G]
 
 
+class CascadeNoise(NamedTuple):
+    """:class:`TrainNoise`'s fields, then the RoI noise of each cascade
+    stage after the first."""
+
+    rpn_pos: torch.Tensor
+    rpn_neg: torch.Tensor
+    roi_pos: torch.Tensor
+    roi_neg: torch.Tensor
+    stage_pos: torch.Tensor  # [B, stages - 1, roi_samples + G]
+    stage_neg: torch.Tensor  # [B, stages - 1, roi_samples + G]
+
+
 def draw_train_noise(
-    generator: torch.Generator, b: int, num_anchors: int, num_candidates: int, device
-) -> TrainNoise:
+    generator: torch.Generator, cfg, b: int, num_anchors: int, gt_slots: int, device
+) -> TrainNoise | CascadeNoise:
+    """The step's noise, drawn in a fixed order: the RPN's positives and
+    negatives ``[B, A]``, the first RoI stage's ``[B, post_nms_train +
+    G]``, then for each later stage of :func:`roi_stages` (a cascade's 2,
+    then 3) its positives' and negatives' ``[B, roi_samples + G]``."""
+
     def uniform(n):
         return torch.rand((b, n), generator=generator, device=device)
 
-    return TrainNoise(
-        uniform(num_anchors), uniform(num_anchors), uniform(num_candidates), uniform(num_candidates)
+    n_cand = cfg.post_nms_train + gt_slots
+    noise = TrainNoise(uniform(num_anchors), uniform(num_anchors), uniform(n_cand), uniform(n_cand))
+    later = [
+        (uniform(cfg.roi_samples + gt_slots), uniform(cfg.roi_samples + gt_slots))
+        for _ in roi_stages(cfg)[1:]
+    ]
+    if not later:
+        return noise
+    return CascadeNoise(
+        *noise, torch.stack([p for p, _ in later], 1), torch.stack([q for _, q in later], 1)
     )
 
 
@@ -423,7 +526,9 @@ def train_targets(
     program's span ``train.<stage>`` under ``train.targets``
     (``utils/logging.py``), ended by its mark; ``on_stage`` is called as
     ``on_stage(name, result)`` as each stage ends. The spans read the host
-    clock alone: no device sync."""
+    clock alone: no device sync. The RoI targets are those of the first
+    stage of :func:`roi_stages`."""
+    first = roi_stages(cfg)[0]
     with span("train.targets"), stage_spans("train", TRAIN_TARGET_STAGES, on_stage) as mark:
         props = propose_batch(
             rpn_cls,
@@ -474,8 +579,9 @@ def train_targets(
             noise.roi_neg,
             num_samples=cfg.roi_samples,
             pos_quota=cfg.roi_pos_quota,
-            pos_iou=cfg.roi_pos_iou,
+            pos_iou=first.iou,
             label_offset=cfg.label_offset,
+            reg_std=first.reg_std,
         )
         mark("roi_sample", roi_tg)
         return rpn_tg, roi_tg
@@ -492,26 +598,128 @@ def train_losses(
     canvas_hw: tuple[int, int],
     plain: bool = False,
     count_reduce: CountReduce | None = None,
+    extents: torch.Tensor | None = None,
+    gt: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
+    noise: CascadeNoise | None = None,
 ) -> TrainStepOutput:
-    """The head on the sampled rois (either generation; FPN aligns in
-    pixels of the ``canvas_hw`` canvas), the regression row of each target
-    class, and the four-part loss (``count_reduce``: its denominators
-    over the data group, ``models/losses.py``)."""
-    head_cls, head_reg = _head_apply(model, feats, roi_tg.rois, canvas_hw, plain)
-    b, s = roi_tg.labels.shape
-    head_reg = head_reg.reshape(b, s, cfg.num_classes, 4)
-    safe_cls = roi_tg.labels.clamp(0, cfg.num_classes - 1).long()
-    head_reg = head_reg.gather(2, safe_cls[:, :, None, None].expand(b, s, 1, 4))[:, :, 0, :]
+    """The RoI stages of :func:`roi_stages` and the loss. Stage ``t``'s
+    head on its sampled rois (``roi_tg`` for the first; FPN aligns in
+    pixels of the ``canvas_hw`` canvas), its cross-entropy and the
+    smooth-L1 of each sample's target-class deltas (:func:`target_deltas`);
+    then :func:`frcnn_loss` with the stages' weights (``count_reduce``: its
+    denominators over the data group, ``models/losses.py``).
+
+    A cascade's stage ``t + 1`` samples the boxes that stage ``t``
+    regressed (:func:`next_stage_targets`, from the ``extents [B, 2]``,
+    ``gt`` = ``(gt_boxes, gt_labels, gt_mask)`` and ``noise``'s stage
+    fields); each stage is the span ``train.stage_head``, and while a
+    profiler records, the counter ``cascade.stage3_positives`` adds the
+    last stage's sampled positives over the ``B`` images. ``num_pos_roi``
+    is the first stage's."""
+    stages = roi_stages(cfg)
+    cascade = len(stages) > 1
+    stage_span = span if cascade else contextlib.nullcontext
+    first, num_rois, sums = roi_tg, cfg.post_nms_train, []
+    for t in range(len(stages)):
+        if t:
+            roi_tg = next_stage_targets(
+                cfg, t - 1, roi_tg, head_reg.detach(), num_rois, extents, *gt,
+                noise.stage_pos[:, t - 1], noise.stage_neg[:, t - 1], plain,
+            )
+            num_rois = cfg.roi_samples
+        with stage_span("train.stage_head"):
+            head_cls, head_reg = _head_apply(model, feats, roi_tg.rois, canvas_hw, plain, stage=t)
+            deltas = target_deltas(head_reg, roi_tg.labels)
+            sums.append(stage_sums(head_cls, deltas, roi_tg.labels, roi_tg.reg_targets))
+    if cascade:
+        count("cascade.stage3_positives", roi_tg.is_pos, roi_tg.is_pos.shape[0])
     losses = frcnn_loss(
-        (rpn_cls, rpn_reg, head_cls, head_reg),
-        (rpn_tg.labels, rpn_tg.reg_targets, roi_tg.labels, roi_tg.reg_targets),
+        (rpn_cls, rpn_reg),
+        (rpn_tg.labels, rpn_tg.reg_targets),
+        sums,
+        [stage.weight for stage in stages],
         count_reduce,
     )
     return TrainStepOutput(
         losses=losses,
-        num_pos_roi=roi_tg.is_pos.sum(),
+        num_pos_roi=first.is_pos.sum(),
         num_pos_rpn=(rpn_tg.labels == 1).sum(),
     )
+
+
+def target_deltas(head_reg: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each sample's regression row of its target class from ``head_reg
+    [B, S, 4 * C]``; a class-agnostic head's ``[B, S, 4]`` is that row."""
+    b, s = labels.shape
+    if head_reg.shape[-1] == 4:
+        return head_reg
+    head_reg = head_reg.reshape(b, s, -1, 4)
+    safe_cls = labels.clamp(0, head_reg.shape[2] - 1).long()
+    return head_reg.gather(2, safe_cls[:, :, None, None].expand(b, s, 1, 4))[:, :, 0, :]
+
+
+def refine_boxes(
+    rois: torch.Tensor, reg: torch.Tensor, std, extents: torch.Tensor
+) -> torch.Tensor:
+    """A cascade stage's boxes: its class-agnostic deltas ``reg [B, S, 4]``
+    times ``std``, the log-scales capped at :data:`BOX_SCALE_CLAMP`,
+    decoded against ``rois [B, S, 4]`` and clipped to each image's extent
+    ``extents [B, 2]`` (w_frac, h_frac)."""
+    d = scale_columns(reg, std)
+    d = torch.cat([d[..., :2], d[..., 2:].clamp(max=BOX_SCALE_CLAMP)], dim=-1)
+    boxes = cxcy_to_xy(decode(d, xy_to_cxcy(rois)))
+    hi = torch.cat([extents, extents], dim=-1).to(boxes.dtype)
+    return torch.minimum(boxes.clamp(min=0.0), hi[:, None, :])
+
+
+@torch.no_grad()
+def next_stage_targets(
+    cfg: DetectorConfig,
+    t: int,
+    roi_tg: RoITargets,
+    reg: torch.Tensor,
+    num_rois: int,
+    extents: torch.Tensor,
+    gt_boxes: torch.Tensor,
+    gt_labels: torch.Tensor,
+    gt_mask: torch.Tensor,
+    pos_noise: torch.Tensor,
+    neg_noise: torch.Tensor,
+    plain: bool = False,
+) -> RoITargets:
+    """Stage ``t + 1``'s targets from stage ``t``'s: its ``S`` sampled rois
+    refined by its detached deltas ``reg [B, S, 4]`` (:func:`refine_boxes`),
+    the slots that held padding or a gt (``index >= num_rois``, the
+    candidates before the gt) masked out (mmdetection drops them; a mask
+    keeps the shape), the gt appended again, then :func:`roi_match` and
+    :func:`sample_roi_targets` at stage ``t + 1``'s IoU threshold and
+    stds, with ``pos_noise`` / ``neg_noise`` ``[B, S + G]``. The spans
+    ``train.refine``, ``train.stage_match`` and ``train.stage_sample``;
+    no sync."""
+    stage, nxt = roi_stages(cfg)[t : t + 2]
+    with span("train.refine"):
+        boxes = refine_boxes(roi_tg.rois, reg, stage.reg_std, extents)
+        valid = roi_tg.valid & (roi_tg.index < num_rois)
+        cand = torch.cat([boxes, gt_boxes], dim=1)
+        cand_valid = torch.cat([valid, gt_mask], dim=1)
+    with span("train.stage_match"):
+        iou_max, iou_argmax = roi_match(cand, cand_valid, gt_boxes, gt_mask, plain=plain)
+    with span("train.stage_sample"):
+        return sample_roi_targets(
+            cand,
+            cand_valid,
+            iou_max,
+            iou_argmax,
+            gt_boxes,
+            gt_labels,
+            pos_noise,
+            neg_noise,
+            num_samples=cfg.roi_samples,
+            pos_quota=cfg.roi_pos_quota,
+            pos_iou=nxt.iou,
+            label_offset=cfg.label_offset,
+            reg_std=nxt.reg_std,
+        )
 
 
 def forward_train(
@@ -539,7 +747,8 @@ def forward_train(
       generator: draws the sampling noise (on the images' device) unless
         ``noise`` is given; a test hands the JAX package's noise over. The
         noise is sized by the model's anchors on this canvas and
-        ``post_nms_train + G`` candidate rois.
+        ``post_nms_train + G`` candidate rois (a cascade's later stages
+        by ``roi_samples + G``: :func:`draw_train_noise`).
       plain: tests only: the plain RoIPool or MultiScaleRoIAlign (forward
         and backward), the plain NMS sweep and the plain IoU of the RoI
         targets in place of the kernels.
@@ -549,7 +758,8 @@ def forward_train(
 
     The program's spans (``utils/logging.py``): ``train.forward`` (the
     backbone and the RPN head), ``train.targets`` and its stages,
-    ``train.head_loss``.
+    ``train.head_loss`` (a cascade's stages inside it:
+    :func:`train_losses`).
 
     The JAX package's slab-batched VGG stem (``train=True``) is a TPU
     layout with the same numbers; this is the plain stack.
@@ -561,8 +771,7 @@ def forward_train(
         feats = model.features(images.permute(0, 3, 1, 2).contiguous())
         rpn_cls, rpn_reg = model.rpn_out(feats)
     if noise is None:
-        n_cand = cfg.post_nms_train + gt_boxes.shape[1]
-        noise = draw_train_noise(generator, b, anchors.shape[0], n_cand, dev)
+        noise = draw_train_noise(generator, cfg, b, anchors.shape[0], gt_boxes.shape[1], dev)
     rpn_tg, roi_tg = train_targets(
         cfg, anchors, rpn_cls, rpn_reg, extents, gt_boxes, gt_labels, gt_mask, noise, plain,
         on_stage,
@@ -570,7 +779,7 @@ def forward_train(
     with span("train.head_loss"):
         return train_losses(
             model, cfg, feats, rpn_cls, rpn_reg, rpn_tg, roi_tg, (canvas_h, canvas_w), plain,
-            count_reduce,
+            count_reduce, extents, (gt_boxes, gt_labels, gt_mask), noise,
         )
 
 
@@ -584,11 +793,12 @@ class Detections(NamedTuple):
 PREDICT_STAGES = ("h2d", "backbone", "rpn_head", "propose", "roi_head", "decode", "class_nms")
 
 
-def _head_apply(model, feats, rois, canvas_hw, plain):
-    """The RoI head of either generation: FPN aligns in canvas pixels and
-    needs the canvas, legacy pools in feature cells and does not."""
+def _head_apply(model, feats, rois, canvas_hw, plain, stage: int = 0):
+    """Stage ``stage``'s RoI head of any generation: FPN aligns in canvas
+    pixels and needs the canvas, legacy (one stage) pools in feature
+    cells and does not."""
     if isinstance(model, FPNFRCNN):
-        return model.head(feats, rois, canvas_hw, plain=plain)
+        return model.head(feats, rois, canvas_hw, plain=plain, stage=stage)
     return model.head(feats, rois, plain=plain)
 
 
@@ -602,10 +812,10 @@ def predict(
     plain: bool = False,
     on_stage: Callable[[str, object], None] | None = None,
 ) -> Detections:
-    """Test-time forward of either generation: proposals, then
-    :func:`detect`: head on all rois, softmax, deltas un-normalised by
-    REG_STD and decoded against the rois, clamp, per-class threshold +
-    NMS, labels 0-based.
+    """Test-time forward of any generation: proposals, then
+    :func:`detect`: head on all rois (a cascade's stages), softmax,
+    deltas un-normalised by REG_STD and decoded against the rois, clamp,
+    per-class threshold + NMS, labels 0-based.
 
     Args:
       images: ``[B, H, W, 3]`` normalised canvas batch (the JAX package's
@@ -648,7 +858,8 @@ def predict(
         )
         mark("propose", props.rois)
         return detect(
-            model, cfg, feats, props.rois, props.valid, (canvas_h, canvas_w), thres, plain, mark
+            model, cfg, feats, props.rois, props.valid, (canvas_h, canvas_w), thres, plain, mark,
+            extents,
         )
 
 
@@ -663,20 +874,45 @@ def detect(
     score_threshold: float,
     plain: bool = False,
     on_stage: Callable[[str, object], None] | None = None,
+    extents: torch.Tensor | None = None,
 ) -> Detections:
     """The stages of :func:`predict` after the proposals: the RoI head on
     ``rois`` ``[B, S, 4]`` (``valid`` ``[B, S]``), softmax, deltas
     un-normalised by REG_STD and decoded against the rois, clamp, and the
-    per-class threshold + NMS."""
+    per-class threshold + NMS.
+
+    A cascade (:func:`roi_stages`) runs stage ``t`` on the boxes stage ``t
+    - 1`` refined, all ``S`` rois an image, as Detectron2 does (the spans
+    ``predict.stage_head`` and ``predict.refine``); its probabilities are
+    the mean of the stages' softmax, and its boxes the last stage's, one a
+    roi for every class, clipped to ``extents [B, 2]`` as its refined
+    boxes are (the whole canvas when ``None``)."""
     mark = on_stage or (lambda name, result: None)
     b, s = rois.shape[:2]
-    head_cls, head_reg = _head_apply(model, feats, rois, canvas_hw, plain)
+    stages = roi_stages(cfg)
+    cascade = len(stages) > 1
+    stage_span = span if cascade else contextlib.nullcontext
+    if extents is None:
+        extents = rois.new_ones((b, 2))
+    total = 0.0
+    for t in range(len(stages)):
+        if t:
+            with span("predict.refine"):
+                rois = refine_boxes(rois, head_reg, stages[t - 1].reg_std, extents)
+        with stage_span("predict.stage_head"):
+            head_cls, head_reg = _head_apply(model, feats, rois, canvas_hw, plain, stage=t)
+            if cascade:
+                total = total + softmax(head_cls)
     mark("roi_head", head_cls)
-    probs = softmax(head_cls)
+    probs = total / len(stages) if cascade else softmax(head_cls)
     probs = torch.where(valid[:, :, None], probs, 0.0)
-    reg = scale_columns(head_reg.reshape(b, s, cfg.num_classes, 4), REG_STD)
-    rois_c = xy_to_cxcy(rois)[:, :, None, :]
-    boxes = cxcy_to_xy(decode(reg, rois_c)).clamp(0.0, 1.0)
+    if cascade:
+        boxes = refine_boxes(rois, head_reg, stages[-1].reg_std, extents)
+        boxes = boxes[:, :, None, :].expand(b, s, cfg.num_classes, 4)
+    else:
+        reg = scale_columns(head_reg.reshape(b, s, cfg.num_classes, 4), stages[0].reg_std)
+        rois_c = xy_to_cxcy(rois)[:, :, None, :]
+        boxes = cxcy_to_xy(decode(reg, rois_c)).clamp(0.0, 1.0)
     mark("decode", probs)
 
     dets = Detections(
@@ -696,11 +932,12 @@ def detect(
 
 
 def label_offset_for(generation: str, data_type: str) -> int:
-    """Dataset label -> head class index offset: the FPN generation on
-    COCO consumes raw category ids (1..90, background 0), so it needs
-    none; every 0-based labelling (VOC, COCO remapped to 0..79 for the
-    legacy generation) shifts by 1 past the background slot."""
-    return 0 if (generation == "fpn" and data_type == "coco") else 1
+    """Dataset label -> head class index offset: the FPN and cascade
+    generations on COCO consume raw category ids (1..90, background 0),
+    so they need none; every 0-based labelling (VOC, COCO remapped to
+    0..79 for the legacy generation) shifts by 1 past the background
+    slot."""
+    return 0 if (generation in ("fpn", "cascade") and data_type == "coco") else 1
 
 
 def build_model(
@@ -716,7 +953,11 @@ def build_model(
     ``remat`` (``--remat_backbone``): the backbone recomputes its
     activations in the backward, VGG16 whole and ResNet50 per
     bottleneck; the parameters are the same."""
-    models = {"legacy": (LEGACY_CONFIG, LegacyFRCNN), "fpn": (FPN_CONFIG, FPNFRCNN)}
+    models = {
+        "legacy": (LEGACY_CONFIG, LegacyFRCNN),
+        "fpn": (FPN_CONFIG, FPNFRCNN),
+        "cascade": (CASCADE_CONFIG, CascadeRCNN),
+    }
     if generation not in models:
         raise ValueError(f"unknown generation: {generation!r}")
     cfg, model_cls = models[generation]

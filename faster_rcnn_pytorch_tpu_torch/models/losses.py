@@ -1,4 +1,4 @@
-"""Four-part Faster R-CNN loss, mask-based.
+"""Four-part Faster R-CNN loss, mask-based, and Cascade R-CNN's.
 
 Counterpart of ``faster_rcnn_pytorch_tpu/models/losses.py``:
 
@@ -8,13 +8,18 @@ Counterpart of ``faster_rcnn_pytorch_tpu/models/losses.py``:
 * RoI smooth-L1 (beta 1) on positives, divided the same way,
 * total = the unweighted sum of the four terms.
 
+Cascade R-CNN has one RoI term pair a stage, each divided by its own
+stage's non-ignored count, and sums them with the stage weights ``w_t``:
+total = RPN terms + sum_t w_t (CE_t + SL1_t). One head is one stage of
+weight 1.
+
 Every denominator is ``max(count, 1)``, so an all-ignored batch gives 0.
 
 Under data parallelism the JAX loss is one mean over the global batch:
-its two counts (non-ignored anchors, non-ignored RoIs) are counts over
-every image of every rank. :func:`frcnn_loss` takes a ``count_reduce``
-that turns this rank's counts into the global ones and returns the data
-world size ``D``; each term is then ``D * local_sum / global_count``, so
+its counts (non-ignored anchors, each stage's non-ignored RoIs) are
+counts over every image of every rank. :func:`frcnn_loss` takes a
+``count_reduce`` that turns this rank's counts into the global ones and
+returns the data world size ``D``; each term is then ``D * local_sum / global_count``, so
 DDP's average of the ranks' gradients is the gradient of the global mean.
 """
 
@@ -53,27 +58,42 @@ def _sums(pred_cls, pred_reg, target_cls, target_reg, beta: float):
     return _nll_sum(pred_cls, target_cls), torch.where(target_cls > 0, reg, 0.0).sum()
 
 
-# this rank's counts [2] -> (the data group's counts [2], data world size)
+# this rank's counts [1 + stages] -> (the data group's, data world size)
 CountReduce = Callable[[torch.Tensor], tuple[torch.Tensor, int]]
 
 
-def frcnn_loss(pred, target, count_reduce: CountReduce | None = None) -> LossBreakdown:
-    """Total loss from ``(rpn_cls, rpn_reg, roi_cls, roi_reg)`` predictions
-    and targets: ``[..., A, 2]``, ``[..., A, 4]``, ``[..., S, C]``, ``[...,
-    S, 4]`` (the regression row of each sample's target class) against
-    ``[..., A]``, ``[..., A, 4]``, ``[..., S]``, ``[..., S, 4]``; RPN
-    smooth-L1 with beta 1/9, RoI with beta 1. ``count_reduce`` (data
-    parallelism) makes the two denominators global counts and scales each
-    term by the data world size (module docstring)."""
-    pred_rpn_cls, pred_rpn_reg, pred_roi_cls, pred_roi_reg = pred
-    tg_rpn_cls, tg_rpn_reg, tg_roi_cls, tg_roi_reg = target
-    counts = torch.stack([(tg_rpn_cls >= 0).sum(), (tg_roi_cls >= 0).sum()])
+def stage_sums(pred_cls, pred_reg, target_cls, target_reg):
+    """One RoI stage's terms before the division, from ``[..., S, C]`` and
+    ``[..., S, 4]`` (the regression row of each sample's target class)
+    against ``[..., S]`` and ``[..., S, 4]``: the cross-entropy sum, the
+    positives' smooth-L1 sum (beta 1), and the non-ignored count."""
+    ce, reg = _sums(pred_cls, pred_reg, target_cls, target_reg, 1.0)
+    return ce, reg, (target_cls >= 0).sum()
+
+
+def frcnn_loss(
+    rpn_pred, rpn_target, stages, weights=(1.0,), count_reduce: CountReduce | None = None
+) -> LossBreakdown:
+    """Total loss from the RPN's ``(cls, reg)`` predictions ``[..., A,
+    2]``, ``[..., A, 4]`` against ``[..., A]``, ``[..., A, 4]`` (smooth-L1
+    with beta 1/9) and the RoI stages' :func:`stage_sums`: the RPN's two
+    terms plus ``sum_t weights[t] * (CE_t + SL1_t)``, each stage's pair
+    divided by its own non-ignored count. ``roi_cls`` and ``roi_reg`` are
+    the weighted sums over the stages. ``count_reduce`` (data
+    parallelism) makes every denominator a global count, in one call, and
+    scales each term by the data world size (module docstring)."""
+    rpn_cls, rpn_reg = rpn_pred
+    tg_cls, tg_reg = rpn_target
+    counts = torch.stack([(tg_cls >= 0).sum(), *(n for _, _, n in stages)])
     scale = 1
     if count_reduce is not None:
         counts, scale = count_reduce(counts)
     counts = counts.clamp(min=1)
-    rpn = _sums(pred_rpn_cls, pred_rpn_reg, tg_rpn_cls, tg_rpn_reg, 1.0 / 9.0)
-    roi = _sums(pred_roi_cls, pred_roi_reg, tg_roi_cls, tg_roi_reg, 1.0)
-    rc, rr = (s / counts[0] * scale for s in rpn)
-    fc, fr = (s / counts[1] * scale for s in roi)
+    rc, rr = (s / counts[0] * scale for s in _sums(rpn_cls, rpn_reg, tg_cls, tg_reg, 1.0 / 9.0))
+    fc = fr = None
+    for t, (w, (ce, reg, _)) in enumerate(zip(weights, stages)):
+        c, r = (s / counts[t + 1] * scale for s in (ce, reg))
+        if w != 1:
+            c, r = w * c, w * r
+        fc, fr = (c, r) if fc is None else (fc + c, fr + r)
     return LossBreakdown(total=rc + rr + fc + fr, rpn_cls=rc, rpn_reg=rr, roi_cls=fc, roi_reg=fr)

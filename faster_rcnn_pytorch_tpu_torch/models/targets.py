@@ -45,6 +45,9 @@ class RoITargets(NamedTuple):
     reg_targets: torch.Tensor  # [B, S, 4] normalised encoded deltas
     is_pos: torch.Tensor  # [B, S] bool
     valid: torch.Tensor  # [B, S] bool
+    # [B, S] int64: each sample's position among the candidates (None in
+    # targets made elsewhere, as the parity tests' from the JAX package)
+    index: torch.Tensor | None = None
 
 
 def _first(targets):
@@ -58,12 +61,13 @@ def _take_boxes(boxes: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _reg_std(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """:data:`REG_STD` as a ``[4]`` tensor on ``device``, made once a dtype
-    and device by fills: a copy from the host would wait for the stream.
-    A divisor tensor, not Python numbers: CUDA divides by a Python number
-    as a product with its reciprocal, which can differ in the last bit."""
-    return torch.stack([torch.full((), s, dtype=dtype, device=device) for s in REG_STD])
+def _reg_std(dtype: torch.dtype, device: torch.device, std: tuple = REG_STD) -> torch.Tensor:
+    """``std`` (:data:`REG_STD` unless a cascade stage gives its own) as a
+    ``[4]`` tensor on ``device``, made once a dtype, device and std by
+    fills: a copy from the host would wait for the stream. A divisor
+    tensor, not Python numbers: CUDA divides by a Python number as a
+    product with its reciprocal, which can differ in the last bit."""
+    return torch.stack([torch.full((), s, dtype=dtype, device=device) for s in std])
 
 
 def anchor_inside(
@@ -214,12 +218,15 @@ def sample_roi_targets(
     pos_quota: int = 32,
     pos_iou: float = 0.5,
     label_offset: int = 1,
+    reg_std: tuple = REG_STD,
 ) -> RoITargets:
     """The batch's sampling half of :func:`frcnn_targets`, from
     :func:`roi_match`'s ``iou_max`` / ``iou_argmax`` ``[B, R+G]`` of the
     candidates ``cand [B, R+G, 4]``, against ``gt_boxes [B, G, 4]`` and
     ``gt_labels [B, G]``, with ``pos_noise`` / ``neg_noise`` ``[B,
-    R+G]``."""
+    R+G]``. A candidate is positive at ``iou_max >= pos_iou`` and
+    negative below it; the positives' deltas are divided by ``reg_std``
+    (a cascade stage gives its own threshold and stds)."""
     pos_mask = cand_valid & (iou_max >= pos_iou)
     neg_mask = cand_valid & (iou_max < pos_iou) & (iou_max >= 0.0)
     idx, is_pos, valid = sample_pos_neg(
@@ -232,9 +239,9 @@ def sample_roi_targets(
     labels = torch.where(valid, labels, -1)
 
     reg = encode(xy_to_cxcy(_take_boxes(gt_boxes, matched)), xy_to_cxcy(sample_rois), eps=1e-8)
-    reg = torch.where(is_pos[..., None], reg / _reg_std(cand.dtype, cand.device), 0.0)
+    reg = torch.where(is_pos[..., None], reg / _reg_std(cand.dtype, cand.device, tuple(reg_std)), 0.0)
     return RoITargets(
-        rois=sample_rois, labels=labels, reg_targets=reg, is_pos=is_pos, valid=valid
+        rois=sample_rois, labels=labels, reg_targets=reg, is_pos=is_pos, valid=valid, index=idx
     )
 
 

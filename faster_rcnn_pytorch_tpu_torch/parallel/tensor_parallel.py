@@ -98,6 +98,8 @@ def apply_tensor_parallel(model: nn.Module, group, rank: int, size: int) -> nn.M
     process's place in the model group. Returns ``model``."""
     if size == 1:
         return model
+    if not hasattr(model, "classifier"):
+        raise ValueError("--model_parallel splits the one RoI head's fc6/fc7; a cascade has three")
     old = model.classifier
     new = nn.Sequential(
         ColumnParallelLinear(old[0], group, rank, size),

@@ -247,8 +247,7 @@ def batch_noise(model, cfg, generator, images, gt_boxes, rows: tuple[int, int]):
         noise = generator
     else:
         n_anchors = device_anchors(model, canvas_h, canvas_w, dev).shape[0]
-        n_cand = cfg.post_nms_train + gt_boxes.shape[1]
-        noise = draw_train_noise(generator, total, n_anchors, n_cand, dev)
+        noise = draw_train_noise(generator, cfg, total, n_anchors, gt_boxes.shape[1], dev)
     if total == b:
         return noise
     return type(noise)(*(t[lo : lo + b] for t in noise))

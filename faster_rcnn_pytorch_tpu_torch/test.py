@@ -18,8 +18,8 @@ without one the run's ``{log_dir}/{name}/saves/{name}.{test_epoch}.pt``
 gets a fresh init seeded by ``--seed`` (its backbone from
 ``--pretrained_backbone`` if given) and a note says so. With several
 processes the parent resolves both flags to files first, so that one
-process a host downloads. Both generations
-(``--model_generation legacy|fpn``) on VOC or COCO (``--data_type``);
+process a host downloads. Both generations and Cascade R-CNN
+(``--model_generation legacy|fpn|cascade``) on VOC or COCO (``--data_type``);
 COCO scores against ``annotations/instances_val2017.json`` under the
 data root.
 

@@ -401,13 +401,17 @@ def load_pretrained_backbone(model: torch.nn.Module, spec: str, generation: str)
     """Load an ImageNet backbone into ``model`` in place (the JAX
     ``load_pretrained_backbone``): ``spec`` is a path, ``auto`` or a
     registry name, resolved by ``utils/pretrained.py::resolve_backbone``;
-    VGG16 for ``legacy``, ResNet50 for ``fpn``. A key the model lacks or
+    VGG16 for ``legacy``, ResNet50 for ``fpn`` and ``cascade``. A key the model lacks or
     a shape that differs raises ``ValueError`` naming it, before anything
     is copied; an unknown generation raises too."""
     from faster_rcnn_pytorch_tpu_torch.utils.convert import load_reference_checkpoint
     from faster_rcnn_pytorch_tpu_torch.utils.pretrained import resolve_backbone
 
-    importers = {"legacy": import_torchvision_vgg16, "fpn": import_torchvision_resnet50}
+    importers = {
+        "legacy": import_torchvision_vgg16,
+        "fpn": import_torchvision_resnet50,
+        "cascade": import_torchvision_resnet50,
+    }
     if generation not in importers:
         raise ValueError(f"unknown generation: {generation!r}")
     path = resolve_backbone(spec, generation)

@@ -424,9 +424,9 @@ def test_forward_train_sizes_its_noise_by_the_models_anchors(setup, monkeypatch)
     seen = []
     draw = pfr.draw_train_noise
 
-    def spy(generator, b, num_anchors, num_candidates, device):
-        seen.append((b, num_anchors, num_candidates))
-        return draw(generator, b, num_anchors, num_candidates, device)
+    def spy(generator, cfg, b, num_anchors, gt_slots, device):
+        seen.append((b, num_anchors, cfg.post_nms_train + gt_slots))
+        return draw(generator, cfg, b, num_anchors, gt_slots, device)
 
     monkeypatch.setattr(pfr, "draw_train_noise", spy)
     with torch.no_grad():

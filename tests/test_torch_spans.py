@@ -23,7 +23,7 @@ from faster_rcnn_pytorch_tpu_torch.ops.nms import multiclass_nms_batch
 from faster_rcnn_pytorch_tpu_torch.parallel import train_step as pts
 from faster_rcnn_pytorch_tpu_torch.utils import logging as tracing
 
-CANVAS = {"legacy": (128, 192), "fpn": (128, 160)}
+CANVAS = {"legacy": (128, 192), "fpn": (128, 160), "cascade": (128, 160)}
 NUM_CLASSES = 6
 KEYS = ("image", "extent", "gt_boxes", "gt_labels", "gt_mask")
 TARGET_SPANS = tuple(f"train.{s}" for s in pfr.TRAIN_TARGET_STAGES)
@@ -277,3 +277,62 @@ def test_threads_keep_their_own_parents_and_ids():
         (child,) = spans[n + ".child"]
         assert child.parent == n and child.step == spans[n][0].step
     assert spans["a"][0].step != spans["b"][0].step
+
+
+# A cascade's stages inside ``train.head_loss`` and ``predict.roi_head``.
+CASCADE_TRAIN = {
+    "train.stage_head": (3, "train.head_loss"),
+    "train.refine": (2, "train.head_loss"),
+    "train.stage_match": (2, "train.head_loss"),
+    "train.stage_sample": (2, "train.head_loss"),
+}
+CASCADE_PREDICT = {"predict.stage_head": (3, "predict.roi_head"), "predict.refine": (2, "predict.roi_head")}
+
+
+def test_cascade_train_step_nests_its_stages_in_head_loss():
+    spans = run_step("cascade")["spans"]
+    assert set(spans) == set(TRAIN_PARENTS) | set(CASCADE_TRAIN)
+    for name, parent in TRAIN_PARENTS.items():
+        assert len(spans[name]) == 1 and spans[name][0].parent == parent, name
+    (head_loss,) = spans["train.head_loss"]
+    children = 0
+    for name, (n, parent) in CASCADE_TRAIN.items():
+        assert len(spans[name]) == n and all(s.parent == parent for s in spans[name]), name
+        assert all(head_loss.start_ns <= s.start_ns <= s.end_ns <= head_loss.end_ns for s in spans[name])
+        children += sum(s.end_ns - s.start_ns for s in spans[name])
+    assert head_loss.self_ns == head_loss.end_ns - head_loss.start_ns - children
+    order = sorted((s.start_ns, name) for name in CASCADE_TRAIN for s in spans[name])
+    assert [name for _, name in order] == [
+        "train.stage_head", "train.refine", "train.stage_match", "train.stage_sample",
+        "train.stage_head", "train.refine", "train.stage_match", "train.stage_sample",
+        "train.stage_head",
+    ]
+    assert len({s.step for ss in spans.values() for s in ss}) == 1
+
+
+def test_cascade_predict_nests_its_stages_in_roi_head():
+    model, cfg = make_model("cascade")
+    batch = make_batch("cascade")
+    tracing.reset()
+    with torch.no_grad():
+        pfr.predict(model, cfg, batch["image"], batch["extent"], 0.05)
+    spans = tracing.snapshot()["spans"]
+    assert set(spans) == {"predict.call", *PREDICT_SPANS, *CASCADE_PREDICT}
+    (roi_head,) = spans["predict.roi_head"]
+    for name, (n, parent) in CASCADE_PREDICT.items():
+        assert len(spans[name]) == n and all(s.parent == parent for s in spans[name]), name
+        assert all(roi_head.start_ns <= s.start_ns <= s.end_ns <= roi_head.end_ns for s in spans[name])
+
+
+def test_cascade_counts_its_last_stages_positives_under_a_profiler():
+    model, cfg = make_model("cascade")
+    state = pts.init_train_state(model, pts.make_optimizer(model))
+    step_fn = pts.make_train_step(cfg, pts.make_lr_schedule("constant", 1e-3, 1, 1))
+    batch = make_batch("cascade")
+    tracing.reset()
+    step_fn(state, batch, torch.Generator().manual_seed(1))
+    assert tracing.snapshot()["counters"] == {}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        step_fn(state, batch, torch.Generator().manual_seed(2))
+    counter = tracing.snapshot()["counters"]["cascade.stage3_positives"]
+    assert counter.n == 2 and 0 < counter.value <= 2 * cfg.roi_pos_quota

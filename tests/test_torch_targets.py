@@ -192,7 +192,12 @@ def _loss_inputs(rs, b=2, a=300, s=64, c=6, ignore_all=False):
 def test_losses_match_jax(ignore_all):
     pred, target = _loss_inputs(np.random.RandomState(9), ignore_all=ignore_all)
     want = jl.frcnn_loss([jnp.asarray(x) for x in pred], [jnp.asarray(x) for x in target])
-    got = pl.frcnn_loss([_t(x) for x in pred], [_t(x) for x in target])
+    (rpn_cls, rpn_reg, roi_cls, roi_reg), (tg_rpn, tg_rpn_reg, tg_roi, tg_roi_reg) = (
+        [_t(x) for x in xs] for xs in (pred, target)
+    )
+    got = pl.frcnn_loss(
+        (rpn_cls, rpn_reg), (tg_rpn, tg_rpn_reg), [pl.stage_sums(roi_cls, roi_reg, tg_roi, tg_roi_reg)]
+    )
     for name, g, w in zip(pl.LossBreakdown._fields, got, want):
         w = float(w)
         assert abs(float(g) - w) <= 1e-6 * max(abs(w), 1e-30), (name, float(g), w)

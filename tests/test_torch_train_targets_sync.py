@@ -103,3 +103,51 @@ def test_train_targets_on_the_card_equal_the_one_image_entry_points(generation):
         for got, want in ((rpn_tg, want_rpn), (roi_tg, want_roi)):
             for field, value in zip(want._fields, want):
                 assert torch.equal(getattr(got, field)[i], value), (generation, field, i)
+
+
+@pytest.mark.card
+def test_cascade_stages_make_no_device_sync():
+    """Cascade R-CNN's RoI stages (``train_losses``: each stage's head and
+    loss terms, the refine, the later stages' match and sampling, the
+    weighted loss) after ``train_targets``, at the cascade's budgets and
+    800x1344, a batch of 2 with 3 and 42 gt in 100 slots."""
+    device = _card()
+    cfg = pfr.CASCADE_CONFIG
+    model, _ = pfr.build_model("cascade")
+    pfr.init_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(device)
+    g = torch.Generator().manual_seed(3)
+    images = torch.randn(2, *CANVAS, 3, generator=g).to(device)
+    extents = torch.tensor([[1.0, 1.0], [0.75, 0.9]], device=device)
+    gt = torch.zeros(2, 100, 4)
+    gt_mask = torch.zeros(2, 100, dtype=torch.bool)
+    for i, real in enumerate((3, 42)):
+        xy = torch.rand(real, 2, generator=g) * 0.7
+        wh = 0.05 + torch.rand(real, 2, generator=g) * 0.25
+        gt[i, :real] = torch.cat([xy, (xy + wh).clamp(max=1.0)], dim=1)
+        gt_mask[i, :real] = True
+    gt, gt_mask = gt.to(device), gt_mask.to(device)
+    gt_labels = torch.randint(1, 91, (2, 100), generator=g, dtype=torch.int32).to(device)
+    anchors = torch.from_numpy(model.canvas_anchors(*CANVAS)).to(device)
+    gen = torch.Generator(device=device).manual_seed(5)
+
+    def stages(mode):
+        feats = model.features(images.permute(0, 3, 1, 2).contiguous())
+        rpn_cls, rpn_reg = model.rpn_out(feats)
+        noise = pfr.draw_train_noise(gen, cfg, 2, anchors.shape[0], 100, device)
+        rpn_tg, roi_tg = pfr.train_targets(
+            cfg, anchors, rpn_cls, rpn_reg, extents, gt, gt_labels, gt_mask, noise
+        )
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode(mode)
+        try:
+            return pfr.train_losses(
+                model, cfg, feats, rpn_cls, rpn_reg, rpn_tg, roi_tg, CANVAS,
+                extents=extents, gt=(gt, gt_labels, gt_mask), noise=noise,
+            )
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    stages(0)  # builds the kernels
+    out = stages("error")
+    assert torch.isfinite(out.losses.total) and int(out.num_pos_roi) > 0
