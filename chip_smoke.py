@@ -95,13 +95,23 @@ CUDA card, builds the port's kernels from the sources in the checkout
      the cluster design covers are printed beside the greedy's. Then the
      legacy train proposals with ``post_k`` cut inside a tile (the next
      survivor in the same tile of 64), at 8 and 16 CTAs a segment: keep and
-     counts identical with the plain sweep.
+     counts identical with the plain sweep;
+   * the FrozenBN site kernel (row 9, ``ops/cuda/frozen_bn.cu``) at the 53
+     sites of a ResNet50 forward at batch 8 and 800x1344
+     (``frozen_bn_sites``), bfloat16 and float32: every output bit for bit
+     the eager chain's, and at the 42 sites a train step's backward reaches
+     the backward kernel's gradients the plain backward's; each site timed
+     one call and back to back beside the eager chain and beside PyTorch's
+     eval ``batch_norm`` with the site's add and ReLU, summed over the
+     sites and by level, with the bytes bound. Its ``launches`` and
+     ``backward_launches`` are the main paths' (phases 9, 12, 21-28),
+     counted as the other records' are.
 3. main path, predict: full-width legacy VGG16 predict (21 classes, seeded
    random weights, the 800x1344 canvas, batch 1) through the port's
    ``engine.evaluate.evaluate`` on synthetic in-memory VOC batches, in
    float32 (TF32 off) and bfloat16, with the kernels' launch counts reset
    just before and read just after; the NMS kernel runs twice a call
-   (proposals, per-class), the IoU kernel never.
+   (proposals, per-class), the IoU and FrozenBN kernels never.
 4. predict vs plain: the same float32 predict with RoIPool and NMS forced
    to the plain versions must give identical detections.
 5. small-input predict reference: GPU float32 predict against the CPU plain
@@ -113,7 +123,7 @@ CUDA card, builds the port's kernels from the sources in the checkout
    float32 and under bfloat16 autocast, counts reset just before and read
    just after: the backward kernel, the NMS kernel (the batch's
    proposals) and the anchor match kernel run once per step, the IoU
-   kernel never, every loss is
+   and FrozenBN kernels never, every loss is
    finite and the mean loss of steps 16-20 is below that of steps 1-5.
 7. train step vs plain: one float32 step from the same weights and noise
    through the kernels and through plain RoIPool and NMS: identical losses;
@@ -134,7 +144,9 @@ CUDA card, builds the port's kernels from the sources in the checkout
    ``engine.evaluate.evaluate`` with ``data_type="coco"`` and a synthetic
    ``CocoIndex`` written under ``build/``, in float32 (TF32 off) and
    bfloat16, counts reset just before and read just after: the align
-   kernel runs once per predict call and NMS twice, RoIPool and IoU never;
+   kernel runs once per predict call, NMS twice and the FrozenBN kernel
+   53 times (each site of the ResNet50 trunk), RoIPool, IoU and the
+   FrozenBN backward never;
    every image has a detection; the std of P2..P6 is printed.
 10. FPN predict vs plain: the same float32 predict with the plain align and
    NMS must give identical detections.
@@ -146,7 +158,8 @@ CUDA card, builds the port's kernels from the sources in the checkout
    ``train_one_epoch`` and ``parallel.train_step``, in float32 and under
    bfloat16 autocast, counts reset just before and read just after: the
    align forward and backward kernels, NMS and the anchor match run once
-   per step each, RoIPool and IoU never; every loss is finite and the mean of steps 16-20 is below that
+   per step each, the FrozenBN forward 53 times and its backward 42
+   (layers 2-4), RoIPool and IoU never; every loss is finite and the mean of steps 16-20 is below that
    of steps 1-5.
 13. FPN train step vs plain: one float32 step from the same weights and
    noise through the align and NMS kernels and through the plain align
@@ -163,7 +176,7 @@ CUDA card, builds the port's kernels from the sources in the checkout
    300-500 small boxes tiled over each image, counts reset just before and
    read just after: the IoU kernel's match mode runs once per step for
    the batch and its matrix mode never, RoIPool forward and backward, NMS
-   and the anchor match once per step each; losses finite and falling as in phase 6; img/s
+   and the anchor match once per step each, FrozenBN never; losses finite and falling as in phase 6; img/s
    printed as there, with the run's peak ``max_memory_allocated`` and the
    stages of 6 more steps (a device sync between backbone + RPN, propose
    + targets, head + loss, backward and SGD: ``train_stage_rows``), with
@@ -267,7 +280,8 @@ CUDA card, builds the port's kernels from the sources in the checkout
    raw COCO ids: 20 steps in float32 and under bfloat16 autocast, counts
    reset just before and read just after (the IoU match mode once a step,
    its matrix mode never, the align forward and backward, NMS and the
-   anchor match once a step; losses finite and falling), peak memory and
+   anchor match once a step, FrozenBN 53 and 42 times as in phase 12;
+   losses finite and falling), peak memory and
    the stage split
    printed beside phase 15's; then one float32 step through the kernels
    and with ``plain=True``: identical RPN and RoI targets and losses.
@@ -295,8 +309,9 @@ The ranks of phases 21, 22 and 24 send their kernel launch counts back
 (the slot-lattice align kernel's must stay 0). In phases 21-23 the
 anchor match kernel runs once a train step: as often as the head's
 backward kernel (phase 22: once a rank; phase 23: its 48 steps). Its last
-two lines are the kernels' JSON record (eight records; ``launches``:
-phases 3, 6, 9, 12, 15, 21-24, 25-28; ``serving_launches``: phases 18-20)
+two lines are the kernels' JSON record (nine records; ``launches``:
+phases 3, 6, 9, 12, 15, 21-24, 25-28, FrozenBN's ``backward_launches``
+too; ``serving_launches``: phases 18-20)
 and ``{"ok": true, "device": {...}}``.
 """
 
@@ -329,6 +344,7 @@ from faster_rcnn_pytorch_tpu_torch.engine.evaluate import evaluate
 from faster_rcnn_pytorch_tpu_torch.engine.train import BATCH_KEYS, train_one_epoch
 from faster_rcnn_pytorch_tpu_torch.evaluation.diff import detections_agree
 from faster_rcnn_pytorch_tpu_torch.models.anchors import fpn_anchors, legacy_anchors
+from faster_rcnn_pytorch_tpu_torch.models.resnet import STAGE_SIZES
 from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import (
     FPN_CONFIG,
     FPNFRCNN,
@@ -347,6 +363,7 @@ from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import (
 )
 from faster_rcnn_pytorch_tpu_torch.models.targets import anchor_inside
 from faster_rcnn_pytorch_tpu_torch.ops import boxes as boxes_mod
+from faster_rcnn_pytorch_tpu_torch.ops import frozen_bn as frozen_bn_mod
 from faster_rcnn_pytorch_tpu_torch.ops import nms as nms_mod
 from faster_rcnn_pytorch_tpu_torch.ops import roi_align as roi_align_mod
 from faster_rcnn_pytorch_tpu_torch.ops import roi_pool as roi_pool_mod
@@ -1193,6 +1210,156 @@ def check_iou_kernel(device) -> dict:
     return record
 
 
+FROZEN_BN_BATCH = 8  # the predict cell's batch
+
+
+def frozen_bn_sites(canvas=CANVAS, batch: int = FROZEN_BN_BATCH) -> list:
+    """The 53 FrozenBN sites of one ResNet50 forward on ``canvas``, in the
+    order it runs them: ``(name, [B, C, H, W], residual, relu, backward)``,
+    ``backward`` where a train step's backward reaches the site (layers
+    2-4; the stem and ``layer1`` are detached)."""
+    h, w = -(-canvas[0] // 2), -(-canvas[1] // 2)  # conv1, stride 2
+    sites = [("stem.bn1", (batch, 64, h, w), False, True, False)]
+    h, w = -(-h // 2), -(-w // 2)  # the max pool
+    for stage, blocks in enumerate(STAGE_SIZES):
+        width = 64 * 2**stage
+        for b in range(blocks):
+            name, grads = f"layer{stage + 1}.{b}", stage > 0
+            sites.append((f"{name}.bn1", (batch, width, h, w), False, True, grads))
+            if b == 0 and stage > 0:  # the block's stride is on its 3x3 conv
+                h, w = -(-h // 2), -(-w // 2)
+            sites.append((f"{name}.bn2", (batch, width, h, w), False, True, grads))
+            if b == 0:
+                sites.append((f"{name}.downsample.1", (batch, 4 * width, h, w), False, False, grads))
+            sites.append((f"{name}.bn3", (batch, 4 * width, h, w), True, True, grads))
+    return sites
+
+
+FROZEN_BN_SITES = len(frozen_bn_sites())  # 53 launches a ResNet50 forward
+FROZEN_BN_GRAD_SITES = sum(site[4] for site in frozen_bn_sites())  # 42 a FPN step's backward
+FROZEN_BN_KERNELS = (frozen_bn_mod.frozen_bn_cuda, frozen_bn_mod.frozen_bn_backward_cuda)
+
+
+def _library_site(x, mean, var, weight, bias, residual, relu: bool) -> torch.Tensor:
+    """A site as PyTorch's own FrozenBN would run it, the timing yardstick:
+    ``F.batch_norm`` in eval (one call), then the residual add and the ReLU
+    in place where the site has them. Its rounding is not the eager
+    chain's, so the port never calls it."""
+    y = torch.nn.functional.batch_norm(x, mean, var, weight, bias, False, 0.0, 1e-5)
+    if residual is not None:
+        y += residual
+    return y.relu_() if relu else y
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(bits), b.view(bits))
+
+
+def check_frozen_bn_kernel(device) -> dict:
+    """Row 9, the FrozenBN site kernel (``ops/cuda/frozen_bn.cu``), at the
+    53 sites of a ResNet50 forward on the predict cell's shapes (batch 8,
+    800x1344; ``frozen_bn_sites``), in bfloat16 (the cells' dtype) and
+    float32, on seeded activations and statistics (negative scales): each
+    site's output bit for bit the eager chain's (``frozen_bn_reference``),
+    and at the 42 sites a train step's backward reaches the backward
+    kernel's ``dx`` and residual gradient bit for bit the plain backward's.
+    Each site timed one call and back to back (``BURST`` calls) beside the
+    eager chain it replaces and beside PyTorch's eval ``batch_norm`` with
+    the site's add and ReLU (``_library_site``: ``library_ms``, one call,
+    and ``library_burst_ms``), summed over the sites and by level; the bound:
+    every byte of ``x`` (and the residual) read once and of ``y`` written
+    once (backward: ``grad`` and a ReLU site's output read, ``dx`` and the
+    residual's gradient written), and the vectors, at 3.35 TB/s. The
+    record's times are bfloat16's; float32's are its ``float32_*`` keys."""
+    g = torch.Generator(device=device).manual_seed(SEED + 24)
+    fwd_k, bwd_k = frozen_bn_mod.frozen_bn_cuda, frozen_bn_mod.frozen_bn_backward_cuda
+    record = {
+        "name": "frozen_bn",
+        "route": "cuda",
+        "source": "faster_rcnn_pytorch_tpu_torch/ops/cuda/frozen_bn.cu",
+        "replaces": None,  # XLA fuses the JAX package's FrozenBN (models/resnet.py)
+        "max_abs_err": 0.0,  # every output is held bit-exact
+        "shapes": f"53 ResNet50 sites, batch {FROZEN_BN_BATCH}, {CANVAS[0]}x{CANVAS[1]}",
+    }
+    sites = frozen_bn_sites()
+    for dtype in (torch.bfloat16, torch.float32):
+        keys = (
+            "ms", "burst_ms", "plain_ms", "library_ms", "library_burst_ms", "bound_ms",
+            "bwd_ms", "bwd_burst_ms", "bwd_plain_ms", "bwd_bound_ms",
+        )
+        total = dict.fromkeys(keys, 0.0)
+        levels: dict = {}
+        size = torch.finfo(dtype).bits // 8
+        for name, shape, residual, relu, backward in sites:
+            c = shape[1]
+            x = (torch.randn(shape, generator=g, device=device) * 2).to(dtype)
+            r = (torch.randn(shape, generator=g, device=device) * 2).to(dtype) if residual else None
+            mean = torch.randn(c, generator=g, device=device) * 0.5
+            var = torch.rand(c, generator=g, device=device) * 2 + 0.05
+            weight = torch.randn(c, generator=g, device=device)
+            bias = torch.randn(c, generator=g, device=device) * 0.5
+            inv = torch.rsqrt(var + 1e-5) * weight
+            args = (x, mean, inv, bias, r, relu)
+            y = fwd_k(*args)
+            torch.cuda.synchronize()
+            _require(
+                _same_bits(y, frozen_bn_mod.frozen_bn_reference(*args)), f"frozen_bn {name} {dtype} != the eager chain"
+            )
+            row = levels.setdefault(name.split(".")[0], dict.fromkeys(keys, 0.0))
+            times = {
+                "ms": _median_ms(lambda: fwd_k(*args)),
+                "burst_ms": _median_ms(lambda: fwd_k(*args), burst=BURST),
+                "plain_ms": _median_ms(lambda: frozen_bn_mod.frozen_bn_reference(*args)),
+                "library_ms": _median_ms(lambda: _library_site(x, mean, var, weight, bias, r, relu)),
+                "library_burst_ms": _median_ms(
+                    lambda: _library_site(x, mean, var, weight, bias, r, relu), burst=BURST
+                ),
+                "bound_ms": _bound(x.numel() * size * (3 if residual else 2) + 3 * c * 4, 0)[0],
+            }
+            if backward:
+                gy = torch.randn(shape, generator=g, device=device).to(dtype)
+                bargs = (gy, y if relu else None, inv, residual)
+                got, want = bwd_k(*bargs), frozen_bn_mod.frozen_bn_backward_reference(*bargs)
+                torch.cuda.synchronize()
+                _require(
+                    _same_bits(got[0], want[0]) and (not residual or _same_bits(got[1], want[1])),
+                    f"frozen_bn backward {name} {dtype} != the plain backward",
+                )
+                times.update(
+                    bwd_ms=_median_ms(lambda: bwd_k(*bargs)),
+                    bwd_burst_ms=_median_ms(lambda: bwd_k(*bargs), burst=BURST),
+                    bwd_plain_ms=_median_ms(lambda: frozen_bn_mod.frozen_bn_backward_reference(*bargs)),
+                    bwd_bound_ms=_bound(x.numel() * size * (2 + relu + residual) + c * 4, 0)[0],
+                )
+            for k, v in times.items():
+                total[k] += v
+                row[k] += v
+            del x, r, y
+        tag = "" if dtype == torch.bfloat16 else "float32_"
+        for level, row in levels.items():
+            print(
+                f"frozen_bn {dtype} {level}: forward {row['ms']:.4f} ms one call a site summed "
+                f"({row['burst_ms']:.4f} back to back), eager chain {row['plain_ms']:.4f}, batch_norm "
+                f"{row['library_ms']:.4f} ({row['library_burst_ms']:.4f}), bound "
+                f"{row['bound_ms']:.4f}; backward {row['bwd_ms']:.4f} ({row['bwd_burst_ms']:.4f}), "
+                f"plain {row['bwd_plain_ms']:.4f}, bound {row['bwd_bound_ms']:.4f} (medians of 25)",
+                flush=True,
+            )
+        print(
+            f"frozen_bn {dtype}: 53 forward sites bit-exact, {total['ms']:.4f} ms one call a site summed "
+            f"({total['burst_ms']:.4f} back to back, {100 * total['bound_ms'] / total['burst_ms']:.1f}% of "
+            f"the bound {total['bound_ms']:.4f}), eager chain {total['plain_ms']:.4f}, batch_norm "
+            f"{total['library_ms']:.4f} ({total['library_burst_ms']:.4f} back to back); 42 backward sites "
+            f"bit-exact, {total['bwd_ms']:.4f} ({total['bwd_burst_ms']:.4f} back to back, bound "
+            f"{total['bwd_bound_ms']:.4f}), plain {total['bwd_plain_ms']:.4f}",
+            flush=True,
+        )
+        record.update({tag + k: v for k, v in total.items()})
+        record[tag + "levels"] = levels
+    return record
+
+
 # Row 8's shapes, the main path's: (generation, canvas, images, gt slots, real boxes an image [low, high)).
 SHAPES_CANVAS = (320, 512)  # phase 28: the shapes recipe's --resize 320 --max_size 512
 SHAPES_BATCH = 8  # its --batch_size
@@ -1771,7 +1938,7 @@ def train_epoch(model, cfg, batch: dict, steps: int, name: str, autocast_dtype=N
 
 def run_train(
     dtype_name: str, device, generation: str = "legacy", dense: bool = False
-) -> tuple[int, int, int, int, int]:
+) -> tuple[int, int, int, int, int, tuple[int, int]]:
     """20 full-width train steps through ``train_one_epoch``; returns the
     launch counts of the generation's head kernels (forward, backward) and
     of the IoU kernel in the run, and requires the other generation's
@@ -1780,7 +1947,8 @@ def run_train(
     IoU kernel's gate, so its match mode runs once per step for the batch
     and its matrix mode never; otherwise (100 slots) neither. The NMS
     kernel (the batch's proposals) and the anchor match kernel run once a
-    step; their launches are returned last. The peak ``max_memory_allocated`` of the run is
+    step; their launches are returned next, then the FrozenBN kernels'
+    (forward, backward): 53 and 42 a FPN step, none in legacy. The peak ``max_memory_allocated`` of the run is
     printed; for a dense scene also the stages of ``DENSE_SPLIT_STEPS``
     more steps (``train_stage_rows``) and propose + targets' share."""
     dtype = set_numerics(dtype_name)
@@ -1800,6 +1968,9 @@ def run_train(
     iou = counts.pop(boxes_mod.iou_match_cuda.__name__)
     matrix = counts.pop(boxes_mod.pairwise_iou_cuda.__name__)
     rpn = counts.pop(RPN_MATCH_KERNEL.__name__)
+    bn = tuple(counts.pop(k.__name__) for k in FROZEN_BN_KERNELS)
+    want_bn = (FROZEN_BN_SITES * TRAIN_STEPS, FROZEN_BN_GRAD_SITES * TRAIN_STEPS) if generation == "fpn" else (0, 0)
+    _require(bn == want_bn, f"{name} train: FrozenBN launches (forward, backward) {bn}, want {want_bn}")
     _require(len(losses) == TRAIN_STEPS, f"{len(losses)} of {TRAIN_STEPS} losses logged")
     _require(bool(np.isfinite(losses).all()), f"{name} train: non-finite loss {losses}")
     first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
@@ -1825,7 +1996,7 @@ def run_train(
         f"{f' gt slots {dense_max_gt(generation)}' if dense else ''}: "
         f"{TRAIN_BATCH * len(steady) / sum(steady):.2f} img/s over steps 6-{TRAIN_STEPS} "
         f"(step p50 {1000 * timer.p50():.1f} ms), mean loss steps 1-5 {first:.4f} -> "
-        f"16-20 {last:.4f}, launches fwd {fwd} bwd {bwd} iou {iou} nms {nms} rpn_match {rpn}, other "
+        f"16-20 {last:.4f}, launches fwd {fwd} bwd {bwd} iou {iou} nms {nms} rpn_match {rpn} FrozenBN {bn}, other "
         f"kernels {counts}, "
         f"peak max_memory_allocated {peak_gib:.2f} GiB",
         flush=True,
@@ -1844,7 +2015,7 @@ def run_train(
             f"{med[-1]:.2f}; propose+targets {targets_ms:.2f}, share {targets_ms / med[-1]:.3f}",
             flush=True,
         )
-    return fwd, bwd, iou, nms, rpn
+    return fwd, bwd, iou, nms, rpn, bn
 
 
 def check_dense_targets_kernel_vs_plain(device, generation: str = "legacy") -> None:
@@ -2162,13 +2333,14 @@ def _fpn_loader(seed: int, n: int = FPN_IMAGES) -> SyntheticImages:
     return loader
 
 
-def run_fpn_predict(device) -> tuple[int, int, dict]:
+def run_fpn_predict(device) -> tuple[int, int, int, dict]:
     """Full-width FPN predict in float32 and bfloat16, counts reset just
-    before and read just after each: one align launch and two NMS launches
-    (proposals, per-class) per predict call, no RoIPool launch, at least
-    one detection per image. Returns the align and NMS launches of both
-    runs and the float32 detections."""
-    launches = nms_launches = 0
+    before and read just after each: one align launch, two NMS launches
+    (proposals, per-class) and 53 FrozenBN launches per predict call, no
+    RoIPool launch and no FrozenBN backward, at least one detection per
+    image. Returns the align, NMS and FrozenBN launches of both runs and
+    the float32 detections."""
+    launches = nms_launches = bn_launches = 0
     detections = {}
     for dtype_name in ("float32", "bfloat16"):
         model = _new_model("fpn")
@@ -2178,13 +2350,18 @@ def run_fpn_predict(device) -> tuple[int, int, dict]:
         roi_align_mod.multiscale_roi_align_cuda.launches = 0
         roi_pool_mod.roi_pool_cuda.launches = 0
         NMS_KERNEL.launches = 0
-        for k in TARGET_KERNELS:
+        for k in (*TARGET_KERNELS, *FROZEN_BN_KERNELS):
             k.launches = 0
         result, counts = run_predict(model, dtype_name, device, loader, "fpn")
         align = roi_align_mod.multiscale_roi_align_cuda.launches
         pool = roi_pool_mod.roi_pool_cuda.launches
         nms = NMS_KERNEL.launches
+        bn = tuple(k.launches for k in FROZEN_BN_KERNELS)
         calls = len(loader.batches)
+        _require(
+            bn == (FROZEN_BN_SITES * calls, 0),
+            f"{dtype_name} FPN predict: FrozenBN launches (forward, backward) {bn} for {calls} calls",
+        )
         _require(nms == 2 * calls, f"{dtype_name} FPN predict: {nms} NMS launches for {calls} calls")
         _require(align == calls, f"{dtype_name} FPN predict: {align} align launches for {calls} calls")
         _require(pool == 0, f"{dtype_name} FPN predict launched RoIPool {pool} times")
@@ -2193,18 +2370,19 @@ def run_fpn_predict(device) -> tuple[int, int, dict]:
         _require(min(counts) > 0, f"{dtype_name} FPN predict: an image without detections {counts}")
         launches += align
         nms_launches += nms
+        bn_launches += bn[0]
         with torch.no_grad():
             images = torch.from_numpy(loader.batches[0]["image"]).to(device)
             feats = model.features(images.permute(0, 3, 1, 2).to(next(model.parameters()).dtype))
         print(
             f"  P2..P6 std ({dtype_name}): "
             + " ".join(f"{float(f.float().std()):.3f}" for f in feats)
-            + f"; align launches {align} for {calls} predict calls, NMS {nms}, RoIPool {pool}",
+            + f"; align launches {align} for {calls} predict calls, NMS {nms}, RoIPool {pool}, FrozenBN {bn[0]}",
             flush=True,
         )
         if dtype_name == "float32":
             detections = result["detections"]
-    return launches, nms_launches, detections
+    return launches, nms_launches, bn_launches, detections
 
 
 # (the call sites of ops/nms.py: what, segments, n, post_k, threshold, the plain sweep's tile)
@@ -2660,12 +2838,15 @@ ALL_KERNELS = (
     *TARGET_KERNELS,
     roi_align_mod.multiscale_roi_align_slots_cuda,
     NMS_KERNEL,
+    *FROZEN_BN_KERNELS,
 )
 
 
 # The main paths' kernels: every kernel but the slot-lattice align, whose
 # count is never reset after phase 2.
-PATH_KERNELS = (*_head_kernels("legacy"), *_head_kernels("fpn"), *TARGET_KERNELS, NMS_KERNEL)
+PATH_KERNELS = (
+    *_head_kernels("legacy"), *_head_kernels("fpn"), *TARGET_KERNELS, NMS_KERNEL, *FROZEN_BN_KERNELS,
+)
 
 
 def _require_rpn_match_a_step(what: str, counts: dict, steps: int | None = None) -> int:
@@ -3507,10 +3688,10 @@ def check_fpn_dense(device) -> dict:
     counts = {k.__name__: 0 for k in ALL_KERNELS}
     fwd_k, bwd_k = _head_kernels("fpn")
     for dtype_name in ("float32", "bfloat16"):
-        fwd, bwd, iou, nms, rpn = run_train(dtype_name, device, "fpn", dense=True)
+        fwd, bwd, iou, nms, rpn, bn = run_train(dtype_name, device, "fpn", dense=True)
         for k, n in (
             (fwd_k, fwd), (bwd_k, bwd), (boxes_mod.iou_match_cuda, iou), (NMS_KERNEL, nms),
-            (RPN_MATCH_KERNEL, rpn),
+            (RPN_MATCH_KERNEL, rpn), *zip(FROZEN_BN_KERNELS, bn),
         ):
             counts[k.__name__] += n
     check_dense_targets_kernel_vs_plain(device, "fpn")
@@ -3635,6 +3816,7 @@ def main() -> int:
     check_align_footprint_edges(device)
     roi_align_mod.multiscale_roi_align_slots_cuda.launches = 0
     nms_record = check_nms_kernel(device)
+    frozen_bn_record = check_frozen_bn_kernel(device)
 
     launches = nms_launches = 0
     detections = {}
@@ -3645,12 +3827,15 @@ def main() -> int:
         loader = SyntheticImages(N_IMAGES, CANVAS, SEED)
         roi_pool_mod.roi_pool_cuda.launches = 0
         NMS_KERNEL.launches = 0
-        for k in TARGET_KERNELS:
+        for k in (*TARGET_KERNELS, *FROZEN_BN_KERNELS):
             k.launches = 0
         result, counts = run_predict(model, dtype_name, device, loader)
         count = roi_pool_mod.roi_pool_cuda.launches
         nms = NMS_KERNEL.launches
         _require(count > 0, f"{dtype_name} predict never launched the RoIPool kernel")
+        _require(
+            not any(k.launches for k in FROZEN_BN_KERNELS), f"{dtype_name} legacy predict launched a FrozenBN kernel"
+        )
         _require(nms == 2 * N_IMAGES, f"{dtype_name} predict: {nms} NMS launches for {N_IMAGES} calls")
         nms_launches += nms
         _require(_target_launches() == 0, f"{dtype_name} predict launched a train-target kernel")
@@ -3677,8 +3862,10 @@ def main() -> int:
 
     bwd_launches = 0
     rpn_record["launches"] = 0  # phases 6, 12, 15, 21-23, 25, 27, 28: once a train step
+    # phases 9, 12, 21-28 (53 a ResNet50 forward, 42 a FPN step's backward; none in legacy)
+    frozen_bn_record["launches"] = frozen_bn_record["backward_launches"] = 0
     for dtype_name in ("float32", "bfloat16"):
-        fwd, bwd, _, nms, rpn = run_train(dtype_name, device)
+        fwd, bwd, _, nms, rpn, _ = run_train(dtype_name, device)
         launches += fwd
         bwd_launches += bwd
         nms_launches += nms
@@ -3689,7 +3876,7 @@ def main() -> int:
     check_train_step_kernel_vs_plain(device)
     check_small_input_train_reference(device)
 
-    align_record["launches"], nms, fpn_detections = run_fpn_predict(device)
+    align_record["launches"], nms, frozen_bn_record["launches"], fpn_detections = run_fpn_predict(device)
     nms_launches += nms
     fpn_loader = _fpn_loader(SEED + 5)
     roi_align_mod.multiscale_roi_align_cuda.launches = 0
@@ -3708,9 +3895,11 @@ def main() -> int:
 
     align_bwd_record["launches"] = 0
     for dtype_name in ("float32", "bfloat16"):
-        fwd, bwd, _, nms, rpn = run_train(dtype_name, device, "fpn")
+        fwd, bwd, _, nms, rpn, bn = run_train(dtype_name, device, "fpn")
         align_record["launches"] += fwd
         align_bwd_record["launches"] += bwd
+        frozen_bn_record["launches"] += bn[0]
+        frozen_bn_record["backward_launches"] += bn[1]
         nms_launches += nms
         rpn_record["launches"] += rpn
     check_train_step_kernel_vs_plain(device, "fpn")
@@ -3718,7 +3907,7 @@ def main() -> int:
 
     iou_record["launches"] = 0
     for dtype_name in ("float32", "bfloat16"):
-        fwd, bwd, iou, nms, rpn = run_train(dtype_name, device, dense=True)
+        fwd, bwd, iou, nms, rpn, _ = run_train(dtype_name, device, dense=True)
         record["launches"] += fwd
         bwd_record["launches"] += bwd
         iou_record["launches"] += iou
@@ -3763,8 +3952,10 @@ def main() -> int:
             (rpn_record, (RPN_MATCH_KERNEL,)),
             (slots_record, (roi_align_mod.multiscale_roi_align_slots_cuda,)),
             (nms_record, (NMS_KERNEL,)),
+            (frozen_bn_record, (frozen_bn_mod.frozen_bn_cuda,)),
         ):
             rec["launches"] += sum(counts[k.__name__] for k in kernels)
+        frozen_bn_record["backward_launches"] += counts[frozen_bn_mod.frozen_bn_backward_cuda.__name__]
     _require(slots_record["launches"] == 0, "a phase after 20 launched the slot-lattice align kernel")
     print(
         f"launches: phase 21 {phase21}; phase 22 {phase22}; phase 23 {phase23}; phase 25 {phase25}; "
@@ -3781,7 +3972,7 @@ def main() -> int:
             {
                 "kernels": [
                     record, bwd_record, align_record, align_bwd_record, iou_record, slots_record,
-                    nms_record, rpn_record,
+                    nms_record, rpn_record, frozen_bn_record,
                 ]
             }
         ),

@@ -10,7 +10,12 @@ so its state dict loads with ``strict=True``.
   and computes ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in that
   order, with the fold ``rsqrt(var + eps) * scale`` in float32 and cast to
   the activations' dtype afterwards, as the JAX module does (not
-  torchvision's ``x * scale + (bias - mean * scale)``).
+  torchvision's ``x * scale + (bias - mean * scale)``). A site's
+  residual add and ReLU, where it has them, are arguments of the same call
+  (``relu=``, ``residual=``, fixed by :class:`Bottleneck` and the stem):
+  ``ops/frozen_bn.py`` runs the whole site as one hand-written kernel on a
+  card (the eager chain's values, bit for bit) and as the eager chain on
+  the CPU.
 * The stride of a down-sampling bottleneck is on its 3x3 conv.
 * The FPN's top-down path upsamples with ``nearest-exact``: the JAX
   package's ``jax.image.resize(..., "nearest")`` samples
@@ -35,6 +40,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from faster_rcnn_pytorch_tpu_torch.ops.frozen_bn import frozen_bn
+
 STAGE_SIZES = (3, 4, 6, 3)
 
 
@@ -53,13 +60,14 @@ class FrozenBatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
         self.register_buffer("num_batches_tracked", torch.zeros((), dtype=torch.int64))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, residual: torch.Tensor | None = None, relu: bool = False
+    ) -> torch.Tensor:
+        """``relu?((x - mean) * inv + bias (+ residual))``, the vectors
+        cast to ``x``'s dtype, ``inv = rsqrt(var + eps) * weight`` in
+        float32."""
         inv = torch.rsqrt(self.running_var.float() + self.eps) * self.weight.float()
-
-        def col(t):
-            return t.to(x.dtype)[None, :, None, None]
-
-        return (x - col(self.running_mean)) * col(inv) + col(self.bias)
+        return frozen_bn(x, self.running_mean, inv, self.bias, residual, relu)
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
@@ -90,11 +98,11 @@ class Bottleneck(nn.Module):
         return self._forward(x)
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.relu(self.bn1(self.conv1(x)))
-        y = torch.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
+        y = self.bn1(self.conv1(x), relu=True)
+        y = self.bn2(self.conv2(y), relu=True)
+        y = self.conv3(y)
         residual = x if self.downsample is None else self.downsample(x)
-        return torch.relu(y + residual)
+        return self.bn3(y, residual, relu=True)
 
 
 class ResNet50(nn.Module):
@@ -115,7 +123,7 @@ class ResNet50(nn.Module):
             self.add_module(f"layer{stage + 1}", nn.Sequential(*layers))
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
-        x = torch.relu(self.bn1(self.conv1(x)))
+        x = self.bn1(self.conv1(x), relu=True)
         x = F.max_pool2d(x, 3, stride=2, padding=1).detach()  # frozen stem
         feats = []
         for stage in range(len(STAGE_SIZES)):

@@ -14,6 +14,7 @@ import threading
 
 _SOURCES = (
     "roi_pool.cu", "roi_align.cu", "roi_align_slots.cu", "iou.cu", "nms.cu", "anchor_match.cu",
+    "frozen_bn.cu",
     "binding.cpp",
 )
 _BUILD_DIR = os.path.join(

@@ -1,8 +1,8 @@
 // PyTorch binding of the kernels in roi_pool.cu, roi_align.cu,
-// roi_align_slots.cu, iou.cu, nms.cu and anchor_match.cu. The only source that includes
-// PyTorch's headers; it checks the tensors the Python wrappers allocated (the
-// IoU and NMS kernels' outputs it allocates itself) and launches on the
-// current CUDA stream.
+// roi_align_slots.cu, iou.cu, nms.cu, anchor_match.cu and frozen_bn.cu. The
+// only source that includes PyTorch's headers; it checks the tensors the
+// Python wrappers allocated (the IoU, NMS and FrozenBN kernels' outputs it
+// allocates itself) and launches on the current CUDA stream.
 
 #include <torch/extension.h>
 
@@ -55,6 +55,13 @@ int nms_segments_shared_bytes(int share);
 int nms_segments_max_active_clusters(int width, int share);
 int nms_segments_launch(const float* boxes, const bool* valid, int segments, int n, float thr,
                         int post_k, int width, int32_t* keep, int32_t* count, void* stream);
+int frozen_bn_forward_launch(const void* x, const void* residual, const float* mean,
+                             const float* inv, const float* bias, bool is_bf16, bool relu,
+                             int64_t planes, int channels, int64_t plane, void* out,
+                             void* stream);
+int frozen_bn_backward_launch(const void* grad, const void* out, const float* inv,
+                              bool is_bf16, int64_t planes, int channels, int64_t plane,
+                              void* dx, void* dresidual, void* stream);
 
 static constexpr float kAlignScales[4] = {1.0f / 4, 1.0f / 8, 1.0f / 16, 1.0f / 32};
 
@@ -453,6 +460,87 @@ void roi_align_backward(const at::Tensor& grad, const at::Tensor& rois, const at
   TORCH_CHECK(err == 0, "roi_align_backward launch failed: ", roi_pool_error_string(err));
 }
 
+// An activation as the FrozenBN kernels read it: a CUDA [B, C, H, W] tensor
+// of float32 or bfloat16, made contiguous; `like`, where given, fixes its
+// device, dtype and shape.
+static at::Tensor bn_activation(const at::Tensor& t, const at::Tensor* like, const char* what) {
+  TORCH_CHECK(t.is_cuda() && t.dim() == 4, "frozen_bn: ", what,
+              " must be a CUDA [B, C, H, W] tensor");
+  TORCH_CHECK(t.scalar_type() == at::kFloat || t.scalar_type() == at::kBFloat16,
+              "frozen_bn: ", what, " must be float32 or bfloat16");
+  if (like != nullptr) {
+    TORCH_CHECK(t.get_device() == like->get_device() && t.scalar_type() == like->scalar_type() &&
+                    t.sizes() == like->sizes(),
+                "frozen_bn: ", what, " must match x's device, dtype and shape");
+  }
+  return t.contiguous();
+}
+
+// A per-channel vector [C] on x's device, as float32 (the kernels round it
+// to x's dtype, as the eager chain's cast does).
+static at::Tensor bn_vector(const at::Tensor& t, const at::Tensor& x, const char* what) {
+  TORCH_CHECK(t.is_cuda() && t.get_device() == x.get_device() && t.dim() == 1 &&
+                  t.size(0) == x.size(1),
+              "frozen_bn: ", what, " must be a [C] vector on x's device");
+  return t.to(at::kFloat).contiguous();
+}
+
+static void check_bn_sizes(const at::Tensor& x) {
+  TORCH_CHECK(x.size(1) > 0 && x.size(1) < (int64_t{1} << 31) &&
+                  x.size(0) * x.size(1) < (int64_t{1} << 31) &&
+                  x.size(2) * x.size(3) <= int64_t{65535} * 2048,
+              "frozen_bn: a [", x.size(0), ", ", x.size(1), ", ", x.size(2), ", ", x.size(3),
+              "] activation is too large for the kernel's grid");
+}
+
+// x [B, C, H, W] float32/bfloat16, mean, inv, bias [C] (cast to float32),
+// residual like x or None (given, relu too) -> y like x:
+// ops/frozen_bn.py::frozen_bn_reference's chain, one pass.
+at::Tensor frozen_bn_forward(const at::Tensor& x_in, const at::Tensor& mean, const at::Tensor& inv,
+                             const at::Tensor& bias, const c10::optional<at::Tensor>& residual_in,
+                             bool relu) {
+  TORCH_CHECK(relu || !residual_in, "frozen_bn: a site with a residual has a ReLU");
+  const at::Tensor x = bn_activation(x_in, nullptr, "x");
+  const at::Tensor residual =
+      residual_in ? bn_activation(*residual_in, &x, "residual") : at::Tensor();
+  const at::Tensor m = bn_vector(mean, x, "mean"), k = bn_vector(inv, x, "inv"),
+                   b = bn_vector(bias, x, "bias");
+  check_bn_sizes(x);
+  const c10::cuda::CUDAGuard guard(x.device());
+  at::Tensor out = at::empty_like(x, at::MemoryFormat::Contiguous);
+  const int err = frozen_bn_forward_launch(
+      x.data_ptr(), residual.defined() ? residual.data_ptr() : nullptr, m.data_ptr<float>(),
+      k.data_ptr<float>(), b.data_ptr<float>(), x.scalar_type() == at::kBFloat16, relu,
+      x.size(0) * x.size(1), static_cast<int>(x.size(1)), x.size(2) * x.size(3), out.data_ptr(),
+      static_cast<void*>(at::cuda::getCurrentCUDAStream()));
+  TORCH_CHECK(err == 0, "frozen_bn_forward launch failed: ", roi_pool_error_string(err));
+  return out;
+}
+
+// grad [B, C, H, W] float32/bfloat16, out (the site's output, for a ReLU
+// site) like grad or None, inv [C] -> (dx like grad, and with residual_grad,
+// which needs out, the residual's gradient, else None).
+std::tuple<at::Tensor, at::Tensor> frozen_bn_backward(const at::Tensor& grad_in,
+                                                      const c10::optional<at::Tensor>& out_in,
+                                                      const at::Tensor& inv, bool residual_grad) {
+  TORCH_CHECK(out_in || !residual_grad, "frozen_bn: a site with a residual has a ReLU");
+  const at::Tensor grad = bn_activation(grad_in, nullptr, "grad");
+  const at::Tensor out = out_in ? bn_activation(*out_in, &grad, "out") : at::Tensor();
+  const at::Tensor k = bn_vector(inv, grad, "inv");
+  check_bn_sizes(grad);
+  const c10::cuda::CUDAGuard guard(grad.device());
+  at::Tensor dx = at::empty_like(grad, at::MemoryFormat::Contiguous);
+  at::Tensor dresidual = residual_grad ? at::empty_like(dx) : at::Tensor();
+  const int err = frozen_bn_backward_launch(
+      grad.data_ptr(), out.defined() ? out.data_ptr() : nullptr, k.data_ptr<float>(),
+      grad.scalar_type() == at::kBFloat16, grad.size(0) * grad.size(1),
+      static_cast<int>(grad.size(1)), grad.size(2) * grad.size(3), dx.data_ptr(),
+      residual_grad ? dresidual.data_ptr() : nullptr,
+      static_cast<void*>(at::cuda::getCurrentCUDAStream()));
+  TORCH_CHECK(err == 0, "frozen_bn_backward launch failed: ", roi_pool_error_string(err));
+  return {dx, dresidual};
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("roi_pool_forward", &roi_pool_forward,
         "RoIPool forward into preallocated outputs (CUDA)");
@@ -479,4 +567,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("empty_kernel", &empty_kernel, "An empty kernel: the launch floor (CUDA)");
   m.def("roi_align_backward", &roi_align_backward,
         "MultiScaleRoIAlign features-gradient, atomically added into zeroed float32 maps (CUDA)");
+  m.def("frozen_bn_forward", &frozen_bn_forward,
+        "FrozenBatchNorm2d, plus the residual add and the ReLU where given, one pass (CUDA)");
+  m.def("frozen_bn_backward", &frozen_bn_backward,
+        "FrozenBatchNorm2d's gradient after the ReLU's mask, and the residual's (CUDA)");
 }

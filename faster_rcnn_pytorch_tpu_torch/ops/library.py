@@ -16,7 +16,12 @@ version on the card too.
   (``ops/roi_pool.py``);
 * ``frcnn::multiscale_roi_align``: MultiScaleRoIAlign forward over P2..P5
   (``ops/roi_align.py``);
-* ``frcnn::nms_segments``: segmented exact greedy NMS (``ops/nms.py``).
+* ``frcnn::nms_segments``: segmented exact greedy NMS (``ops/nms.py``);
+* ``frcnn::frozen_bn``: FrozenBatchNorm2d with its residual add and ReLU
+  (``ops/frozen_bn.py``), 53 calls a ResNet50 forward. It is defined
+  through ``torch.library.Library``, whose Python kernels cost under half
+  of ``custom_op``'s host time a call, and has no ``plain`` argument: its
+  plain version is called by name where a caller wants it on a card.
 
 Import this module before ``torch.export.load`` reads an artifact that
 calls them (``serving.load_artifact`` does). The implementations import
@@ -129,3 +134,33 @@ def _nms_fake(boxes, valid, iou_threshold, post_k, tile, plain):
         boxes.new_empty((s, post_k), dtype=torch.int32),
         boxes.new_empty((s,), dtype=torch.int32),
     )
+
+
+_lib = torch.library.Library("frcnn", "FRAGMENT")
+_lib.define(
+    "frozen_bn(Tensor x, Tensor mean, Tensor inv, Tensor bias, Tensor? residual, bool relu)"
+    " -> Tensor"
+)
+
+
+def _frozen_bn_cpu(x, mean, inv, bias, residual, relu):
+    """``x [B, C, H, W]``, ``mean``, ``inv``, ``bias`` ``[C]``, ``residual``
+    like ``x`` or None -> ``relu?((x - mean) * inv + bias (+ residual))``."""
+    from faster_rcnn_pytorch_tpu_torch.ops.frozen_bn import frozen_bn_reference
+
+    return frozen_bn_reference(x, mean, inv, bias, residual, relu).contiguous()
+
+
+def _frozen_bn_cuda(x, mean, inv, bias, residual, relu):
+    from faster_rcnn_pytorch_tpu_torch.ops.frozen_bn import frozen_bn_cuda
+
+    return frozen_bn_cuda(x, mean, inv, bias, residual, relu)
+
+
+_lib.impl("frozen_bn", _frozen_bn_cpu, "CPU")
+_lib.impl("frozen_bn", _frozen_bn_cuda, "CUDA")
+
+
+@torch.library.register_fake("frcnn::frozen_bn", lib=_lib)
+def _frozen_bn_fake(x, mean, inv, bias, residual, relu):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
