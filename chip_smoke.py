@@ -112,8 +112,9 @@ CUDA card, builds the port's kernels from the sources in the checkout
    float32 (TF32 off) and bfloat16, with the kernels' launch counts reset
    just before and read just after; the NMS kernel runs twice a call
    (proposals, per-class), the IoU and FrozenBN kernels never.
-4. predict vs plain: the same float32 predict with RoIPool and NMS forced
-   to the plain versions must give identical detections.
+4. predict vs plain: the same float32 predict under
+   ``ops.library.plain_versions()``, every op its plain version (no kernel
+   launches), must give identical detections.
 5. small-input predict reference: GPU float32 predict against the CPU plain
    path on a 128x192 canvas, greedy-matched (label, IoU >= 0.99, 99%
    matched, score and box |d| <= 1e-4).
@@ -126,7 +127,8 @@ CUDA card, builds the port's kernels from the sources in the checkout
    and FrozenBN kernels never, every loss is
    finite and the mean loss of steps 16-20 is below that of steps 1-5.
 7. train step vs plain: one float32 step from the same weights and noise
-   through the kernels and through plain RoIPool and NMS: identical losses;
+   through the kernels and, forward and backward, under
+   ``plain_versions()`` (no kernel launches): identical losses;
    parameter gradients within 1e-5 * max|g| per tensor for the RPN and the
    head, 2e-4 for the backbone convs, whose gradients sum the reordered
    atomics of the RoIPool backward over the whole map (the run-to-run
@@ -148,8 +150,9 @@ CUDA card, builds the port's kernels from the sources in the checkout
    53 times (each site of the ResNet50 trunk), RoIPool, IoU and the
    FrozenBN backward never;
    every image has a detection; the std of P2..P6 is printed.
-10. FPN predict vs plain: the same float32 predict with the plain align and
-   NMS must give identical detections.
+10. FPN predict vs plain: the same float32 predict under
+   ``plain_versions()`` (the plain align, NMS and FrozenBN; no kernel
+   launches) must give identical detections.
 11. small-input FPN reference: GPU float32 FPN predict against the CPU
    plain path at 208x240, greedy-matched as in phase 5.
 12. main path, FPN train: 20 steps of the ResNet50-FPN train step (91
@@ -162,8 +165,9 @@ CUDA card, builds the port's kernels from the sources in the checkout
    (layers 2-4), RoIPool and IoU never; every loss is finite and the mean of steps 16-20 is below that
    of steps 1-5.
 13. FPN train step vs plain: one float32 step from the same weights and
-   noise through the align and NMS kernels and through the plain align
-   (forward and backward) and NMS: identical losses; gradients within 1e-5 * max|g| per
+   noise through the kernels and under ``plain_versions()`` (the plain
+   align, NMS, anchor match and FrozenBN, forward and backward; no kernel
+   launches): identical losses; gradients within 1e-5 * max|g| per
    tensor (the backbone and FPN convs sum the reordered atomics of the
    align backward; two kernel runs' spread is printed beside it);
    ``conv1`` and ``layer1`` get no gradient,
@@ -183,8 +187,9 @@ CUDA card, builds the port's kernels from the sources in the checkout
    propose + targets' share of the step.
 16. dense step vs plain: one float32 dense step from the same weights and
    noise through the IoU match, NMS and anchor match kernels (one launch
-   each) and with ``plain=True`` (none): identical RPN and RoI targets
-   (rois, labels, is_pos, valid, reg targets) and losses.
+   each) and under ``plain_versions()`` (no kernel launches): identical
+   RPN and RoI targets (rois, labels, is_pos, valid, reg targets) and
+   losses.
 17. sync-free predict: full-width bfloat16 predict, legacy at batch 1 and
    FPN at batch 2, the canvas anchors already on the device, under
    ``torch.cuda.set_sync_debug_mode("error")``: it must not raise.
@@ -284,7 +289,7 @@ CUDA card, builds the port's kernels from the sources in the checkout
    losses finite and falling), peak memory and
    the stage split
    printed beside phase 15's; then one float32 step through the kernels
-   and with ``plain=True``: identical RPN and RoI targets and losses.
+   and under ``plain_versions()``: identical RPN and RoI targets and losses.
 28. main path, shapes-VOC training through the port's ``main``:
    ``tools/make_shapes_voc.py`` (a subprocess) writes 800 train and 160
    test scenes under ``build/chip_smoke_shapes/`` (removed after); each
@@ -368,6 +373,7 @@ from faster_rcnn_pytorch_tpu_torch.ops import nms as nms_mod
 from faster_rcnn_pytorch_tpu_torch.ops import roi_align as roi_align_mod
 from faster_rcnn_pytorch_tpu_torch.ops import roi_pool as roi_pool_mod
 from faster_rcnn_pytorch_tpu_torch.ops.cuda import extension
+from faster_rcnn_pytorch_tpu_torch.ops.library import plain_versions
 from faster_rcnn_pytorch_tpu_torch.parallel.train_step import (
     apply_gradients,
     init_train_state,
@@ -2021,10 +2027,10 @@ def run_train(
 def check_dense_targets_kernel_vs_plain(device, generation: str = "legacy") -> None:
     """One float32 dense-scene step of ``generation`` (phase 16: legacy at
     512 gt slots; phase 27: FPN at 640) from the same weights and noise
-    through the kernels and through ``plain=True``: identical RPN and RoI
-    targets (rois, labels, is_pos, valid, reg targets), one launch each of
-    the IoU match mode, the NMS kernel and the anchor match kernel for the
-    batch against none, and identical losses."""
+    through the kernels and under ``plain_versions()``: identical RPN and
+    RoI targets (rois, labels, is_pos, valid, reg targets), one launch each
+    of the IoU match mode, the NMS kernel and the anchor match kernel for
+    the batch against no launch of any kernel, and identical losses."""
     set_numerics("float32")
     cfg, labels = _train_setup(generation)
     max_gt = dense_max_gt(generation)
@@ -2044,15 +2050,14 @@ def check_dense_targets_kernel_vs_plain(device, generation: str = "legacy") -> N
     targets = []
     for plain in (False, True):
         before = tuple(k.launches for k in kernels)
-        targets.append(
-            train_targets(
-                cfg, anchors, rpn_cls, rpn_reg, *(batch[k] for k in BATCH_KEYS[1:]), noise, plain=plain
+        with _versions(plain, "dense train_targets"):
+            targets.append(
+                train_targets(cfg, anchors, rpn_cls, rpn_reg, *(batch[k] for k in BATCH_KEYS[1:]), noise)
             )
-        )
-        torch.cuda.synchronize()
-        after = tuple(k.launches for k in kernels)
-        want = before if plain else tuple(b + 1 for b in before)
-        _require(after == want, f"IoU match, NMS and anchor match launches {before} -> {after} (plain={plain})")
+        if not plain:
+            after = tuple(k.launches for k in kernels)
+            want = tuple(b + 1 for b in before)
+            _require(after == want, f"IoU match, NMS and anchor match launches {before} -> {after}")
     (k_rpn, k_roi), (p_rpn, p_roi) = targets
     for field in RoITargets._fields:
         _require(torch.equal(getattr(k_roi, field), getattr(p_roi, field)), f"RoI targets differ in {field}")
@@ -2061,11 +2066,12 @@ def check_dense_targets_kernel_vs_plain(device, generation: str = "legacy") -> N
     losses = []
     for plain in (False, True):
         before = tuple(k.launches for k in kernels)
-        out = forward_train(model, cfg, *(batch[k] for k in BATCH_KEYS), noise=noise, plain=plain)
-        torch.cuda.synchronize()
-        after = tuple(k.launches for k in kernels)
-        want = before if plain else tuple(b + 1 for b in before)
-        _require(after == want, f"forward_train IoU match, NMS and anchor match launches {before} -> {after}")
+        with _versions(plain, "dense forward_train"):
+            out = forward_train(model, cfg, *(batch[k] for k in BATCH_KEYS), noise=noise)
+        if not plain:
+            after = tuple(k.launches for k in kernels)
+            want = tuple(b + 1 for b in before)
+            _require(after == want, f"forward_train IoU match, NMS and anchor match launches {before} -> {after}")
         losses.append(_loss_vector(out))
     _require(torch.equal(*losses), f"dense losses differ: {losses[0].tolist()} vs {losses[1].tolist()}")
     n_real = batch["gt_mask"].sum(1).tolist()
@@ -2104,10 +2110,10 @@ def _grad_rel_errors(got: dict, want: dict) -> dict:
 
 
 def check_train_step_kernel_vs_plain(device, generation: str = "legacy") -> None:
-    """One float32 step through the kernels, through the plain head ops
-    (forward and backward), and through the kernels again (the run-to-run
-    spread of the atomics). For FPN, the frozen stages then take one SGD
-    step of weight decay alone."""
+    """One float32 step through the kernels, under ``plain_versions()``
+    (forward and backward; no kernel launches), and through the kernels
+    again (the run-to-run spread of the atomics). For FPN, the frozen
+    stages then take one SGD step of weight decay alone."""
     set_numerics("float32")
     cfg, labels = _train_setup(generation)
     model = _new_model(generation).to(device)
@@ -2121,12 +2127,13 @@ def check_train_step_kernel_vs_plain(device, generation: str = "legacy") -> None
     for plain in (False, True, False):
         model.zero_grad(set_to_none=True)
         before = (fwd_k.launches, bwd_k.launches, NMS_KERNEL.launches)
-        out = forward_train(model, cfg, *(batch[k] for k in BATCH_KEYS), noise=noise, plain=plain)
-        out.losses.total.backward()
-        torch.cuda.synchronize()
-        after = (fwd_k.launches, bwd_k.launches, NMS_KERNEL.launches)
-        want = before if plain else tuple(b + 1 for b in before)
-        _require(after == want, f"launches {before} -> {after} (plain={plain})")
+        with _versions(plain, f"{generation} train step"):
+            out = forward_train(model, cfg, *(batch[k] for k in BATCH_KEYS), noise=noise)
+            out.losses.total.backward()
+        if not plain:
+            torch.cuda.synchronize()
+            after = (fwd_k.launches, bwd_k.launches, NMS_KERNEL.launches)
+            _require(after == tuple(b + 1 for b in before), f"launches {before} -> {after}")
         runs.append((_loss_vector(out), _grads(model)))
     (k_loss, k_grads), (p_loss, p_grads), (_, k2_grads) = runs
     _require(torch.equal(k_loss, p_loss), f"losses differ: {k_loss.tolist()} vs {p_loss.tolist()}")
@@ -2143,7 +2150,7 @@ def check_train_step_kernel_vs_plain(device, generation: str = "legacy") -> None
         _require(rel <= tol, f"{name}: max|d| / max|g| = {rel} > {tol} (kernel vs plain)")
     print(
         f"train step {generation} float32 {CANVAS[0]}x{CANVAS[1]}: losses identical with the "
-        f"kernels and with the plain head ops and NMS ({', '.join(f'{v:.5f}' for v in k_loss.tolist())})",
+        f"kernels and with the plain versions ({', '.join(f'{v:.5f}' for v in k_loss.tolist())})",
         flush=True,
     )
     for label, errs in (("kernel vs plain", vs_plain), ("kernel vs kernel", vs_kernel)):
@@ -2271,10 +2278,10 @@ def _check_outputs(result: dict, loader: SyntheticImages, labels: tuple[int, int
     return counts
 
 
-def run_predict(model, dtype_name: str, device, loader, generation="legacy", plain=False):
+def run_predict(model, dtype_name: str, device, loader, generation="legacy", label=""):
     """One eval pass through ``evaluate``: legacy on VOC, fpn on the
-    loader's synthetic COCO index. Returns the result and the per-image
-    detection counts."""
+    loader's synthetic COCO index (``label`` tags its line). Returns the
+    result and the per-image detection counts."""
     dtype = set_numerics(dtype_name)
     model = prepare_for_inference(model, device, dtype)
     if generation == "legacy":
@@ -2282,12 +2289,10 @@ def run_predict(model, dtype_name: str, device, loader, generation="legacy", pla
     else:
         cfg, labels = FPN_CONFIG, (1, FPN_CLASSES - 1)
         kw = dict(data_type="coco", coco_index=loader.coco_index, label_map=lambda l: l + 1)
-    result = evaluate(
-        model, cfg, loader, score_threshold=THRESHOLD, plain=plain, verbose=False, **kw
-    )
+    result = evaluate(model, cfg, loader, score_threshold=THRESHOLD, verbose=False, **kw)
     counts = _check_outputs(result, loader, labels)
     print(
-        f"predict {generation} {dtype_name}{' plain' if plain else ''} "
+        f"predict {generation} {dtype_name}{label} "
         f"{loader.canvas[0]}x{loader.canvas[1]} batch {loader.batch_size}: "
         f"{result['n_images'] / result['seconds']:.2f} img/s, {sum(counts)} detections "
         f"({min(counts)}-{max(counts)} per image), mAP = {result['map']:.4f}",
@@ -2865,6 +2870,23 @@ def _require_rpn_match_a_step(what: str, counts: dict, steps: int | None = None)
 
 def _launch_counts() -> dict:
     return {k.__name__: k.launches for k in ALL_KERNELS}
+
+
+@contextlib.contextmanager
+def _versions(plain: bool, what: str):
+    """The kernels, or with ``plain`` every op's plain version
+    (``plain_versions()``), when ``what`` must then have launched no
+    kernel at all, FrozenBN's included."""
+    if not plain:
+        yield
+        return
+    before = _launch_counts()
+    with plain_versions():
+        yield
+    torch.cuda.synchronize()
+    after = _launch_counts()
+    moved = {k: after[k] - n for k, n in before.items() if after[k] != n}
+    _require(not moved, f"{what} under plain_versions() launched kernels: {moved}")
 
 
 def _rank_entry(phase: str, rank: int, world: int, backend: str, model_parallel: int, args) -> None:
@@ -3845,18 +3867,15 @@ def main() -> int:
             detections = result["detections"]
         launches += count
 
-    roi_pool_mod.roi_pool_cuda.launches = 0
-    NMS_KERNEL.launches = 0
-    plain, _ = run_predict(
-        _new_model(), "float32", device, SyntheticImages(N_IMAGES, CANVAS, SEED), plain=True
-    )
-    _require(roi_pool_mod.roi_pool_cuda.launches == 0, "the plain-RoIPool run launched the kernel")
-    _require(NMS_KERNEL.launches == 0, "the plain run launched the NMS kernel")
+    with _versions(True, "the plain legacy predict"):
+        plain, _ = run_predict(
+            _new_model(), "float32", device, SyntheticImages(N_IMAGES, CANVAS, SEED), label=" plain"
+        )
     _require(
         _detections_equal(plain["detections"], detections),
-        "float32 detections differ between the kernels and plain RoIPool and NMS",
+        "float32 detections differ between the kernels and the plain versions",
     )
-    print("float32 detections identical with the kernels and with plain RoIPool and NMS", flush=True)
+    print("float32 detections identical with the kernels and with the plain versions", flush=True)
 
     check_small_input_reference(device)
 
@@ -3879,18 +3898,13 @@ def main() -> int:
     align_record["launches"], nms, frozen_bn_record["launches"], fpn_detections = run_fpn_predict(device)
     nms_launches += nms
     fpn_loader = _fpn_loader(SEED + 5)
-    roi_align_mod.multiscale_roi_align_cuda.launches = 0
-    NMS_KERNEL.launches = 0
-    plain, _ = run_predict(_new_model("fpn"), "float32", device, fpn_loader, "fpn", plain=True)
-    _require(
-        roi_align_mod.multiscale_roi_align_cuda.launches == 0, "the plain-align run launched the kernel"
-    )
-    _require(NMS_KERNEL.launches == 0, "the plain FPN run launched the NMS kernel")
+    with _versions(True, "the plain FPN predict"):
+        plain, _ = run_predict(_new_model("fpn"), "float32", device, fpn_loader, "fpn", label=" plain")
     _require(
         _detections_equal(plain["detections"], fpn_detections),
-        "float32 FPN detections differ between the kernels and the plain align and NMS",
+        "float32 FPN detections differ between the kernels and the plain versions",
     )
-    print("float32 FPN detections identical with the kernels and with the plain align and NMS", flush=True)
+    print("float32 FPN detections identical with the kernels and with the plain versions", flush=True)
     check_small_input_reference(device, "fpn", FPN_SMALL_CANVAS)
 
     align_bwd_record["launches"] = 0

@@ -73,7 +73,6 @@ def evaluate(
     max_images: int | None = None,
     max_detections: int | None = None,
     dump_path: str | None = None,
-    plain: bool = False,
     verbose: bool = True,
     dtype: torch.dtype | None = None,
 ) -> dict:
@@ -91,9 +90,8 @@ def evaluate(
     ``loader.batch_size`` a batch, so every data rank stops at the same
     batch); only the images taken are scored. ``label_map`` maps
     a 0-based foreground label to the dataset's id (identity when None).
-    ``plain`` is for tests only (see :func:`predict`). ``dtype``: the
-    weights are cast to it for the pass and restored after it (the
-    float32 master weights of a train run stay as they were).
+    ``dtype``: the weights are cast to it for the pass and restored after
+    it (the float32 master weights of a train run stay as they were).
 
     Under data parallelism the loader's host batch (``.batch_size``
     rows; ``loader.rows`` when it already yields this rank's rows) must
@@ -132,7 +130,7 @@ def evaluate(
     for batch in _batches(loader, rows, inference_weights(model, dtype), max_images):
         images = torch.from_numpy(np.ascontiguousarray(batch["image"])).to(device)
         extents = torch.from_numpy(batch["extent"].astype(np.float32)).to(device)
-        det = predict(model, cfg, images, extents, score_threshold, plain=plain)
+        det = predict(model, cfg, images, extents, score_threshold)
         packed = pack_detections(det).cpu().numpy()
         for i in range(packed.shape[0]):
             boxes, labels, scores = detections_to_original_coords(packed, batch, i)

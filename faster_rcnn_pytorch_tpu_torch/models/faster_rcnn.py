@@ -231,14 +231,14 @@ class LegacyFRCNN(nn.Module):
     def rpn_out(self, feats: torch.Tensor):
         return self.rpn(feats)
 
-    def head(self, feats: torch.Tensor, rois: torch.Tensor, plain: bool = False):
+    def head(self, feats: torch.Tensor, rois: torch.Tensor, canvas_hw, stage: int = 0):
         """feats ``[B, 512, h, w]``, rois ``[B, S, 4]`` in [0, 1] ->
         float32 ``([B, S, C], [B, S, 4C])``. Rois are scaled to feature
-        cells before RoIPool. ``plain`` is for tests only: the plain
-        RoIPool in place of the kernel."""
+        cells before RoIPool, so the canvas ``canvas_hw`` is not needed,
+        and there is one stage: the arguments are :meth:`FPNFRCNN.head`'s."""
         _, _, fh, fw = feats.shape
         scaled = scale_columns(rois, (fw, fh, fw, fh))
-        pooled = roi_pool_batch(feats, scaled, 1.0, output_size=7, plain=plain)
+        pooled = roi_pool_batch(feats, scaled, 1.0, output_size=7)
         return self.fast_rcnn_head(pooled)
 
     def canvas_anchors(self, height: int, width: int):
@@ -294,14 +294,13 @@ class FPNFRCNN(nn.Module):
         outs = [self.rpn["rpn_head"](f) for f in feats]
         return torch.cat([o[0] for o in outs], 1), torch.cat([o[1] for o in outs], 1)
 
-    def head(self, feats, rois: torch.Tensor, canvas_hw, plain: bool = False, stage: int = 0):
+    def head(self, feats, rois: torch.Tensor, canvas_hw, stage: int = 0):
         """RoI head (``stage_heads()[stage]``) over P2..P5: rois ``[B, S,
         4]`` in [0, 1] are scaled by the canvas (w, h, w, h) to pixels for
-        MultiScaleRoIAlign. ``plain`` is for tests only: the plain align
-        in place of the kernel."""
+        MultiScaleRoIAlign."""
         h, w = canvas_hw
         scaled = scale_columns(rois, (w, h, w, h))
-        pooled = multiscale_roi_align_batch(feats[:4], scaled, plain=plain)
+        pooled = multiscale_roi_align_batch(feats[:4], scaled)
         return self.stage_heads()[stage](pooled)
 
     def stage_heads(self) -> list:
@@ -508,7 +507,6 @@ def train_targets(
     gt_labels: torch.Tensor,
     gt_mask: torch.Tensor,
     noise: TrainNoise,
-    plain: bool = False,
     on_stage: Callable[[str, object], None] | None = None,
 ) -> tuple[RPNTargets, RoITargets]:
     """The JAX package's ``vmap`` of proposals, RPN and RoI targets, written
@@ -520,14 +518,12 @@ def train_targets(
     where an image's problem passes the JAX package's gate); then
     :func:`sample_roi_targets` over ``[B, post_nms_train + G]``. No stage
     loops over the images or waits for the device. Returns ``[B, A]`` and
-    ``[B, S]`` targets; no gradient flows through them. ``plain`` (tests
-    only) keeps the plain NMS sweep, the plain anchor match, and the plain
-    RoI match above the gate. Each of :data:`TRAIN_TARGET_STAGES` is the
-    program's span ``train.<stage>`` under ``train.targets``
-    (``utils/logging.py``), ended by its mark; ``on_stage`` is called as
-    ``on_stage(name, result)`` as each stage ends. The spans read the host
-    clock alone: no device sync. The RoI targets are those of the first
-    stage of :func:`roi_stages`."""
+    ``[B, S]`` targets; no gradient flows through them. Each of
+    :data:`TRAIN_TARGET_STAGES` is the program's span ``train.<stage>``
+    under ``train.targets`` (``utils/logging.py``), ended by its mark;
+    ``on_stage`` is called as ``on_stage(name, result)`` as each stage
+    ends. The spans read the host clock alone: no device sync. The RoI
+    targets are those of the first stage of :func:`roi_stages`."""
     first = roi_stages(cfg)[0]
     with span("train.targets"), stage_spans("train", TRAIN_TARGET_STAGES, on_stage) as mark:
         props = propose_batch(
@@ -540,12 +536,11 @@ def train_targets(
             nms_iou=cfg.rpn_nms_iou,
             min_size=cfg.proposal_min_size,
             nms_tile=cfg.rpn_nms_tile_train or cfg.rpn_nms_tile,
-            plain=plain,
         )
         mark("propose", props)
         inside = anchor_inside(anchors, extents, cfg.rpn_boundary_filter)
         rpn_max, rpn_argmax, best_any = rpn_match(
-            anchors, gt_boxes, gt_mask, inside, cfg.rpn_allow_ties, plain=plain
+            anchors, gt_boxes, gt_mask, inside, cfg.rpn_allow_ties
         )
         mark("rpn_match", best_any)
         rpn_tg = rpn_labels(
@@ -566,7 +561,7 @@ def train_targets(
         mark("rpn_labels", rpn_tg)
         cand = torch.cat([props.rois, gt_boxes], dim=1)
         cand_valid = torch.cat([props.valid, gt_mask], dim=1)
-        iou_max, iou_argmax = roi_match(cand, cand_valid, gt_boxes, gt_mask, plain=plain)
+        iou_max, iou_argmax = roi_match(cand, cand_valid, gt_boxes, gt_mask)
         mark("roi_match", iou_max)
         roi_tg = sample_roi_targets(
             cand,
@@ -596,7 +591,6 @@ def train_losses(
     rpn_tg: RPNTargets,
     roi_tg: RoITargets,
     canvas_hw: tuple[int, int],
-    plain: bool = False,
     count_reduce: CountReduce | None = None,
     extents: torch.Tensor | None = None,
     gt: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
@@ -624,11 +618,11 @@ def train_losses(
         if t:
             roi_tg = next_stage_targets(
                 cfg, t - 1, roi_tg, head_reg.detach(), num_rois, extents, *gt,
-                noise.stage_pos[:, t - 1], noise.stage_neg[:, t - 1], plain,
+                noise.stage_pos[:, t - 1], noise.stage_neg[:, t - 1],
             )
             num_rois = cfg.roi_samples
         with stage_span("train.stage_head"):
-            head_cls, head_reg = _head_apply(model, feats, roi_tg.rois, canvas_hw, plain, stage=t)
+            head_cls, head_reg = model.head(feats, roi_tg.rois, canvas_hw, stage=t)
             deltas = target_deltas(head_reg, roi_tg.labels)
             sums.append(stage_sums(head_cls, deltas, roi_tg.labels, roi_tg.reg_targets))
     if cascade:
@@ -685,7 +679,6 @@ def next_stage_targets(
     gt_mask: torch.Tensor,
     pos_noise: torch.Tensor,
     neg_noise: torch.Tensor,
-    plain: bool = False,
 ) -> RoITargets:
     """Stage ``t + 1``'s targets from stage ``t``'s: its ``S`` sampled rois
     refined by its detached deltas ``reg [B, S, 4]`` (:func:`refine_boxes`),
@@ -703,7 +696,7 @@ def next_stage_targets(
         cand = torch.cat([boxes, gt_boxes], dim=1)
         cand_valid = torch.cat([valid, gt_mask], dim=1)
     with span("train.stage_match"):
-        iou_max, iou_argmax = roi_match(cand, cand_valid, gt_boxes, gt_mask, plain=plain)
+        iou_max, iou_argmax = roi_match(cand, cand_valid, gt_boxes, gt_mask)
     with span("train.stage_sample"):
         return sample_roi_targets(
             cand,
@@ -732,7 +725,6 @@ def forward_train(
     gt_mask: torch.Tensor,
     generator: torch.Generator | None = None,
     noise: TrainNoise | None = None,
-    plain: bool = False,
     count_reduce: CountReduce | None = None,
     on_stage: Callable[[str, object], None] | None = None,
 ) -> TrainStepOutput:
@@ -749,9 +741,6 @@ def forward_train(
         noise is sized by the model's anchors on this canvas and
         ``post_nms_train + G`` candidate rois (a cascade's later stages
         by ``roi_samples + G``: :func:`draw_train_noise`).
-      plain: tests only: the plain RoIPool or MultiScaleRoIAlign (forward
-        and backward), the plain NMS sweep and the plain IoU of the RoI
-        targets in place of the kernels.
       count_reduce: data parallelism: the loss's counts over the data
         group (``models/losses.py``).
       on_stage: :func:`train_targets`' marks.
@@ -773,13 +762,12 @@ def forward_train(
     if noise is None:
         noise = draw_train_noise(generator, cfg, b, anchors.shape[0], gt_boxes.shape[1], dev)
     rpn_tg, roi_tg = train_targets(
-        cfg, anchors, rpn_cls, rpn_reg, extents, gt_boxes, gt_labels, gt_mask, noise, plain,
-        on_stage,
+        cfg, anchors, rpn_cls, rpn_reg, extents, gt_boxes, gt_labels, gt_mask, noise, on_stage
     )
     with span("train.head_loss"):
         return train_losses(
-            model, cfg, feats, rpn_cls, rpn_reg, rpn_tg, roi_tg, (canvas_h, canvas_w), plain,
-            count_reduce, extents, (gt_boxes, gt_labels, gt_mask), noise,
+            model, cfg, feats, rpn_cls, rpn_reg, rpn_tg, roi_tg, (canvas_h, canvas_w), count_reduce,
+            extents, (gt_boxes, gt_labels, gt_mask), noise,
         )
 
 
@@ -793,15 +781,6 @@ class Detections(NamedTuple):
 PREDICT_STAGES = ("h2d", "backbone", "rpn_head", "propose", "roi_head", "decode", "class_nms")
 
 
-def _head_apply(model, feats, rois, canvas_hw, plain, stage: int = 0):
-    """Stage ``stage``'s RoI head of any generation: FPN aligns in canvas
-    pixels and needs the canvas, legacy (one stage) pools in feature
-    cells and does not."""
-    if isinstance(model, FPNFRCNN):
-        return model.head(feats, rois, canvas_hw, plain=plain, stage=stage)
-    return model.head(feats, rois, plain=plain)
-
-
 @torch.no_grad()
 def predict(
     model: LegacyFRCNN | FPNFRCNN,
@@ -809,7 +788,6 @@ def predict(
     images: torch.Tensor,
     extents: torch.Tensor,
     score_threshold: float | None = None,
-    plain: bool = False,
     on_stage: Callable[[str, object], None] | None = None,
 ) -> Detections:
     """Test-time forward of any generation: proposals, then
@@ -821,8 +799,6 @@ def predict(
       images: ``[B, H, W, 3]`` normalised canvas batch (the JAX package's
         layout; the network runs NCHW).
       extents: ``[B, 2]`` (w_frac, h_frac).
-      plain: tests only; hold the kernels' path against the plain RoIPool
-        or MultiScaleRoIAlign and the plain NMS sweep.
       on_stage: called as ``on_stage(name, result)`` as each of
         :data:`PREDICT_STAGES` ends (``h2d`` is the anchors' copy;
         ``decode`` hands over the class probabilities).
@@ -854,12 +830,10 @@ def predict(
             nms_iou=cfg.rpn_nms_iou,
             min_size=cfg.proposal_min_size,
             nms_tile=cfg.rpn_nms_tile,
-            plain=plain,
         )
         mark("propose", props.rois)
         return detect(
-            model, cfg, feats, props.rois, props.valid, (canvas_h, canvas_w), thres, plain, mark,
-            extents,
+            model, cfg, feats, props.rois, props.valid, (canvas_h, canvas_w), thres, mark, extents
         )
 
 
@@ -872,7 +846,6 @@ def detect(
     valid: torch.Tensor,
     canvas_hw: tuple[int, int],
     score_threshold: float,
-    plain: bool = False,
     on_stage: Callable[[str, object], None] | None = None,
     extents: torch.Tensor | None = None,
 ) -> Detections:
@@ -900,7 +873,7 @@ def detect(
             with span("predict.refine"):
                 rois = refine_boxes(rois, head_reg, stages[t - 1].reg_std, extents)
         with stage_span("predict.stage_head"):
-            head_cls, head_reg = _head_apply(model, feats, rois, canvas_hw, plain, stage=t)
+            head_cls, head_reg = model.head(feats, rois, canvas_hw, stage=t)
             if cascade:
                 total = total + softmax(head_cls)
     mark("roi_head", head_cls)
@@ -924,7 +897,6 @@ def detect(
             num_classes=cfg.num_classes,
             per_class_k=cfg.max_detections,
             max_det=cfg.max_detections,
-            plain=plain,
         )
     )
     mark("class_nms", dets)

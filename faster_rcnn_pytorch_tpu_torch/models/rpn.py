@@ -60,7 +60,6 @@ def propose_batch(
     nms_iou: float = 0.7,
     min_size: float = 1.0 / 1000.0,
     nms_tile: int = 512,
-    plain: bool = False,
 ) -> Proposals:
     """``post_k`` proposals of each image of a batch from its per-anchor
     predictions, with one NMS launch for the batch and no host sync.
@@ -73,7 +72,6 @@ def propose_batch(
       rpn_cls: ``[B, A, 2]`` logits. rpn_reg: ``[B, A, 4]`` deltas.
       anchors: ``[A, 4]`` xyxy in [0,1] canvas coords.
       extents: ``[B, 2]`` (w_frac, h_frac) valid extent of each image.
-      plain: tests only: the plain NMS sweep on any device.
 
     Returns :class:`Proposals` of ``[B, post_k, ...]``.
     """
@@ -101,7 +99,7 @@ def propose_batch(
     sorted_boxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
     in_budget = sorted_scores > float("-inf")
 
-    keep, _ = nms_segments(sorted_boxes, in_budget, nms_iou, post_k, tile=nms_tile, plain=plain)
+    keep, _ = nms_segments(sorted_boxes, in_budget, nms_iou, post_k, tile=nms_tile)
     keep_valid = keep >= 0
     pos = torch.where(keep_valid, keep, 0).long()
     rois = torch.gather(sorted_boxes, 1, pos[..., None].expand(-1, -1, 4))
@@ -123,12 +121,11 @@ def propose(
     nms_iou: float = 0.7,
     min_size: float = 1.0 / 1000.0,
     nms_tile: int = 512,
-    plain: bool = False,
 ) -> Proposals:
     """:func:`propose_batch` for one image: ``rpn_cls [A, 2]``, ``rpn_reg
     [A, 4]``, ``extent [2]`` -> :class:`Proposals` of ``[post_k, ...]``."""
     props = propose_batch(
         rpn_cls[None], rpn_reg[None], anchors, extent[None], pre_k, post_k,
-        nms_iou=nms_iou, min_size=min_size, nms_tile=nms_tile, plain=plain,
+        nms_iou=nms_iou, min_size=min_size, nms_tile=nms_tile,
     )
     return Proposals(*(t[0] for t in props))

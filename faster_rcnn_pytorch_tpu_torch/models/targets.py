@@ -184,7 +184,6 @@ def roi_match(
     cand_valid: torch.Tensor,
     gt_boxes: torch.Tensor,
     gt_mask: torch.Tensor,
-    plain: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Each candidate's best gt: ``(iou_max, iou_argmax)`` ``[..., R+G]`` of
     the masked IoU (-1 for a padded gt slot and for an invalid candidate),
@@ -194,12 +193,12 @@ def roi_match(
     Where an image's ``(R + G) * G`` reaches :data:`IOU_KERNEL_MIN_PAIRS`
     (the JAX package's gate: ``--max_gt`` 432 and up for legacy, 640 for
     FPN) this is the IoU kernel's match mode on a CUDA tensor, one launch
-    for the batch (its plain twin on the CPU or with the test-only
-    ``plain``); below it the plain chain in the inputs' dtype. Float32 on
-    both sides, also under bfloat16 autocast: the proposals are decoded
-    against float32 anchors and the gt comes from the loader."""
+    for the batch (its plain twin on the CPU); below it the plain chain in
+    the inputs' dtype. Float32 on both sides, also under bfloat16
+    autocast: the proposals are decoded against float32 anchors and the gt
+    comes from the loader."""
     if cand.shape[-2] * gt_boxes.shape[-2] >= IOU_KERNEL_MIN_PAIRS:
-        return iou_match(cand, cand_valid, gt_boxes, gt_mask, plain=plain)
+        return iou_match(cand, cand_valid, gt_boxes, gt_mask)
     iou = torch.where(cand_valid[..., :, None], masked_iou(cand, gt_boxes, gt_mask), -1.0)
     return iou.max(dim=-1)
 
@@ -258,7 +257,6 @@ def frcnn_targets(
     pos_quota: int = 32,
     pos_iou: float = 0.5,
     label_offset: int = 1,
-    plain: bool = False,
 ) -> RoITargets:
     """Sample ``num_samples`` rois and their class and box targets for one
     image: :func:`roi_match`, then :func:`sample_roi_targets`, on a batch
@@ -270,13 +268,11 @@ def frcnn_targets(
       gt_labels: ``[G]`` dataset labels, shifted by ``label_offset`` (1
         clears the legacy background slot).
       pos_noise / neg_noise: ``[R + G]`` uniform noise.
-      plain: tests only: the plain match where :func:`roi_match` would
-        launch the kernel.
     """
     cand = torch.cat([rois, gt_boxes], dim=0)[None]
     cand_valid = torch.cat([roi_valid, gt_mask], dim=0)[None]
     gt_boxes, gt_mask = gt_boxes[None], gt_mask[None]
-    iou_max, iou_argmax = roi_match(cand, cand_valid, gt_boxes, gt_mask, plain=plain)
+    iou_max, iou_argmax = roi_match(cand, cand_valid, gt_boxes, gt_mask)
     return _first(sample_roi_targets(
         cand, cand_valid, iou_max, iou_argmax, gt_boxes, gt_labels[None], pos_noise[None],
         neg_noise[None], num_samples=num_samples, pos_quota=pos_quota, pos_iou=pos_iou,

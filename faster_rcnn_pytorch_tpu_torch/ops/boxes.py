@@ -21,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from faster_rcnn_pytorch_tpu_torch.ops.cuda import extension
+from faster_rcnn_pytorch_tpu_torch.ops.library import use_kernel
 
 # The anchor match kernel's launch plan (ops/cuda/anchor_match.cu).
 RPN_MATCH_TILE = 128  # anchors a block holds (kTile)
@@ -147,21 +148,16 @@ def pairwise_iou(
     set_1: torch.Tensor,
     set_2: torch.Tensor,
     eps: float = 1e-5,
-    plain: bool = False,
     col_mask: torch.Tensor | None = None,
 ):
-    """Pairwise IoU dispatch: a CUDA tensor runs the hand kernel, a CPU
-    tensor (or the test-only ``plain``) the plain version."""
-    if set_1.is_cuda and not plain:
+    """Pairwise IoU dispatch (``ops/library.py::use_kernel``): the hand
+    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    if use_kernel(set_1, "IoU"):
         return pairwise_iou_cuda(set_1, set_2, eps, col_mask)
-    if set_1.device.type != "cpu" and not plain:
-        raise NotImplementedError(f"no IoU kernel for {set_1.device}")
     return pairwise_iou_reference(set_1, set_2, eps, col_mask)
 
 
-def masked_iou(
-    boxes: torch.Tensor, gt: torch.Tensor, gt_mask: torch.Tensor, eps: float = 1e-5, plain: bool = False
-):
+def masked_iou(boxes: torch.Tensor, gt: torch.Tensor, gt_mask: torch.Tensor, eps: float = 1e-5):
     """IoU of ``boxes [..., n, 4]`` vs padded ``gt [..., g, 4]``; padded gt
     slots (``gt_mask`` False) get -1, so no argmax or threshold picks them.
 
@@ -170,10 +166,9 @@ def masked_iou(
     kernel on a CUDA tensor; float32, as the JAX package's Pallas kernel
     casts), a smaller one through :func:`jaccard_iou` in the inputs' dtype,
     which is what the JAX package runs on the TPU below that gate.
-    ``plain`` is for tests only.
     """
     if boxes.dim() == 2 and boxes.shape[0] * gt.shape[0] >= IOU_KERNEL_MIN_PAIRS:
-        return pairwise_iou(boxes, gt, eps=eps, plain=plain, col_mask=gt_mask)
+        return pairwise_iou(boxes, gt, eps=eps, col_mask=gt_mask)
     iou = jaccard_iou(boxes, gt, eps=eps)
     return torch.where(gt_mask[..., None, :], iou, -1.0)
 
@@ -223,18 +218,16 @@ def iou_match(
     gt: torch.Tensor,
     gt_mask: torch.Tensor,
     eps: float = 1e-5,
-    plain: bool = False,
 ):
-    """Row max and argmax dispatch, batched ``[B, n, 4]`` or one image's
-    ``[n, 4]``: a CUDA tensor runs the match kernel (one launch for the
-    batch), a CPU tensor (or the test-only ``plain``) the plain chain."""
-    if boxes.is_cuda and not plain:
+    """Row max and argmax dispatch (``ops/library.py::use_kernel``),
+    batched ``[B, n, 4]`` or one image's ``[n, 4]``: the match kernel on a
+    CUDA tensor (one launch for the batch), the plain chain on a CPU
+    tensor."""
+    if use_kernel(boxes, "IoU"):
         if boxes.dim() == 2:
             best, index = iou_match_cuda(boxes[None], box_valid[None], gt[None], gt_mask[None], eps)
             return best[0], index[0]
         return iou_match_cuda(boxes, box_valid, gt, gt_mask, eps)
-    if boxes.device.type != "cpu" and not plain:
-        raise NotImplementedError(f"no IoU kernel for {boxes.device}")
     return iou_match_reference(boxes, box_valid, gt, gt_mask, eps)
 
 
@@ -385,16 +378,14 @@ def rpn_match(
     inside: torch.Tensor,
     allow_ties: bool = False,
     eps: float = 1e-5,
-    plain: bool = False,
 ):
     """The RPN's anchor assignment of a batch, ``(iou_max, iou_argmax,
-    best_any)`` ``[B, A]`` (:func:`rpn_match_reference`): a CUDA tensor runs
-    the kernel at every size (the JAX package has no gate here), a CPU
-    tensor (or the test-only ``plain``) the plain chain."""
-    if anchors.is_cuda and not plain:
+    best_any)`` ``[B, A]`` (:func:`rpn_match_reference`), dispatched by
+    ``ops/library.py::use_kernel``: the kernel on a CUDA tensor at every
+    size (the JAX package has no gate here), the plain chain on a CPU
+    tensor."""
+    if use_kernel(anchors, "anchor match"):
         return rpn_match_cuda(anchors, gt, gt_mask, inside, allow_ties, eps)
-    if anchors.device.type != "cpu" and not plain:
-        raise NotImplementedError(f"no anchor match kernel for {anchors.device}")
     return rpn_match_reference(anchors, gt, gt_mask, inside, allow_ties, eps)
 
 

@@ -17,17 +17,17 @@ as the chain's add hands it.
 function when an input needs a gradient, else the ``frcnn::frozen_bn`` op
 (``ops/library.py``), which ``torch.export`` traces and an exported
 program calls. A CUDA tensor runs the kernels, a CPU tensor the eager
-chain and its plain backward. ``inv`` is the caller's float32
-``rsqrt(var + eps) * weight`` (``models/resnet.py::FrozenBatchNorm2d``);
-the vectors take no gradient.
+chain and its plain backward (``ops/library.py::use_kernel``). ``inv``
+is the caller's float32 ``rsqrt(var + eps) * weight``
+(``models/resnet.py::FrozenBatchNorm2d``); the vectors take no gradient.
 """
 
 from __future__ import annotations
 
 import torch
 
-from faster_rcnn_pytorch_tpu_torch.ops import library  # noqa: F401  (registers frcnn::*)
 from faster_rcnn_pytorch_tpu_torch.ops.cuda import extension
+from faster_rcnn_pytorch_tpu_torch.ops.library import use_kernel  # also registers frcnn::*
 
 
 def _col(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -80,32 +80,17 @@ def frozen_bn_backward_cuda(grad, out, inv, residual_grad: bool):
 frozen_bn_backward_cuda.launches = 0
 
 
-def _forward(x, mean, inv, bias, residual, relu: bool) -> torch.Tensor:
-    """Forward dispatch: a CUDA tensor runs the kernel, a CPU tensor the chain."""
-    if x.is_cuda:
-        return frozen_bn_cuda(x, mean, inv, bias, residual, relu)
-    if x.device.type != "cpu":
-        raise NotImplementedError(f"no FrozenBN kernel for {x.device}")
-    return frozen_bn_reference(x, mean, inv, bias, residual, relu)
-
-
-def _backward(grad, out, inv, residual_grad: bool):
-    """Backward dispatch, as :func:`_forward`."""
-    if grad.is_cuda:
-        return frozen_bn_backward_cuda(grad, out, inv, residual_grad)
-    if grad.device.type != "cpu":
-        raise NotImplementedError(f"no FrozenBN backward kernel for {grad.device}")
-    return frozen_bn_backward_reference(grad, out, inv, residual_grad)
-
-
 class _FrozenBN(torch.autograd.Function):
     """The site with its gradient in ``x`` and the residual. A ReLU site
     keeps its output for the mask, as the chain's ReLU does; the vectors
-    get no gradient (they are buffers)."""
+    get no gradient (they are buffers). The backward takes the path the
+    forward took."""
 
     @staticmethod
     def forward(ctx, x, mean, inv, bias, residual, relu):
-        out = _forward(x, mean, inv, bias, residual, relu)
+        ctx.kernel = use_kernel(x, "FrozenBN")
+        forward = frozen_bn_cuda if ctx.kernel else frozen_bn_reference
+        out = forward(x, mean, inv, bias, residual, relu)
         ctx.residual_grad = residual is not None and ctx.needs_input_grad[4]
         ctx.save_for_backward(out if relu else None, inv)
         return out
@@ -113,7 +98,8 @@ class _FrozenBN(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         out, inv = ctx.saved_tensors
-        dx, dresidual = _backward(grad, out, inv, ctx.residual_grad)
+        backward = frozen_bn_backward_cuda if ctx.kernel else frozen_bn_backward_reference
+        dx, dresidual = backward(grad, out, inv, ctx.residual_grad)
         return dx, None, None, None, dresidual, None
 
 

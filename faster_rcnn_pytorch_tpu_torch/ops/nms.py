@@ -19,8 +19,8 @@ are tensor operations, and the greedy sweep itself is
 over a batch of score-sorted segments. On a CUDA tensor it launches the
 hand-written kernel (``ops/cuda/nms.cu``, :func:`nms_segments_cuda`), one
 launch for every segment of the call, a thread-block cluster of
-:func:`nms_plan`'s width a segment; on the CPU (or with the test-only
-``plain``) it runs :func:`nms_segments_reference`, the tiled sweep below,
+:func:`nms_plan`'s width a segment; on the CPU it runs
+:func:`nms_segments_reference`, the tiled sweep below,
 which synchronises with the host a few times a tile. ``tile`` sizes only
 that sweep: the result does not depend on it.
 
@@ -231,19 +231,17 @@ def nms_segments_cuda(
 nms_segments_cuda.launches = 0
 
 
-def nms_segments(boxes, valid, iou_threshold: float, post_k: int, tile: int = 256, plain: bool = False):
+def nms_segments(boxes, valid, iou_threshold: float, post_k: int, tile: int = 256):
     """``frcnn::nms_segments``: the kernel on a CUDA tensor, the plain
-    version on the CPU or with ``plain`` (tests only)."""
-    return torch.ops.frcnn.nms_segments(
-        boxes, valid, float(iou_threshold), int(post_k), int(tile), bool(plain)
-    )
+    version on the CPU."""
+    return torch.ops.frcnn.nms_segments(boxes, valid, float(iou_threshold), int(post_k), int(tile))
 
 
-def _kept(sorted_boxes, sorted_valid, iou_threshold, post_k, tile, plain):
+def _kept(sorted_boxes, sorted_valid, iou_threshold, post_k, tile):
     """Greedy survivors of ``[S, n]`` sorted segments -> ``(pos, ok)``, both
     ``[S, post_k]``: positions into the segments (0 where padded) and their
     validity."""
-    keep, _ = nms_segments(sorted_boxes, sorted_valid, iou_threshold, post_k, tile, plain)
+    keep, _ = nms_segments(sorted_boxes, sorted_valid, iou_threshold, post_k, tile)
     ok = keep >= 0
     return torch.where(ok, keep, 0).long(), ok
 
@@ -269,7 +267,6 @@ def nms(
     tile: int = 256,
     assume_sorted: bool = False,
     return_boxes: bool = False,
-    plain: bool = False,
 ):
     """Exact greedy NMS with static output shapes.
 
@@ -282,7 +279,6 @@ def nms(
       assume_sorted: the caller guarantees descending scores.
       return_boxes: also return the kept ``[post_k, 4]`` boxes and
         ``[post_k]`` scores (0 in padded slots).
-      plain: tests only: the plain sweep on any device.
 
     Returns ``(keep_idx, keep_valid[, boxes, scores])``.
     """
@@ -300,7 +296,7 @@ def nms(
         sorted_boxes = boxes.float()[order]
     sorted_valid = sorted_scores > _NEG_INF
 
-    pos, sel_valid = _kept(sorted_boxes[None], sorted_valid[None], iou_threshold, post_k, tile, plain)
+    pos, sel_valid = _kept(sorted_boxes[None], sorted_valid[None], iou_threshold, post_k, tile)
     pos, sel_valid = pos[0], sel_valid[0]
     keep_idx = torch.where(sel_valid, order[pos], -1).to(torch.int32)
     if not return_boxes:
@@ -318,7 +314,6 @@ def batched_nms(
     post_k: int,
     valid: torch.Tensor | None = None,
     tile: int = 256,
-    plain: bool = False,
 ):
     """Class-aware NMS: each class is shifted into its own cell by
     ``class * (max_coord + 1)`` before one greedy pass."""
@@ -327,9 +322,7 @@ def batched_nms(
     else:
         max_coord = torch.where(valid[:, None], boxes, 0.0).max()
     offsets = class_ids.float()[:, None] * (max_coord + 1.0)
-    return nms(
-        boxes + offsets, scores, iou_threshold, post_k=post_k, valid=valid, tile=tile, plain=plain
-    )
+    return nms(boxes + offsets, scores, iou_threshold, post_k=post_k, valid=valid, tile=tile)
 
 
 def _top_k_stable(x: torch.Tensor, k: int):
@@ -364,7 +357,6 @@ def multiclass_nms_batch(
     max_det: int = 100,
     tile: int = 256,
     candidate_k: int | None = None,
-    plain: bool = False,
 ):
     """Per-class suppression of the test-time head for a batch of images,
     one NMS launch for the batch.
@@ -417,7 +409,7 @@ def multiclass_nms_batch(
         shifted = _shift_by_class(flat_boxes, flat_labels[None], flat_valid)
         sorted_scores, order = _sort_desc(torch.where(flat_valid, flat_probs.float(), _NEG_INF))
         pos, ok = _kept(
-            _gather_rows(shifted, order), sorted_scores > _NEG_INF, iou_threshold, max_det, tile, plain
+            _gather_rows(shifted, order), sorted_scores > _NEG_INF, iou_threshold, max_det, tile
         )
         labels = flat_labels.expand(b, -1)
         return gather(flat_boxes, flat_probs, labels, _gather_rows(order, pos), ok)
@@ -430,7 +422,7 @@ def multiclass_nms_batch(
     shifted = _shift_by_class(cand_boxes, cand_labels, cand_valid)
     if k_cand == n_fg * n:
         # top_k is a full sort: the compaction is exact for every image.
-        pos, ok = _kept(shifted, cand_valid, iou_threshold, max_det, tile, plain)
+        pos, ok = _kept(shifted, cand_valid, iou_threshold, max_det, tile)
         return gather(cand_boxes, top_s, cand_labels, pos, ok)
 
     use_compact = fg_valid.sum(dim=(1, 2)) <= k_cand  # [B]
@@ -458,7 +450,6 @@ def multiclass_nms_batch(
         iou_threshold,
         max_det,
         tile,
-        plain,
     )
     pos, ok = pos.reshape(b, 1 + n_fg, max_det), ok.reshape(b, 1 + n_fg, max_det)
     compact = gather(cand_boxes, top_s, cand_labels, pos[:, 0], ok[:, 0])
@@ -501,7 +492,6 @@ def multiclass_nms(
     max_det: int = 100,
     tile: int = 256,
     candidate_k: int | None = None,
-    plain: bool = False,
 ):
     """:func:`multiclass_nms_batch` for one image: ``cls_boxes [n,
     num_classes, 4]``, ``cls_probs [n, num_classes]`` -> ``boxes [max_det,
@@ -516,6 +506,5 @@ def multiclass_nms(
         max_det=max_det,
         tile=tile,
         candidate_k=candidate_k,
-        plain=plain,
     )
     return tuple(t[0] for t in out)

@@ -25,8 +25,9 @@ package's ``_msra_batch_bwd``). Rois get no gradient.
 when the features need a gradient (through the ``frcnn::multiscale_roi_align``
 op otherwise): a CUDA tensor runs the hand-written kernels
 (``ops/cuda/roi_align.cu``, forward and backward), a CPU tensor the plain
-versions :func:`multiscale_roi_align_reference` (which adds the samples
-in the kernel's order, so the two agree bit for bit) and
+versions (``ops/library.py::use_kernel``)
+:func:`multiscale_roi_align_reference` (which adds the samples in the
+kernel's order, so the two agree bit for bit) and
 :func:`multiscale_roi_align_backward_reference`. The TPU package's window
 kernels, their ``fits`` mask, the backward's read-modify-write DMA
 protocol and the corner-gather and dense-VJP fallbacks are a VMEM layout
@@ -44,7 +45,7 @@ from __future__ import annotations
 
 import torch
 
-from faster_rcnn_pytorch_tpu_torch.ops import library  # noqa: F401  (registers frcnn::*)
+from faster_rcnn_pytorch_tpu_torch.ops.library import use_kernel  # also registers frcnn::*
 
 STRIDES = (4, 8, 16, 32)
 OUTPUT_SIZE = 7
@@ -281,22 +282,20 @@ def multiscale_roi_align_slots_cuda(features, rois: torch.Tensor, level: torch.T
 multiscale_roi_align_slots_cuda.launches = 0
 
 
-def multiscale_roi_align_slots(features, rois: torch.Tensor, plain: bool = False) -> torch.Tensor:
+def multiscale_roi_align_slots(features, rois: torch.Tensor) -> torch.Tensor:
     """The slot-lattice MultiScaleRoIAlign, forward only: ``features``
     P2..P5 ``[B, C, h_l, w_l]`` (each at least 2x2), ``rois [B, n, 4]`` in
     canvas pixels -> ``[B, n, C, 7, 7]`` in the features' dtype.
 
-    A CUDA tensor runs its hand kernel, a CPU tensor (or the test-only
-    ``plain``) the plain version. No model calls it: the FPN head uses
+    A CUDA tensor runs its hand kernel, a CPU tensor the plain version
+    (``ops/library.py::use_kernel``). No model calls it: the FPN head uses
     :func:`multiscale_roi_align_batch`, as the JAX package's head uses its
     window kernel and keeps the slot-lattice kernel for the record.
     """
     rois = rois.float()
     level = fpn_level_assignment(rois)
-    if rois.is_cuda and not plain:
+    if use_kernel(rois, "slot-lattice RoIAlign"):
         return multiscale_roi_align_slots_cuda(features, rois, level)
-    if rois.device.type != "cpu" and not plain:
-        raise NotImplementedError(f"no slot-lattice RoIAlign kernel for {rois.device}")
     return multiscale_roi_align_slots_reference(features, rois, level)
 
 
@@ -395,48 +394,41 @@ def multiscale_roi_align_backward_cuda(
 multiscale_roi_align_backward_cuda.launches = 0
 
 
-def multiscale_roi_align_backward(grad, rois, level, level_shapes, dtype, plain: bool = False):
-    """Features-gradient dispatch: a CUDA tensor runs the hand kernel, a
-    CPU tensor (or the test-only ``plain``) the plain version."""
-    if grad.is_cuda and not plain:
+def multiscale_roi_align_backward(grad, rois, level, level_shapes, dtype):
+    """Features-gradient dispatch (``ops/library.py::use_kernel``): the
+    hand kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    if use_kernel(grad, "MultiScaleRoIAlign backward"):
         return multiscale_roi_align_backward_cuda(grad, rois, level, level_shapes, dtype)
-    if grad.device.type != "cpu" and not plain:
-        raise NotImplementedError(f"no MultiScaleRoIAlign backward kernel for {grad.device}")
     return multiscale_roi_align_backward_reference(grad, rois, level, level_shapes, dtype)
-
-
-def _forward(features, rois, level, plain: bool):
-    if rois.is_cuda and not plain:
-        return multiscale_roi_align_cuda(features, rois, level)
-    if rois.device.type != "cpu" and not plain:
-        raise NotImplementedError(f"no MultiScaleRoIAlign kernel for {rois.device}")
-    return multiscale_roi_align_reference(features, rois, level)
 
 
 class _MultiScaleRoIAlign(torch.autograd.Function):
     """MultiScaleRoIAlign with its features-gradient (the JAX package's
     custom VJP). The forward keeps the rois, the level and the level
-    shapes for the backward, not the maps; rois get no gradient
-    (proposals and sampled rois are constants of the train step)."""
+    shapes for the backward, not the maps, and the backward takes the
+    forward's path; rois get no gradient (proposals and sampled rois are
+    constants of the train step)."""
 
     @staticmethod
-    def forward(ctx, rois, level, plain, *features):
+    def forward(ctx, rois, level, *features):
         ctx.save_for_backward(rois, level)
         ctx.level_shapes = [tuple(f.shape[-2:]) for f in features]
         ctx.features_dtype = features[0].dtype
-        ctx.plain = plain
-        return _forward(features, rois, level, plain)
+        ctx.kernel = use_kernel(rois, "MultiScaleRoIAlign")
+        forward = multiscale_roi_align_cuda if ctx.kernel else multiscale_roi_align_reference
+        return forward(features, rois, level)
 
     @staticmethod
     def backward(ctx, grad):
         rois, level = ctx.saved_tensors
-        dfeats = multiscale_roi_align_backward(
-            grad, rois, level, ctx.level_shapes, ctx.features_dtype, plain=ctx.plain
+        backward = (
+            multiscale_roi_align_backward_cuda if ctx.kernel else multiscale_roi_align_backward_reference
         )
-        return (None, None, None, *dfeats)
+        dfeats = backward(grad, rois, level, ctx.level_shapes, ctx.features_dtype)
+        return (None, None, *dfeats)
 
 
-def multiscale_roi_align_batch(features, rois: torch.Tensor, plain: bool = False) -> torch.Tensor:
+def multiscale_roi_align_batch(features, rois: torch.Tensor) -> torch.Tensor:
     """``features`` P2..P5 ``[B, C, h_l, w_l]`` at ``STRIDES``, ``rois
     [B, n, 4]`` in canvas pixels -> ``[B, n, C, 7, 7]`` in the features'
     dtype, differentiable in the features.
@@ -445,11 +437,9 @@ def multiscale_roi_align_batch(features, rois: torch.Tensor, plain: bool = False
     features need a gradient), a CPU tensor the plain versions. Without a
     gradient (predict) the forward is the ``frcnn::multiscale_roi_align``
     op (``ops/library.py``), which an exported program calls too.
-    ``plain=True`` is for tests only: it runs the plain versions on any
-    device, so a caller can hold the kernels' path against them.
     """
     rois = rois.float()
     level = fpn_level_assignment(rois)
     if torch.is_grad_enabled() and any(f.requires_grad for f in features):
-        return _MultiScaleRoIAlign.apply(rois, level, plain, *features)
-    return torch.ops.frcnn.multiscale_roi_align(list(features), rois, level, plain)
+        return _MultiScaleRoIAlign.apply(rois, level, *features)
+    return torch.ops.frcnn.multiscale_roi_align(list(features), rois, level)

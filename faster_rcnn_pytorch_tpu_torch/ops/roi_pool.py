@@ -15,8 +15,9 @@ the JAX package's, bit for bit:
   ``row * w_pad + col`` with ``w_pad`` rounded up to 8, a layout artifact
   the port does not carry.)
 
-:func:`roi_pool_batch` dispatches: a CUDA tensor goes to the hand-written
-kernels (``ops/cuda/roi_pool.cu``) and a CPU tensor to the plain versions,
+:func:`roi_pool_batch` dispatches (``ops/library.py::use_kernel``): a
+CUDA tensor goes to the hand-written kernels (``ops/cuda/roi_pool.cu``)
+and a CPU tensor to the plain versions,
 :func:`roi_pool_reference` and :func:`roi_pool_backward_reference`. The
 kernels hold channel planes in shared memory; :func:`forward_plan` and
 :func:`backward_plan` cut the work into thread blocks. The
@@ -33,7 +34,7 @@ import functools
 
 import torch
 
-from faster_rcnn_pytorch_tpu_torch.ops import library  # noqa: F401  (registers frcnn::*)
+from faster_rcnn_pytorch_tpu_torch.ops.library import use_kernel  # also registers frcnn::*
 
 # Rois gathered per step by the plain version (bounds its transient memory).
 _ROI_CHUNK = 32
@@ -379,49 +380,35 @@ def roi_pool_backward_cuda(
 roi_pool_backward_cuda.launches = 0
 
 
-def roi_pool_backward(grad, argmax, features_shape, dtype, plain: bool = False):
-    """Features-gradient dispatch: a CUDA tensor runs the hand kernel, a
-    CPU tensor (or the test-only ``plain``) the plain version."""
-    if grad.is_cuda and not plain:
+def roi_pool_backward(grad, argmax, features_shape, dtype):
+    """Features-gradient dispatch (``ops/library.py::use_kernel``): the
+    hand kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    if use_kernel(grad, "RoIPool backward"):
         return roi_pool_backward_cuda(grad, argmax, features_shape, dtype)
-    if grad.device.type != "cpu" and not plain:
-        raise NotImplementedError(f"no RoIPool backward kernel for {grad.device}")
     return roi_pool_backward_reference(grad, argmax, features_shape, dtype)
-
-
-def _roi_pool_forward(features, rois, spatial_scale, output_size, with_argmax, plain):
-    if features.is_cuda and not plain:
-        return roi_pool_cuda(features, rois, spatial_scale, output_size, with_argmax)
-    if features.device.type != "cpu" and not plain:
-        raise NotImplementedError(f"no RoIPool kernel for {features.device}")
-    return roi_pool_reference(
-        features, rois, spatial_scale, output_size, with_argmax=with_argmax
-    )
 
 
 class _RoIPool(torch.autograd.Function):
     """RoIPool with the argmax backward (the JAX package's custom VJP).
-    The forward keeps only the int32 argmax for the backward; rois get no
-    gradient (proposals are constants of the train step)."""
+    The forward keeps only the int32 argmax for the backward, whose path
+    is the forward's; rois get no gradient (proposals are constants of the
+    train step)."""
 
     @staticmethod
-    def forward(ctx, features, rois, spatial_scale, output_size, plain):
-        out, argmax = _roi_pool_forward(
-            features, rois, spatial_scale, output_size, True, plain
-        )
+    def forward(ctx, features, rois, spatial_scale, output_size):
+        ctx.kernel = use_kernel(features, "RoIPool")
+        forward = roi_pool_cuda if ctx.kernel else roi_pool_reference
+        out, argmax = forward(features, rois, spatial_scale, output_size, with_argmax=True)
         ctx.save_for_backward(argmax)
         ctx.features_shape = tuple(features.shape)
         ctx.features_dtype = features.dtype
-        ctx.plain = plain
         return out
 
     @staticmethod
     def backward(ctx, grad):
         (argmax,) = ctx.saved_tensors
-        dfeat = roi_pool_backward(
-            grad, argmax, ctx.features_shape, ctx.features_dtype, plain=ctx.plain
-        )
-        return dfeat, None, None, None, None
+        backward = roi_pool_backward_cuda if ctx.kernel else roi_pool_backward_reference
+        return backward(grad, argmax, ctx.features_shape, ctx.features_dtype), None, None, None
 
 
 def roi_pool_batch(
@@ -430,21 +417,19 @@ def roi_pool_batch(
     spatial_scale: float = 1.0,
     output_size: int = 7,
     with_argmax: bool = False,
-    plain: bool = False,
 ):
     """``features [B, C, h, w]``, ``rois [B, n, 4]`` -> ``[B, n, C, P, P]``.
 
     A CUDA tensor runs the hand kernels, a CPU tensor the plain versions.
     When ``features`` needs a gradient the call goes through an autograd
     function whose forward also writes the argmax and whose backward is
-    :func:`roi_pool_backward`; otherwise (predict, ``no_grad``) it is the
+    the features-gradient kernel; otherwise (predict, ``no_grad``) it is the
     forward alone, the ``frcnn::roi_pool`` op (``ops/library.py``), which
-    an exported program calls too. ``plain=True`` is for tests only: it runs the plain
-    versions on any device, so a caller can hold the kernels' path
-    against them.
+    an exported program calls too.
     """
     if torch.is_grad_enabled() and features.requires_grad and not with_argmax:
-        return _RoIPool.apply(features, rois, spatial_scale, output_size, plain)
+        return _RoIPool.apply(features, rois, spatial_scale, output_size)
     if with_argmax:
-        return _roi_pool_forward(features, rois, spatial_scale, output_size, True, plain)
-    return torch.ops.frcnn.roi_pool(features, rois, float(spatial_scale), int(output_size), plain)
+        forward = roi_pool_cuda if use_kernel(features, "RoIPool") else roi_pool_reference
+        return forward(features, rois, spatial_scale, output_size, with_argmax=True)
+    return torch.ops.frcnn.roi_pool(features, rois, float(spatial_scale), int(output_size))

@@ -198,7 +198,7 @@ def port_preactivations(pmodel, images, roi_tg):
     try:
         with torch.no_grad():
             feats = pmodel.features(images)
-            pfr._head_apply(pmodel, feats, roi_tg.rois, CANVAS_HW, False)
+            pmodel.head(feats, roi_tg.rois, CANVAS_HW)
     finally:
         for h in hooks:
             h.remove()

@@ -17,7 +17,7 @@ gate. Held here:
   bit for bit, the argmax equal;
 * ``roi_match`` below the gate is the old chain in the inputs' dtype
   (bfloat16 here);
-* ``train_targets`` above the gate (``plain=True`` on the CPU; legacy at
+* ``train_targets`` above the gate (under ``plain_versions()``; legacy at
   512 gt slots, FPN at 640 with an image without gt, one whose positives
   exceed each quota and one whose candidates cannot fill the RoI budget)
   calls the match once for the batch and gives, bit for bit, target for
@@ -38,6 +38,7 @@ from faster_rcnn_pytorch_tpu_torch.models import targets as pt
 from faster_rcnn_pytorch_tpu_torch.models.anchors import fpn_anchors, legacy_anchors
 from faster_rcnn_pytorch_tpu_torch.models.faster_rcnn import FPN_CONFIG, LEGACY_CONFIG
 from faster_rcnn_pytorch_tpu_torch.ops import boxes as pb
+from faster_rcnn_pytorch_tpu_torch.ops.library import plain_versions
 from tests.conftest import boxes_fixture
 from tests.torch_train_batches import assert_equal_targets, per_image_targets, train_batch
 
@@ -141,10 +142,10 @@ def test_train_targets_match_once_for_the_batch_as_frcnn_targets_per_image(scene
 
     monkeypatch.setattr(pb, "iou_match_reference", spy)
     stages = {}
-    rpn_tg, roi_tg = pfr.train_targets(
-        cfg, anchors, *batch, plain=True,
-        on_stage=lambda name, result: stages.__setitem__(name, result),
-    )
+    with plain_versions():
+        rpn_tg, roi_tg = pfr.train_targets(
+            cfg, anchors, *batch, on_stage=lambda name, result: stages.__setitem__(name, result)
+        )
     assert calls == [(b, n_cand, 4)]
     assert int(roi_tg.is_pos.sum()) > 0
     assert not roi_tg.valid.all()  # an image's pools cannot fill the budget
@@ -154,7 +155,9 @@ def test_train_targets_match_once_for_the_batch_as_frcnn_targets_per_image(scene
         assert int((rpn_tg.labels[1] == 1).sum()) == cfg.rpn_pos_quota
         assert int((stages["roi_match"][1] >= cfg.roi_pos_iou).sum()) > cfg.roi_pos_quota
         assert int(roi_tg.is_pos[1].sum()) == cfg.roi_pos_quota
-    for i, (want_rpn, want_roi) in enumerate(per_image_targets(cfg, anchors, batch, plain=True)):
+    with plain_versions():
+        want = list(per_image_targets(cfg, anchors, batch))
+    for i, (want_rpn, want_roi) in enumerate(want):
         assert_equal_targets(roi_tg, want_roi, i)
         assert_equal_targets(rpn_tg, want_rpn, i)
     assert len(calls) == 1 + b  # one per image for frcnn_targets, one for the batch
@@ -178,8 +181,8 @@ def test_cuda_match_and_masked_matrix_equal_their_twins(eps):
     got = pb.iou_match(cand, valid, gt, gt_mask, eps)
     torch.cuda.synchronize()
     assert pb.iou_match_cuda.launches == before + 1
-    want = pb.iou_match(cand, valid, gt, gt_mask, eps, plain=True)
+    want = pb.iou_match_reference(cand, valid, gt, gt_mask, eps)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     got = pb.pairwise_iou(cand[0], gt[0], eps, col_mask=gt_mask[0])
-    want = pb.pairwise_iou(cand[0], gt[0], eps, plain=True, col_mask=gt_mask[0])
+    want = pb.pairwise_iou_reference(cand[0], gt[0], eps, col_mask=gt_mask[0])
     assert torch.equal(got, want)

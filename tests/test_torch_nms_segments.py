@@ -281,20 +281,20 @@ def _opcheck(op, args):
 def test_ops_fake_implementations_match_real_shapes_and_dtypes():
     rs = np.random.RandomState(5)
     boxes, valid = hard_segments(rs, 3, 90)
-    nms_args = (_t(boxes), _t(valid), 0.5, 20, 32, False)
+    nms_args = (_t(boxes), _t(valid), 0.5, 20, 32)
     _opcheck(torch.ops.frcnn.nms_segments.default, nms_args)
 
     for dtype in (torch.float32, torch.bfloat16):
         feats = torch.tensor(rs.normal(size=(2, 3, 9, 11)).astype(np.float32)).to(dtype)
         rois = torch.tensor(np.stack([boxes_fixture(rs, 5, 10.0) for _ in range(2)]))
-        _opcheck(torch.ops.frcnn.roi_pool.default, (feats, rois, 1.0, 7, False))
+        _opcheck(torch.ops.frcnn.roi_pool.default, (feats, rois, 1.0, 7))
         levels = [
             torch.tensor(rs.normal(size=(2, 4, 64 // s, 96 // s)).astype(np.float32)).to(dtype)
             for s in pra.STRIDES
         ]
         px = torch.tensor(np.stack([boxes_fixture(rs, 6, 64.0) for _ in range(2)]))
         level = pra.fpn_level_assignment(px)
-        _opcheck(torch.ops.frcnn.multiscale_roi_align.default, (levels, px, level, False))
+        _opcheck(torch.ops.frcnn.multiscale_roi_align.default, (levels, px, level))
 
     # the fakes alone: shapes and dtypes without running anything
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -302,7 +302,7 @@ def test_ops_fake_implementations_match_real_shapes_and_dtypes():
     with FakeTensorMode() as mode:
         fb = mode.from_tensor(_t(boxes))
         fv = mode.from_tensor(_t(valid))
-        keep, count = torch.ops.frcnn.nms_segments(fb, fv, 0.5, 20, 32, False)
+        keep, count = torch.ops.frcnn.nms_segments(fb, fv, 0.5, 20, 32)
     assert keep.shape == (3, 20) and keep.dtype == torch.int32
     assert count.shape == (3,) and count.dtype == torch.int32
 
@@ -380,7 +380,7 @@ def test_cuda_kernel_matches_reference_at_call_site_shapes():
     cases.append(("near-threshold pairs", threshold_segments(rs, 2, 2000, 0.7), 0.7, 1000))
     for what, (boxes, valid), thr, post_k in cases:
         tb, tv = _t(boxes).to(dev), _t(valid).to(dev)
-        want_keep, want_count = pnms.nms_segments(tb, tv, thr, post_k, plain=True)
+        want_keep, want_count = pnms.nms_segments_reference(tb, tv, thr, post_k)
         for width in (None, 1, 8, 16):
             before = pnms.nms_segments_cuda.launches
             if width is None:

@@ -132,7 +132,8 @@ def test_cuda_kernel_matches_plain_bit_for_bit(fuzz, dtype):
     out = pra.multiscale_roi_align_slots(feats, r)
     torch.cuda.synchronize()
     assert pra.multiscale_roi_align_slots_cuda.launches == before + 1
-    assert out.dtype == dtype and torch.equal(out, pra.multiscale_roi_align_slots(feats, r, plain=True))
+    want = pra.multiscale_roi_align_slots_reference(feats, r, pra.fpn_level_assignment(r))
+    assert out.dtype == dtype and torch.equal(out, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -338,6 +338,6 @@ def test_cuda_match_equals_its_twin(allow_ties):
             got = pb.rpn_match(a, gt, gt_mask, inside, ties, eps)
             torch.cuda.synchronize()
             assert pb.rpn_match_cuda.launches == before + 1
-            want = pb.rpn_match(a, gt, gt_mask, inside, ties, eps, plain=True)
+            want = pb.rpn_match_reference(a, gt, gt_mask, inside, ties, eps)
             assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
             assert all(torch.equal(g, w) for g, w in zip(got[1:], want[1:]))

@@ -34,7 +34,7 @@ def train_batch(cfg, anchors, slots, reals, extents, seed, scale=0.7):
             gt_labels, torch.tensor(gt_mask), noise)
 
 
-def per_image_targets(cfg, anchors, batch, plain=False):
+def per_image_targets(cfg, anchors, batch):
     """Image ``i``'s ``(RPNTargets, RoITargets)`` from ``propose``,
     ``rpn_targets`` and ``frcnn_targets``, one image at a time."""
     rpn_cls, rpn_reg, extents, gt, gt_labels, gt_mask, noise = batch
@@ -53,7 +53,7 @@ def per_image_targets(cfg, anchors, batch, plain=False):
         roi = pt.frcnn_targets(
             props.rois, props.valid, gt[i], gt_labels[i], gt_mask[i], noise.roi_pos[i],
             noise.roi_neg[i], num_samples=cfg.roi_samples, pos_quota=cfg.roi_pos_quota,
-            pos_iou=cfg.roi_pos_iou, label_offset=cfg.label_offset, plain=plain,
+            pos_iou=cfg.roi_pos_iou, label_offset=cfg.label_offset,
         )
         yield rpn, roi
 
